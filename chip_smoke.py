@@ -10,17 +10,26 @@ Phases, each fatal on failure:
    per source, all started together);
 3. kernel checks at a mid size (B = 2 at 256x384, a 3,042-triangle dome and
    a 32-triangle dome whose large triangles fill the global list, 1024^2
-   texture): K1 against its plain PyTorch version (ids and entries exactly
-   equal, payload/extra/colour within 1e-5) and K2 against its plain
-   version on the same planes (within 1e-6);
-4. the slice at full width: the benchmarked workload (1600x1200, 29,768
+   texture), each kernel against its plain PyTorch version on the same
+   inputs: K1 (ids and entries exactly equal, payload/extra/colour within
+   1e-5), K2 (within 1e-6), K3 (within 1e-6: a deterministic gather in the
+   plain version's order), K4 (gtu/gtv within 1e-6), and K4's gtex, K5's
+   and K6's rows, whose atomics sum in another order, each element within
+   1e-5 of the sum of the magnitudes it adds up;
+4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0) through ``fit.loop.evaluate``: 1 warm-up batch, then 5
    timed batches with the launch counters set to 0 just before; the losses
-   must be finite and each kernel launched once per batch; then per-stage
-   CUDA-event times of one batch;
-5. each kernel at the main path's shapes against its plain version, with
-   its time, the plain version's time and its bound, printed as one
+   must be finite and K1 and K2 launched once per batch;
+5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
+   dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host sync on the step's path fails it), then 2 timed dispatches of 5
+   with the six launch counters set to 0 just before; every loss term and
+   parameter must be finite and each of K1-K6 launched once per step;
+   then per-stage CUDA-event times of one batch's forward and one step;
+6. each kernel at the main path's shapes against its plain version, with
+   its time, the plain version's time, the library call's time where one
+   computes the same function, and its bound, printed as one
    ``{"kernels": [...]}`` line.
 
 The card's line and the kernels line come before the last line, which is
@@ -41,6 +50,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 K1_ATOL = 1e-5                 # payload / extra / colour; ids exact
 K2_ATOL = 1e-6
+K3_ATOL = 1e-6                 # deterministic, the plain version's order
+K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
+ATOMIC_RTOL = 1e-5             # gtex, K5/K6 rows: atomics reorder sums
 
 
 def fail(msg: str) -> None:
@@ -108,6 +120,103 @@ def check_kernels(bins, tex, rows, pw, height, width, sample_ph, label):
     return max(errs.values()), e2, k1
 
 
+def atomic_err(a, b, mag) -> float:
+    """Max over elements of |a - b| / mag, where mag is the sum of the
+    magnitudes of the terms the element adds up: a float sum taken in
+    another order errs by a few ulp of that (and by 0 where it is 0)."""
+    if not a.numel():
+        return 0.0
+    d = (a.double() - b.double()).abs()
+    return float((d / mag.double().clamp_min(1e-30)).max())
+
+
+def k5_magnitudes(bins, entry, u, v, extra, gpl):
+    """K5's rows summed over |coefficient| (the plain version's sums)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+
+    rows, pw = entry.shape
+    x = torch.arange(pw, device=entry.device) + 0.5
+    y = (torch.arange(rows, device=entry.device) + 0.5)[:, None]
+    coeff = gc.coefficient_planes(u, v, extra, gpl, x, y).abs()
+    coeff = coeff.reshape(coeff.shape[0], -1).T
+    e = entry.reshape(-1).long()
+    ent = torch.zeros((bins.gbase, coeff.shape[1]), device=entry.device)
+    glob = torch.zeros((gc.MAX_GLOBAL, coeff.shape[1]), device=entry.device)
+    binned = (e >= 0) & (e < bins.gbase)
+    ent.index_add_(0, e[binned], coeff[binned])
+    ge = e >= bins.gbase
+    glob.index_add_(0, e[ge] - bins.gbase, coeff[ge])
+    return ent, glob
+
+
+def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
+                   n_tris, label):
+    """K3-K6 against their plain versions on the same inputs.
+
+    :param k1: K1's outputs; g_aa: (C, rows, pw) cotangent of K2's output;
+    gtuv: (3, rows, pw) cotangents of payload u, v, z for K5 (zero on the
+    main path). :return: (the checked errors, kernel name -> max abs
+    error over its outputs, the kernels' outputs).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    idbuf, entry, payload, extra, colour = k1
+    k3 = ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, height,
+                                 width, sample_ph)
+    torch.cuda.synchronize()
+    p3 = ac.antialias_planes_bwd_plain(idbuf, payload, colour, g_aa, height,
+                                       width, sample_ph)
+    errs = {"K3 gcolour": max_err(k3[0], p3[0]),
+            "K3 gverts": max_err(k3[1], p3[1])}
+    if not max(errs.values()) <= K3_ATOL:
+        fail(f"{label}: K3 differs from the plain version: {errs}")
+    gcolour, gverts = k3
+    k4 = tc.texture_planes_bwd(tex, payload[3], payload[4], gcolour)
+    torch.cuda.synchronize()
+    p4 = tc.texture_planes_bwd_plain(tex, payload[3], payload[4], gcolour)
+    m4 = tc.texture_planes_bwd_plain(tex, payload[3], payload[4],
+                                     gcolour.abs())[0]
+    errs.update({"K4 gtu": max_err(k4[1], p4[1]),
+                 "K4 gtv": max_err(k4[2], p4[2]),
+                 "K4 gtex rel": atomic_err(k4[0], p4[0], m4)})
+    if not (max(errs["K4 gtu"], errs["K4 gtv"]) <= K4_ATOL
+            and errs["K4 gtex rel"] <= ATOMIC_RTOL):
+        fail(f"{label}: K4 differs from the plain version: {errs}")
+    gpl = torch.cat([gtuv, k4[1][None], k4[2][None], gverts])
+    k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    torch.cuda.synchronize()
+    p5 = gc.pixel_grad_plain(bins, entry, payload[0], payload[1], extra, gpl)
+    m5 = k5_magnitudes(bins, entry, payload[0], payload[1], extra, gpl)
+    live = int(bins.bin_start[-1])
+    errs.update({
+        "K5 entries rel": atomic_err(k5[0][:live], p5[0][:live],
+                                     m5[0][:live]),
+        "K5 global rel": atomic_err(k5[1], p5[1], m5[1])})
+    k6 = gc.fold_entries(*k5, bins, n_tris)
+    torch.cuda.synchronize()
+    p6 = gc.fold_entries_plain(*k5, bins, n_tris)
+    errs["K6 rel"] = atomic_err(k6, p6, gc.fold_entries_plain(
+        k5[0].abs(), k5[1].abs(), bins, n_tris))
+    if not max(errs["K5 entries rel"], errs["K5 global rel"],
+               errs["K6 rel"]) <= ATOMIC_RTOL:
+        fail(f"{label}: K5/K6 differ from the plain versions: {errs}")
+    print(f"check {label}: backward max err {errs}", flush=True)
+    abs_errs = {
+        "antialias_bwd": max(errs["K3 gcolour"], errs["K3 gverts"]),
+        "texture_bwd": max(errs["K4 gtu"], errs["K4 gtv"],
+                           max_err(k4[0], p4[0])),
+        "pixel_grad": max(max_err(k5[0][:live], p5[0][:live]),
+                          max_err(k5[1], p5[1])),
+        "fold_entries": max_err(k6, p6)}
+    return errs, abs_errs, (k3, k4, k5, k6, gpl)
+
+
 def k1_bound_ms(bins, rows, pw, C, tex):
     """Least time for K1's work: each input read once, each output written
     once (bytes), against ~16 flops per (pixel, live entry) coverage test
@@ -146,6 +255,80 @@ def k2_bound_ms(idbuf, C, height, width, sample_ph):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def _bound(nbytes, ops):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _diff_pairs(idbuf, height, width, sample_ph):
+    """(pairs whose ids differ, pixels in at least one such pair), within
+    the pair masks of K2/K3."""
+    import torch
+
+    rows, pw = idbuf.shape
+    h = torch.zeros_like(idbuf, dtype=torch.bool)
+    h[:, :width - 1] = idbuf[:, :width - 1] != idbuf[:, 1:width]
+    vmask = (torch.arange(rows, device=idbuf.device) % sample_ph
+             < height - 1)[:-1, None]
+    v = torch.zeros_like(h)
+    v[:-1] = (idbuf[:-1] != idbuf[1:]) & vmask
+    px = h.clone()
+    px[:, 1:] |= h[:, :-1]
+    px |= v
+    px[1:] |= v[:-1]
+    return int(h.sum() + v.sum()), int(px.sum())
+
+
+def k3_bound_ms(idbuf, C, height, width, sample_ph):
+    """K3: id, C colour and C gout read and C + 6 planes written for every
+    pixel; z, 6 corners and 3 neighbours read for the pixels in a pair
+    whose ids differ (bytes). ~150 flops per such pair for its forward
+    recompute and derivative (operations)."""
+    px = idbuf.numel()
+    pairs, diff_px = _diff_pairs(idbuf, height, width, sample_ph)
+    nbytes = px * 4 * (1 + 2 * C + C + 6) + diff_px * 4 * 10
+    return _bound(nbytes, 150 * pairs + 8 * px)
+
+
+def k4_bound_ms(gcolour, tex):
+    """K4: C cotangent planes read and gtu/gtv written for every pixel, tu
+    and tv read where the cotangent is not 0, the texture read and gtex
+    written (bytes); ~40 flops per such pixel and channel (operations)."""
+    C = gcolour.shape[0]
+    px = gcolour[0].numel()
+    live = int((gcolour != 0).any(dim=0).sum())
+    nbytes = px * 4 * (C + 2) + live * 8 + 2 * tex.numel() * 4
+    return _bound(nbytes, 40 * live * C)
+
+
+def k5_bound_ms(entry, bins):
+    """K5: entry read for every pixel, u, v, 8 extra and 11 cotangent
+    planes for every covered pixel, one 128-byte row written per live and
+    global entry (bytes); ~110 flops per covered pixel for the
+    coefficients and their sums (operations)."""
+    hit = int((entry >= 0).sum())
+    rows = int(bins.bin_start[-1]) + int(bins.n_global[0])
+    nbytes = entry.numel() * 4 + hit * 4 * 21 + rows * 128
+    return _bound(nbytes, 110 * hit)
+
+
+def k6_bound_ms(bins, n_tris):
+    """K6: 27 floats and a triangle id read per live and global entry, the
+    (B*T, 32) rows written (bytes); 27 adds per entry (operations)."""
+    rows = int(bins.bin_start[-1]) + int(bins.n_global[0])
+    return _bound(rows * (27 * 4 + 4) + n_tris * 128, 27 * rows)
+
+
+KERNELS = {
+    "fused_raster": ("csrc/fused_raster.cu", "rasterize_tpu.py:1055"),
+    "antialias": ("csrc/antialias.cu", "antialias_tpu.py:184"),
+    "antialias_bwd": ("csrc/antialias_bwd.cu", "antialias_tpu.py:228"),
+    "texture_bwd": ("csrc/texture_bwd.cu", "texture_tpu.py:463"),
+    "pixel_grad": ("csrc/raster_grad.cu", "raster_grad_tpu.py:97"),
+    "fold_entries": ("csrc/raster_grad.cu", "raster_grad_tpu.py:338"),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -159,8 +342,11 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.kernels import build
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+    from fpc_diffrend_tpu_torch.profile_forward import (forward_stages,
+                                                        step_stages)
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     t_start = time.perf_counter()
@@ -186,6 +372,8 @@ def main() -> int:
 
     # ---- 3. kernel checks at a mid size ----
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     for grid in (40, 5):
         wl = build_workload(256, 384, grid=grid, batch=2, tex_size=1024,
                             device=dev)
@@ -194,34 +382,46 @@ def main() -> int:
             fn()
         bins = state["bins"]
         ph, pw = rc.pad_resolution(256, 384)
-        check_kernels(bins, wl["params"]["tex"], 2 * ph, pw, 256, 384, ph,
-                      f"dome grid {grid}, {wl['faces'].shape[0]} tris")
+        label = f"dome grid {grid}, {wl['faces'].shape[0]} tris"
+        _, _, k1 = check_kernels(bins, wl["params"]["tex"], 2 * ph, pw, 256,
+                                 384, ph, label)
         if grid == 5 and int(bins.n_global[0]) == 0:
             fail("the large-triangle check scene left the global list empty")
+        # random cotangents, u/v/z ones included, exercise every slot
+        g_aa = torch.randn(k1[4].shape, device=dev, generator=gen)
+        gtuv = torch.randn((3, 2 * ph, pw), device=dev, generator=gen)
+        check_backward(k1, bins, wl["params"]["tex"], g_aa, gtuv, 256, 384,
+                       ph, 2 * wl["faces"].shape[0], label)
 
-    # ---- 4. the slice at full width ----
+    # ---- 4. the forward at full width ----
     t0 = time.perf_counter()
     wl = build_workload(device=dev)
     torch.cuda.synchronize()
     record["workload_build_s"] = time.perf_counter() - t0
     config, scene, params = wl["config"], wl["scene"], wl["params"]
     H, W, B = wl["H"], wl["W"], wl["B"]
-    print(f"workload: {H}x{W}, {wl['faces'].shape[0]} tris, batch {B}, "
+    T = wl["faces"].shape[0]
+    print(f"workload: {H}x{W}, {T} tris, batch {B}, "
           f"tex {tuple(params['tex'].shape)}, built in "
           f"{record['workload_build_s']:.1f} s", flush=True)
-    gen = torch.Generator().manual_seed(0)
-    loop.evaluate(config, scene, params, wl["frames_u8"], 1, gen)
+    cpu_gen = torch.Generator().manual_seed(0)
+    loop.evaluate(config, scene, params, wl["frames_u8"], 1, cpu_gen)
     torch.cuda.synchronize()
     n_batches = 5
-    rc.fused_raster.launches = 0
-    ac.antialias_planes.launches = 0
+    counters = {"fused_raster": rc.fused_raster,
+                "antialias": ac.antialias_planes,
+                "antialias_bwd": ac.antialias_planes_bwd,
+                "texture_bwd": tc.texture_planes_bwd,
+                "pixel_grad": gc.pixel_grad,
+                "fold_entries": gc.fold_entries}
+    for f in counters.values():
+        f.launches = 0
     t0 = time.perf_counter()
     metrics = loop.evaluate(config, scene, params, wl["frames_u8"],
-                            n_batches, gen)
+                            n_batches, cpu_gen)
     torch.cuda.synchronize()
     fwd_ms = (time.perf_counter() - t0) / n_batches * 1e3
-    launches = {"fused_raster": rc.fused_raster.launches,
-                "antialias": ac.antialias_planes.launches}
+    launches = {k: f.launches for k, f in counters.items()}
     metrics = {k: v.tolist() for k, v in metrics.items()}
     print(f"evaluate: {n_batches} batches, forward {fwd_ms:.3f} ms/batch "
           f"(host clock, synchronized); launches {launches}; "
@@ -229,55 +429,136 @@ def main() -> int:
     for k, v in metrics.items():
         if not all(math.isfinite(x) for x in v):
             fail(f"non-finite {k}: {v}")
-    if any(n != n_batches for n in launches.values()):
-        fail(f"kernel launches {launches} != {n_batches} batches")
+    want = dict.fromkeys(counters, 0)
+    want.update(fused_raster=n_batches, antialias=n_batches)
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
     record.update(forward_ms_per_batch=fwd_ms, metrics=metrics,
-                  launches=launches)
+                  launches_evaluate=launches)
 
-    # per-stage device times of the workload's first batch
-    ph, pw = rc.pad_resolution(H, W)
-    state = {}
+    # ---- 5. the fit step at full width ----
+    state = wl["state"]
+    k, n_dispatch = 5, 2
+    # the warm-up dispatch: a host sync anywhere on the step's path raises
+    torch.cuda.set_sync_debug_mode("error")
+    loop.train_steps(config, scene, state, wl["frames_u8"], gen, k,
+                     wl["n_frames"])
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    runs = [loop.train_steps(config, scene, state, wl["frames_u8"], gen, k,
+                             wl["n_frames"])[1] for _ in range(n_dispatch)]
+    torch.cuda.synchronize()
+    n_steps = k * n_dispatch
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    launches = {k: f.launches for k, f in counters.items()}
+    losses = {m: torch.cat([r[m] for r in runs]).tolist() for m in runs[0]}
+    mpix = B * H * W / step_ms / 1e3
+    print(f"train_steps: {n_dispatch} x {k} steps, {step_ms:.3f} ms/step "
+          f"(host clock, synchronized), {mpix:.1f} Mpix/s; launches "
+          f"{launches}; loss first {losses['loss'][0]} last "
+          f"{losses['loss'][-1]}", flush=True)
+    for m, v in losses.items():
+        if not all(math.isfinite(x) for x in v):
+            fail(f"non-finite step {m}: {v}")
+    for name, p in params.items():
+        if not bool(torch.isfinite(p).all()):
+            fail(f"non-finite parameter {name} after the steps")
+    if any(n != n_steps for n in launches.values()):
+        fail(f"kernel launches {launches} != {n_steps} steps each")
+    record.update(step_ms=step_ms, mpix_per_s=mpix, step_losses=losses,
+                  launches=launches, steps_taken=state.step)
+
+    # per-stage device times of one batch's forward and one step
     stages = {}
     with torch.no_grad():
-        for name, fn in forward_stages(wl, state):
+        for name, fn in forward_stages(wl, {}):
             stages[name] = cuda_ms(fn, 5)
     record["stage_ms"] = stages
-    print("stages (CUDA events, ms, batch of 8): " + ", ".join(
+    print("forward stages (CUDA events, ms, batch of 8): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    sstate = {}
+    step_stage_ms = {name: cuda_ms(fn, 3)
+                     for name, fn in step_stages(wl, sstate)}
+    record["step_stage_ms"] = step_stage_ms
+    print("step stages (CUDA events, ms, batch of 8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in step_stage_ms.items()), flush=True)
 
-    # ---- 5. kernels at the main path's shapes ----
-    bins = state["bins"]
-    tex = params["tex"]
+    # ---- 6. kernels at the main path's shapes ----
+    bins = sstate["bins"]
+    tex = params["tex"].detach()
     C = tex.shape[2]
+    ph, pw = rc.pad_resolution(H, W)
+    rows = B * ph
     with torch.no_grad():
-        k1_err, k2_err, k1_out = check_kernels(bins, tex, B * ph, pw, H, W,
+        k1_err, k2_err, k1_out = check_kernels(bins, tex, rows, pw, H, W,
                                                ph, "bench batch")
-        idbuf, _, payload, _, colour = k1_out
-        k1_ms = cuda_ms(lambda: rc.fused_raster(bins, tex, B * ph, pw), 20)
-        k1_plain = cuda_ms(
-            lambda: rc.fused_raster_plain(bins, tex, B * ph, pw), 2)
-        k2_ms = cuda_ms(lambda: ac.antialias_planes(
-            idbuf, payload, colour, H, W, ph), 20)
-        k2_plain = cuda_ms(lambda: ac.antialias_planes_plain(
-            idbuf, payload, colour, H, W, ph), 3)
-    k1_bound, k1_by, live = k1_bound_ms(bins, B * ph, pw, C, tex)
-    k2_bound, k2_by = k2_bound_ms(idbuf, C, H, W, ph)
-    kernels = [
-        {"name": "fused_raster", "route": "cuda",
-         "source": "fpc_diffrend_tpu_torch/csrc/fused_raster.cu",
-         "replaces": "fpc_diffrend_tpu/ops/pallas/rasterize_tpu.py:1055",
-         "launches": launches["fused_raster"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "antialias", "route": "cuda",
-         "source": "fpc_diffrend_tpu_torch/csrc/antialias.cu",
-         "replaces": "fpc_diffrend_tpu/ops/pallas/antialias_tpu.py:184",
-         "launches": launches["antialias"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
-    ]
-    record.update(kernels=kernels, live_bin_entries=live,
-                  n_global=int(bins.n_global[0]),
+        idbuf, entry, payload, extra, colour = k1_out
+        g_aa = sstate["g_aa"]
+        gtuv = torch.zeros((3, rows, pw), device=dev)
+        berr, babs, (k3, k4, k5, _, gpl) = check_backward(
+            k1_out, bins, tex, g_aa, gtuv, H, W, ph, B * T, "bench batch")
+        gcolour = k3[0]
+        t = {
+            "fused_raster": (
+                lambda: rc.fused_raster(bins, tex, rows, pw),
+                lambda: rc.fused_raster_plain(bins, tex, rows, pw)),
+            "antialias": (
+                lambda: ac.antialias_planes(idbuf, payload, colour, H, W,
+                                            ph),
+                lambda: ac.antialias_planes_plain(idbuf, payload, colour, H,
+                                                  W, ph)),
+            "antialias_bwd": (
+                lambda: ac.antialias_planes_bwd(idbuf, payload, colour,
+                                                g_aa, H, W, ph),
+                lambda: ac.antialias_planes_bwd_plain(
+                    idbuf, payload, colour, g_aa, H, W, ph)),
+            "texture_bwd": (
+                lambda: tc.texture_planes_bwd(tex, payload[3], payload[4],
+                                              gcolour),
+                lambda: tc.texture_planes_bwd_plain(tex, payload[3],
+                                                    payload[4], gcolour)),
+            "pixel_grad": (
+                lambda: gc.pixel_grad(bins, entry, payload[0], payload[1],
+                                      extra, gpl),
+                lambda: gc.pixel_grad_plain(bins, entry, payload[0],
+                                            payload[1], extra, gpl)),
+            "fold_entries": (
+                lambda: gc.fold_entries(*k5, bins, B * T),
+                lambda: gc.fold_entries_plain(*k5, bins, B * T)),
+        }
+        times = {name: (cuda_ms(kf, 20), cuda_ms(pf, 2))
+                 for name, (kf, pf) in t.items()}
+        # the library yardstick of K6: one index_add_ of the live rows
+        live = int(bins.bin_start[-1])
+        idx = bins.sorted_tri[:live].long()
+        src = k5[0][:live][:, gc.LIVE_SLOTS].contiguous()
+        acc = torch.zeros((B * T, len(gc.LIVE_SLOTS)), device=dev)
+        fold_lib = cuda_ms(lambda: acc.index_add_(0, idx, src), 20)
+    bounds = {
+        "fused_raster": k1_bound_ms(bins, rows, pw, C, tex)[:2],
+        "antialias": k2_bound_ms(idbuf, C, H, W, ph),
+        "antialias_bwd": k3_bound_ms(idbuf, C, H, W, ph),
+        "texture_bwd": k4_bound_ms(gcolour, tex),
+        "pixel_grad": k5_bound_ms(entry, bins),
+        "fold_entries": k6_bound_ms(bins, B * T),
+    }
+    errs = {"fused_raster": k1_err, "antialias": k2_err, **babs}
+    kernels = []
+    for name, (src_file, tpu) in KERNELS.items():
+        ms, plain = times[name]
+        bound, by = bounds[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fpc_diffrend_tpu_torch/" + src_file,
+            "replaces": "fpc_diffrend_tpu/ops/pallas/" + tpu,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": fold_lib if name == "fold_entries" else None})
+    record.update(kernels=kernels, backward_check=berr,
+                  live_bin_entries=live, n_global=int(bins.n_global[0]),
                   total_s=time.perf_counter() - t_start)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),

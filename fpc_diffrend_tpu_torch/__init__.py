@@ -5,10 +5,12 @@ package computes the same functions with PyTorch tensor code, and every
 Pallas kernel on its path is a CUDA C++ kernel written for Hopper
 (``csrc/*.cu``, built at first use by ``kernels.build``).
 
-Slice 1 covers the forward half of the default fit step:
-blend -> pose -> clip -> stacked-batch binning -> fused raster+texture
-kernel -> antialias kernel -> background composite -> photometric +
-Laplacian loss (``fit.loop.evaluate``).
+It covers the default fit step: blend -> pose -> clip -> stacked-batch
+binning -> fused raster+texture kernel -> antialias kernel -> background
+composite -> photometric + Laplacian loss (``fit.loop.evaluate``, slice
+1), then the backward through the antialias, texture, pixel-gradient and
+fold kernels, the 10-parameter Adam with its ramp and the quaternion
+renorm (``fit.loop.train_step``, ``train_steps``, ``run_fit``, slice 2).
 
 Rules the whole package keeps:
 

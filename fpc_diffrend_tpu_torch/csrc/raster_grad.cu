@@ -1,0 +1,255 @@
+// K5: per-pixel gradient coefficients reduced onto each pixel's winning
+// bin entry; K6: bin-entry gradient rows folded into per-triangle rows.
+//
+// K5 replaces fpc_diffrend_tpu/ops/pallas/raster_grad_tpu.py _grad_kernel
+// (coefficients _grad_coeff_planes; launched by pixel_grad_pallas). Per
+// pixel, from K1's residual planes (u, v, D, 1/w_i, uv-corner differences)
+// and the 11 payload cotangents [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2],
+// the 32 coefficients of the winner's record slots (raster_grad_tpu.py
+// :286-310, operand for operand; plain version pixel_grad_plain in
+// ops/cuda/raster_grad_cuda.py):
+//   d0 = u D, d1 = v D, d2 = D - d0 - d1
+//   gu' = gu + gtu du02 + gtv dv02, gv' = gv + gtu du12 + gtv dv12
+//   S = (gu' d0 + gv' d1) rD rD, gd0 = gu' rD - S, gd1 = gv' rD - S,
+//   gd2 = -S, gl_i = gd_i / w_i
+//   slots 0-11: gl_i x, gl_i y, gl_i (edge planes); gz x, gz y, gz (depth)
+//   slots 13-15: -gd_i d_i / w_i; 16-21: the uv corners' shares; 22-27: the
+//   screen-corner cotangents. Slots 12 (id) and 28-31 are 0.
+// The TPU kernel reduces a tile's pixels onto its bin with one-hot MXU
+// matmuls and carries shared chunks in VMEM between sequential grid steps.
+// Here one block of 8 warps takes one 8x128 tile (a warp per pixel row,
+// 4 passes of 32 pixels): the block zeroes a shared accumulator of the 27
+// live slots for the first CAP entries of its bin, each pixel adds its 27
+// coefficients into its winner's row, and the block writes the bin's rows
+// once. An entry belongs to exactly one tile's bin, so no two blocks write
+// one row. A warp first sums each run of pixels with one winner with
+// shuffles, so one lane per run adds: shared atomics from every pixel of
+// a run would serialize on one row. Entries past CAP of an oversized bin
+// take device-memory atomics on their (zeroed) rows,
+// and global-list winners (entry >= gbase) atomics on grad_global: nothing
+// is dropped. Rows past bin_start[-1] are not written.
+//
+// K6 replaces raster_grad_tpu.py _fold_kernel (launched by banded_fold),
+// the counterpart of the segment_sum fold the JAX step uses by default:
+// one thread per (live entry, live slot), atomicAdd into the triangle's
+// row, then the same for the live global rows, in one launch. Atomics need
+// no band of triangle ids, so the TPU's sliding window, its overflow count
+// and the face-order flip that keeps scenes banded are not needed.
+//
+// n_live = bin_start[-1] and n_global are read on the device, so neither
+// launch needs the host to know them.
+//
+// Bound on the H100: the bytes. K5 reads entry, u, v, 8 extra and 11
+// cotangent planes (88 bytes a pixel; a missed pixel reads only its entry)
+// and writes the live rows (128 bytes each); K6 reads 27 floats and a
+// triangle id per live entry and writes the (B*T, 32) rows.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE_H = 8;
+constexpr int TILE_W = 128;
+constexpr int THREADS = TILE_H * 32;    // a warp per pixel row of the tile
+constexpr int REC = 32;
+constexpr int NLIVE = 27;               // record slots 0-11 and 13-27
+constexpr int CAP = 256;                // bin entries held in shared memory
+constexpr int N_EXTRA = 8;
+constexpr int N_GPL = 11;
+constexpr float AREA_EPS = 1e-12f;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int slot(int k) { return k < 12 ? k : k + 1; }
+
+// The 27 live coefficients of one pixel, in live-slot order.
+__device__ __forceinline__ void coefficients(
+    const float* __restrict__ u_pl, const float* __restrict__ v_pl,
+    const float* __restrict__ extra, const float* __restrict__ gpl,
+    int64_t plane, int64_t p, float x, float y, float (&c)[NLIVE]) {
+  const float u = u_pl[p];
+  const float v = v_pl[p];
+  float e[N_EXTRA], g[N_GPL];
+#pragma unroll
+  for (int k = 0; k < N_EXTRA; ++k) e[k] = extra[k * plane + p];
+#pragma unroll
+  for (int k = 0; k < N_GPL; ++k) g[k] = gpl[k * plane + p];
+  const float D = e[0], iw0 = e[1], iw1 = e[2], iw2 = e[3];
+  const float du02 = e[4], du12 = e[5], dv02 = e[6], dv12 = e[7];
+  const float gz = g[2], gtu = g[3], gtv = g[4];
+  const float d0 = u * D;
+  const float d1 = v * D;
+  const float d2 = (D - d0) - d1;
+  const float gu = (g[0] + gtu * du02) + gtv * dv02;
+  const float gv = (g[1] + gtu * du12) + gtv * dv12;
+  const float rD = 1.f / (fabsf(D) > AREA_EPS ? D : 1.f);
+  const float S = ((gu * d0 + gv * d1) * rD) * rD;
+  const float gd0 = gu * rD - S;
+  const float gd1 = gv * rD - S;
+  const float gd2 = -S;
+  const float gl0 = gd0 * iw0;
+  const float gl1 = gd1 * iw1;
+  const float gl2 = gd2 * iw2;
+  const float wp = (1.f - u) - v;
+  c[0] = gl0 * x;  c[1] = gl0 * y;  c[2] = gl0;
+  c[3] = gl1 * x;  c[4] = gl1 * y;  c[5] = gl1;
+  c[6] = gl2 * x;  c[7] = gl2 * y;  c[8] = gl2;
+  c[9] = gz * x;   c[10] = gz * y;  c[11] = gz;
+  c[12] = (-gd0 * d0) * iw0;
+  c[13] = (-gd1 * d1) * iw1;
+  c[14] = (-gd2 * d2) * iw2;
+  c[15] = gtu * u;  c[16] = gtv * u;
+  c[17] = gtu * v;  c[18] = gtv * v;
+  c[19] = gtu * wp; c[20] = gtv * wp;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) c[21 + k] = g[5 + k];
+}
+
+__global__ void __launch_bounds__(THREADS)
+pixel_grad_kernel(const int* __restrict__ entry,
+                  const float* __restrict__ u_pl,
+                  const float* __restrict__ v_pl,
+                  const float* __restrict__ extra,
+                  const float* __restrict__ gpl,
+                  const int* __restrict__ bin_start, int gx, int pw,
+                  int64_t plane, int gbase, float* __restrict__ grad_entries,
+                  float* __restrict__ grad_global) {
+  __shared__ float acc[CAP * NLIVE];
+  const int tile = blockIdx.x;
+  const int ti = tile / gx;
+  const int tj = tile - ti * gx;
+  const int tid = threadIdx.x;
+  const int start = bin_start[tile];
+  const int n = bin_start[tile + 1] - start;
+  const int n_sh = min(n, CAP);
+
+  for (int i = tid; i < n_sh * NLIVE; i += THREADS) acc[i] = 0.f;
+  // rows past CAP take device atomics: zero them first
+  for (int64_t i = tid; i < (int64_t)(n - n_sh) * REC; i += THREADS)
+    grad_entries[(int64_t)(start + CAP) * REC + i] = 0.f;
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int row = ti * TILE_H + (tid >> 5);
+  const float y = (float)row + 0.5f;
+  for (int pass = 0; pass < TILE_W / 32; ++pass) {
+    const int col = tj * TILE_W + pass * 32 + lane;
+    const int64_t p = (int64_t)row * pw + col;
+    const int e = entry[p];
+    float c[NLIVE];
+    if (e >= 0) {
+      coefficients(u_pl, v_pl, extra, gpl, plane, p, (float)col + 0.5f, y,
+                   c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NLIVE; ++k) c[k] = 0.f;
+    }
+    // runs of equal entries along the warp (a triangle's pixels in a row
+    // are contiguous): an inclusive segmented sum over each run, which the
+    // run's last lane adds once
+    const int e_prev = __shfl_up_sync(FULL, e, 1);
+    const int e_next = __shfl_down_sync(FULL, e, 1);
+    const unsigned heads = __ballot_sync(FULL, lane == 0 || e_prev != e);
+    const int run0 = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+#pragma unroll
+    for (int k = 0; k < NLIVE; ++k)
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float up = __shfl_up_sync(FULL, c[k], off);
+        if (lane - off >= run0) c[k] += up;
+      }
+    if (e < 0 || (lane != 31 && e_next == e)) continue;
+    // this lane adds c to row e
+    float* dst;
+    if (e >= gbase) {
+      dst = grad_global + (int64_t)(e - gbase) * REC;
+    } else {
+      const int r = e - start;
+      if (r < 0 || r >= n) continue;         // not this tile's bin
+      if (r < CAP) {
+#pragma unroll
+        for (int k = 0; k < NLIVE; ++k) atomicAdd(&acc[r * NLIVE + k], c[k]);
+        continue;
+      }
+      dst = grad_entries + (int64_t)e * REC;
+    }
+#pragma unroll
+    for (int k = 0; k < NLIVE; ++k) atomicAdd(dst + slot(k), c[k]);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < n_sh * REC; i += THREADS) {
+    const int r = i / REC;
+    const int k = i - r * REC;
+    const float val =
+        (k == 12 || k >= 28) ? 0.f : acc[r * NLIVE + (k < 12 ? k : k - 1)];
+    grad_entries[(int64_t)(start + r) * REC + k] = val;
+  }
+}
+
+__global__ void fold_kernel(const float* __restrict__ grad_entries,
+                            const float* __restrict__ grad_global,
+                            const int* __restrict__ sorted_tri,
+                            const int* __restrict__ global_idx,
+                            const int* __restrict__ n_live_ptr,
+                            const int* __restrict__ n_global_ptr, int n_tris,
+                            float* __restrict__ out) {
+  const int64_t n_live = *n_live_ptr;
+  const int64_t total = (n_live + *n_global_ptr) * NLIVE;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const int64_t r = i / NLIVE;
+    const int k = slot((int)(i - r * NLIVE));
+    int t;
+    float val;
+    if (r < n_live) {
+      t = sorted_tri[r];
+      val = grad_entries[r * REC + k];
+    } else {
+      t = global_idx[r - n_live];
+      val = grad_global[(r - n_live) * REC + k];
+    }
+    if (t >= 0 && t < n_tris) atomicAdd(&out[(int64_t)t * REC + k], val);
+  }
+}
+
+}  // namespace
+
+extern "C" int pixel_grad_launch(const int* entry, const float* u,
+                                 const float* v, const float* extra,
+                                 const float* gpl, const int* bin_start,
+                                 int n_tiles, int gx, int rows, int gbase,
+                                 float* grad_entries, float* grad_global,
+                                 int max_global, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(
+      grad_global, 0, (size_t)max_global * REC * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  const int pw = gx * TILE_W;
+  pixel_grad_kernel<<<n_tiles, THREADS, 0, st>>>(
+      entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw, gbase,
+      grad_entries, grad_global);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fold_entries_launch(const float* grad_entries,
+                                   const float* grad_global,
+                                   const int* sorted_tri,
+                                   const int* global_idx,
+                                   const int* n_live, const int* n_global,
+                                   int max_rows, int n_tris, float* out,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(
+      out, 0, (size_t)n_tris * REC * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int FOLD_THREADS = 256;
+  const int64_t work = (int64_t)max_rows * NLIVE;
+  const int64_t want = (work + FOLD_THREADS - 1) / FOLD_THREADS;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  fold_kernel<<<blocks > 0 ? blocks : 1, FOLD_THREADS, 0, st>>>(
+      grad_entries, grad_global, sorted_tri, global_idx, n_live, n_global,
+      n_tris, out);
+  return (int)cudaGetLastError();
+}

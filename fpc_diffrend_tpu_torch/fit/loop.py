@@ -1,21 +1,27 @@
-"""The batched fit step's forward (port of ``fpc_diffrend_tpu.fit.loop``).
+"""The batched fit step (port of ``fpc_diffrend_tpu.fit.loop``).
 
 blend -> pose -> clip -> stacked-batch render (K1, K2) -> composite ->
-photometric + mesh regularizer + staging/temporal losses. The mvp matches
+photometric + mesh regularizer + staging/temporal losses, then the
+backward (K3 -> K4 -> K5 -> K6, and autograd for the rest), the corrective
+gate, Adam at the ramped rates and the quaternion renorm. The mvp matches
 the JAX package's:
   proj @ rigid(per-frame pose) @ rigid(per-camera correction) @ modelview
 
-``evaluate`` is the slice-1 entry point: the loss forward for a few sampled
-batches. The backward, the optimizer and ``train_step`` are slice 2.
+Entry points: ``evaluate`` (the loss forward for a few sampled batches),
+``train_step`` (one step on a given batch), ``train_steps`` (k steps with
+on-device sampling) and ``run_fit``. Nothing on the step's path reads a
+device value on the host, so steps queue on the card without waiting.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fpc_diffrend_tpu_torch.fit import losses as losses_mod
+from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
 from fpc_diffrend_tpu_torch.fit.scene import Scene
 from fpc_diffrend_tpu_torch.models import blendshape, pose
@@ -150,3 +156,91 @@ def evaluate(config: FitConfig, scene: Scene, params: dict,
             batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
             rows.append(loss_fn(params, config, scene, batch)[1])
     return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+
+def train_step(config: FitConfig, scene: Scene, state: state_mod.TrainState,
+               batch: Batch) -> dict:
+    """One optimization step on ``batch``; updates ``state`` in place.
+
+    Forward, backward, corrective gate, Adam at the ramped rates,
+    quaternion renorm, ``state.step += 1``. A parameter the mode does not
+    use gets a zero gradient (optax updates every leaf; ``torch.optim``
+    would skip a parameter whose gradient is None).
+
+    :return: metric name -> scalar tensor on the device.
+    """
+    params = state.params
+    for p in params.values():
+        p.requires_grad_(True)
+    state.optimizer.zero_grad(set_to_none=False)
+    with torch.enable_grad():
+        total, metrics = loss_fn(params, config, scene, batch, state.step)
+        total.backward()
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state_mod.optimizer_step(config, state)
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def train_steps(config: FitConfig, scene: Scene, state: state_mod.TrainState,
+                frames_u8: Tensor, generator: torch.Generator, k: int,
+                n_frames: int):
+    """``k`` train steps, each on a (camera, frame) batch sampled on the
+    device from ``generator`` (a generator of the scene's device).
+
+    :return: (state, metric name -> (k,) tensor on the device).
+    """
+    dev = scene.device
+    cams = torch.tensor(config.cam_idxs, dtype=torch.int64).to(
+        dev, non_blocking=True)
+    B = config.batch_size
+    rows = []
+    for _ in range(k):
+        pick = torch.randint(0, cams.shape[0], (B,), generator=generator,
+                             device=dev)
+        frame = torch.randint(0, n_frames, (B,), generator=generator,
+                              device=dev)
+        cam = cams[pick]
+        batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
+        rows.append(train_step(config, scene, state, batch))
+    return state, {m: torch.stack([r[m] for r in rows]) for m in rows[0]}
+
+
+def run_fit(config: FitConfig, scene: Scene, frames_u8: Tensor,
+            n_frames: int, callbacks=None, state=None, n_steps=None):
+    """Drive the fit for ``n_steps`` (default ``config.max_iter``) steps.
+
+    Steps run in dispatches of ``config.steps_per_dispatch`` through
+    :func:`train_steps`, sampling on the device from a generator seeded
+    with ``config.seed + state.step``.
+
+    :param frames_u8: (C, F, H, W) uint8 reference frames on the scene's
+        device.
+    :param callbacks: fn(step, state, metrics) called after each dispatch
+        with its last step's metrics; they gate on their own intervals.
+    :param state: the TrainState to continue; default a fresh one, its
+        texture drawn from ``config.seed``.
+    :return: the final TrainState.
+    """
+    config.validate()
+    if state is None:
+        tex_init = np.random.default_rng(config.seed).uniform(
+            size=config.texshape).astype(np.float32)
+        params = state_mod.init_params(
+            config, n_frames, scene.v_base.shape[0], scene.deltas.shape[1],
+            tex_init, scene.n_cameras, device=scene.device)
+        state = state_mod.init_state(config, params)
+    total = config.max_iter if n_steps is None else n_steps
+    k = max(int(config.steps_per_dispatch), 1)
+    generator = torch.Generator(device=scene.device)
+    generator.manual_seed(config.seed + state.step)
+    i = 0
+    while i < total:
+        kk = min(k, total - i)
+        state, metrics = train_steps(config, scene, state, frames_u8,
+                                     generator, kk, n_frames)
+        i += kk
+        for cb in callbacks or ():
+            cb(i - 1, state, {m: v[-1] for m, v in metrics.items()})
+    return state

@@ -1,10 +1,19 @@
-"""Learned parameters (port of ``fpc_diffrend_tpu.fit.state``'s init).
+"""Learned parameters and the multi-group Adam optimizer (port of
+``fpc_diffrend_tpu.fit.state``).
 
 Parameters are a plain dict of float32 tensors with the JAX package's names
-and shapes. The optimizer comes with the backward in slice 2.
+and shapes. The optimizer is ``torch.optim.Adam`` with the five groups of
+the JAX package's optax ``multi_transform`` and optax's defaults
+(betas (0.9, 0.999), eps 1e-8, eps_root 0); every group's learning rate is
+scaled by the shared ramp ``lr_ramp ** (count / max_iter)``, where
+``count`` is the number of updates before this one (optax
+``scale_by_schedule``). The optimizer updates the parameter tensors in
+place.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -58,3 +67,84 @@ def scene_from_numpy(scene: dict, device=None) -> Scene:
     """A JAX ``Scene``'s fields, as a dict of numpy arrays, as the port's
     Scene on ``device`` (dtypes kept; absent optional fields stay None)."""
     return scene_from_arrays(scene, resolve_device(device))
+
+
+# optimizer group -> (parameters, learning rate as a function of config)
+GROUPS = {
+    "corrective": (("m1", "m2", "m3"), lambda c: c.lr_base * (
+        0.1 if c.mode == "combined" else 1.0)),
+    "rig": (("maps", "maps_intermediate"), lambda c: c.lr_base),
+    "trans": (("t_opt", "per_frame_t"), lambda c: c.lr_t),
+    "quat": (("q_opt", "per_frame_q"), lambda c: c.lr_q),
+    "tex": (("tex",), lambda c: c.lr_base * c.lr_tex_coef),
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The fit's state: ``step`` counts the updates taken; ``params`` are
+    leaf tensors that ``optimizer`` updates in place."""
+
+    step: int
+    params: dict
+    optimizer: torch.optim.Adam
+
+
+def make_optimizer(config: FitConfig, params: dict) -> torch.optim.Adam:
+    """Adam over five parameter groups at their base learning rates; call
+    :func:`apply_lr_ramp` before each step."""
+    groups = [{"params": [params[k] for k in names], "lr": lr(config),
+               "base_lr": lr(config)} for names, lr in GROUPS.values()]
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+
+def apply_lr_ramp(config: FitConfig, optimizer: torch.optim.Adam,
+                  count: int) -> None:
+    """Set each group's rate to base * lr_ramp ** (count / max_iter)."""
+    ramp = config.lr_ramp ** (count / config.max_iter)
+    for group in optimizer.param_groups:
+        group["lr"] = group["base_lr"] * ramp
+
+
+def init_state(config: FitConfig, params: dict) -> TrainState:
+    """Step 0 over ``params`` (``fit.loop.train_step`` makes them require
+    gradients)."""
+    return TrainState(step=0, params=params,
+                      optimizer=make_optimizer(config, params))
+
+
+def corrective_gate(config: FitConfig, step: int) -> float:
+    """1.0 when the learned correctives (m1/m2/m3) may update: combined
+    mode freezes them for the first half of training, free mode always
+    trains them, prior mode never uses them."""
+    if config.mode == "combined":
+        return float(step > config.max_iter // 2)
+    return 1.0 if config.mode == "free" else 0.0
+
+
+def apply_corrective_gate(config: FitConfig, step: int,
+                          params: dict) -> None:
+    """Scale the correctives' gradients by the gate, in place."""
+    gate = corrective_gate(config, step)
+    for k in ("m1", "m2", "m3"):
+        params[k].grad.mul_(gate)
+
+
+def optimizer_step(config: FitConfig, state: TrainState) -> None:
+    """The update after a backward: corrective gate, Adam at the ramped
+    rates, quaternion renorm, ``state.step += 1`` (all in place)."""
+    apply_corrective_gate(config, state.step, state.params)
+    apply_lr_ramp(config, state.optimizer, state.step)
+    state.optimizer.step()
+    normalize_quaternions(state.params)
+    state.step += 1
+
+
+def normalize_quaternions(params: dict) -> None:
+    """Per-row unit renormalization of the pose quaternions, in place (the
+    JAX package returns new arrays); a zero row stays zero."""
+    with torch.no_grad():
+        for k in ("q_opt", "per_frame_q"):
+            q = params[k]
+            norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+            q.div_(torch.clamp(norm, min=1e-12))

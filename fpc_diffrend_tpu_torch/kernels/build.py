@@ -33,11 +33,15 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "fused_raster": "fused_raster.cu",
     "antialias": "antialias.cu",
+    "antialias_bwd": "antialias_bwd.cu",
+    "texture_bwd": "texture_bwd.cu",
+    "raster_grad": "raster_grad.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds every
 # product and sum exactly as its plain PyTorch version does and the two
-# agree bit for bit on the id buffer and the antialias deltas.
+# agree bit for bit on the id buffer, the antialias deltas and the
+# antialias backward; only the sums taken with atomics differ in order.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -128,13 +132,6 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
-
-
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """The kernels are forward-only until slice 2: raise rather than return
-    a result that silently drops a requested gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("slice 2")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

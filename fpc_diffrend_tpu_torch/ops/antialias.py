@@ -15,7 +15,9 @@ kernel's payload), packed plane-major in the order
 [id, z, x0 y0 x1 y1 x2 y2, n0 n1 n2, colour...] — the packing of
 ``fpc_diffrend_tpu.ops.pallas.antialias_tpu``. ``pair_delta`` keeps that
 kernel's ``_pair_delta`` operand for operand, and the CUDA kernel
-(``csrc/antialias.cu``) does the same.
+(``csrc/antialias.cu``) does the same. ``pair_grad`` is its backward,
+written out by hand, which ``csrc/antialias_bwd.cu`` keeps operand for
+operand.
 """
 
 from __future__ import annotations
@@ -79,6 +81,103 @@ def pair_delta(a: Tensor, b: Tensor, pax, pay, pbx, pby):
     delta_b = torch.where(delta > 0, delta * diff, 0.0)
     delta_a = torch.where(delta < 0, -delta * (-diff), 0.0)
     return delta_a, delta_b
+
+
+def pair_grad(a: Tensor, b: Tensor, pax, pay, pbx, pby, g_a: Tensor,
+              g_b: Tensor):
+    """Backward of :func:`pair_delta`, written out by hand.
+
+    ``csrc/antialias_bwd.cu`` keeps it operand for operand. The clamp of
+    delta passes the gradient inside (-0.5, 0.5) and half of it at a bound,
+    as JAX's ``clip`` does.
+
+    :param a, b: (11 + C, ...) packed planes of the two sides.
+    :param g_a, g_b: (C, ...) cotangents of delta_a and delta_b.
+    :return: (share_a, share_b), each (C + 6, ...): that side's colour
+        cotangent, then the cotangents of its 6 screen corners (non-zero
+        only on the occluding side).
+    """
+    id_a, id_b = a[ID], b[ID]
+    differs = id_a != id_b
+    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    z_a = torch.where(id_a >= 0.0, a[Z], inf)
+    z_b = torch.where(id_b >= 0.0, b[Z], inf)
+    a_occ = z_a <= z_b
+    occ_id = torch.where(a_occ, id_a, id_b)
+    other_id = torch.where(a_occ, id_b, id_a)
+    valid = differs & (occ_id >= 0.0)
+
+    tv = torch.where(a_occ, a[V0:V0 + 6], b[V0:V0 + 6])
+    neigh = torch.where(a_occ, a[N0:N0 + 3], b[N0:N0 + 3])
+
+    best_xi = torch.zeros_like(id_a)
+    best_score = torch.full_like(id_a, float("inf"))
+    found = torch.zeros_like(differs)
+    bfa = torch.zeros_like(id_a)
+    bfb = torch.zeros_like(id_a)
+    bq = torch.ones_like(id_a)
+    bj = torch.full_like(id_a, -1.0)
+    for j in range(3):
+        k = (j + 1) % 3
+        vax, vay = tv[2 * j], tv[2 * j + 1]
+        vbx, vby = tv[2 * k], tv[2 * k + 1]
+        f_a = edge_fn(vax, vay, vbx, vby, pax, pay)
+        f_b = edge_fn(vax, vay, vbx, vby, pbx, pby)
+        crossing = (f_a * f_b) < 0.0
+        shared = (neigh[j] >= 0.0) & (neigh[j] == other_id)
+        ok = crossing & ~shared
+        denom = f_a - f_b
+        q = torch.where(torch.abs(denom) > 1e-20, denom, 1e-20)
+        xi = f_a / q
+        score = torch.abs(xi - 0.5)
+        better = ok & (score < best_score)
+        best_xi = torch.where(better, xi, best_xi)
+        best_score = torch.where(better, score, best_score)
+        bfa = torch.where(better, f_a, bfa)
+        bfb = torch.where(better, f_b, bfb)
+        bq = torch.where(better, q, bq)
+        bj = torch.where(better, float(j), bj)
+        found = found | ok
+
+    valid = valid & found
+    d0 = best_xi - 0.5
+    delta = torch.where(valid, torch.clamp(d0, -0.5, 0.5), 0.0)
+    gs = torch.where(delta > 0, g_b, torch.where(delta < 0, g_a, 0.0))
+    diff = a[C0:] - b[C0:]
+    gdelta = torch.zeros_like(id_a)
+    for c in range(diff.shape[0]):
+        gdelta = gdelta + gs[c] * diff[c]
+    gd = delta * gs
+
+    fac = torch.where((d0 > -0.5) & (d0 < 0.5), 1.0,
+                      torch.where((d0 == -0.5) | (d0 == 0.5), 0.5, 0.0))
+    gxi = gdelta * fac
+    gden = torch.where(torch.abs(bfa - bfb) > 1e-20,
+                       (-gxi * bfa) / (bq * bq), 0.0)
+    gfa = gxi / bq + gden
+    gfb = -gden
+    gv = [torch.zeros_like(id_a) for _ in range(6)]
+    for j in range(3):
+        k = (j + 1) % 3
+        sel = bj == float(j)
+        vax, vay = tv[2 * j], tv[2 * j + 1]
+        vbx, vby = tv[2 * k], tv[2 * k + 1]
+        ax, cy = vbx - vax, vby - vay
+        bya, exa = pay - vay, pax - vax
+        byb, exb = pby - vay, pbx - vax
+        gv[2 * j] = torch.where(
+            sel, (-(gfa * bya) + gfa * cy) + (-(gfb * byb) + gfb * cy),
+            gv[2 * j])
+        gv[2 * j + 1] = torch.where(
+            sel, (-(gfa * ax) + gfa * exa) + (-(gfb * ax) + gfb * exb),
+            gv[2 * j + 1])
+        gv[2 * k] = torch.where(sel, gfa * bya + gfb * byb, gv[2 * k])
+        gv[2 * k + 1] = torch.where(sel, -(gfa * exa) + -(gfb * exb),
+                                    gv[2 * k + 1])
+    gv = torch.stack(gv)
+    share_a = torch.cat([gd, torch.where(a_occ, gv, 0.0)])
+    share_b = torch.cat([-gd, torch.where(a_occ, 0.0, gv)])
+    return share_a, share_b
 
 
 def antialias_fused(color: Tensor, rast: Tensor, verts_img: Tensor,

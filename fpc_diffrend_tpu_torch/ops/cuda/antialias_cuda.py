@@ -1,10 +1,13 @@
-"""The antialias kernel (K2) over the fused raster kernel's planes.
+"""The antialias kernel (K2) and its backward (K3) over the fused raster
+kernel's planes.
 
 Port of ``fpc_diffrend_tpu.ops.pallas.antialias_tpu._fwd_kernel``
 (launched by ``_aa_fwd_from_packed``) as the CUDA kernel
-``csrc/antialias.cu``. The TPU kernel takes a packed plane stack; this
-one reads the id buffer, payload and colour planes directly, in the
-packing order of ``ops.antialias`` ([id, z, x0..y2, n0 n1 n2, colour]).
+``csrc/antialias.cu``, and of its ``_bwd_kernel`` (launched by
+``aa_planes_bwd_core``) as ``csrc/antialias_bwd.cu``. The TPU kernels
+take a packed plane stack; these read the id buffer, payload and colour
+planes directly, in the packing order of ``ops.antialias`` ([id, z,
+x0..y2, n0 n1 n2, colour]).
 
 Pairs: horizontal (x, x+1) for x < W - 1, and vertical (r, r+1) within a
 stacked sample, r % sample_ph < H - 1, so no pair crosses a sample
@@ -12,8 +15,9 @@ boundary or reaches into the padding. Each pixel's output is
 c + da(right pair) + db(left pair) + da(pair below) + db(pair above), in
 that order.
 
-``antialias_planes`` runs the kernel for CUDA tensors and its plain
-PyTorch version ``antialias_planes_plain`` for CPU tensors.
+``antialias_planes`` and ``antialias_planes_bwd`` run their kernels for
+CUDA tensors and their plain PyTorch versions (``*_plain``) for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import ctypes
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
-from fpc_diffrend_tpu_torch.ops.antialias import pair_delta
+from fpc_diffrend_tpu_torch.ops.antialias import pair_delta, pair_grad
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import N_PAYLOAD
 
 Tensor = torch.Tensor
@@ -62,6 +66,23 @@ def antialias_planes_plain(idbuf: Tensor, payload: Tensor, colour: Tensor,
     return out
 
 
+def _check_planes(idbuf, payload, planes, height, width, sample_ph):
+    """Raise unless the planes fit the kernels (K2 and K3)."""
+    dev = idbuf.device
+    rows, pw = idbuf.shape
+    check = build.check_tensor
+    check(idbuf, "idbuf", torch.int32, (rows, pw), dev)
+    check(payload, "payload", torch.float32, (N_PAYLOAD, rows, pw), dev)
+    for name, t in planes.items():
+        check(t, name, torch.float32, (planes["colour"].shape[0], rows, pw),
+              dev)
+    if rows % sample_ph or height > sample_ph or width > pw:
+        raise ValueError(f"{rows}x{pw} planes do not hold samples of "
+                         f"{height}x{width} at pitch {sample_ph}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
 def antialias_planes(idbuf: Tensor, payload: Tensor, colour: Tensor,
                      height: int, width: int, sample_ph: int) -> Tensor:
     """K2: silhouette antialias of the stacked image.
@@ -77,19 +98,11 @@ def antialias_planes(idbuf: Tensor, payload: Tensor, colour: Tensor,
     dev = idbuf.device
     rows, pw = idbuf.shape
     C = colour.shape[0]
-    check = build.check_tensor
-    check(idbuf, "idbuf", torch.int32, (rows, pw), dev)
-    check(payload, "payload", torch.float32, (N_PAYLOAD, rows, pw), dev)
-    check(colour, "colour", torch.float32, (C, rows, pw), dev)
-    if rows % sample_ph or height > sample_ph or width > pw:
-        raise ValueError(f"{rows}x{pw} planes do not hold samples of "
-                         f"{height}x{width} at pitch {sample_ph}")
+    _check_planes(idbuf, payload, {"colour": colour}, height, width,
+                  sample_ph)
     if dev.type == "cpu":
         return antialias_planes_plain(idbuf, payload, colour, height, width,
                                       sample_ph)
-    if dev.type != "cuda":
-        raise ValueError(f"antialias_planes: unsupported device {dev}")
-    build.refuse_grad(payload, colour)
 
     out = torch.empty((C, rows, pw), device=dev)
     lib = build.load("antialias")
@@ -106,3 +119,78 @@ def antialias_planes(idbuf: Tensor, payload: Tensor, colour: Tensor,
 
 
 antialias_planes.launches = 0
+
+
+def antialias_planes_bwd_plain(idbuf: Tensor, payload: Tensor,
+                               colour: Tensor, gout: Tensor, height: int,
+                               width: int, sample_ph: int):
+    """Plain PyTorch version of K3 (same arguments as
+    :func:`antialias_planes_bwd`): :func:`pair_grad` on every pair, with
+    the pair masks of :func:`antialias_planes_plain`, summed per pixel in
+    the kernel's order."""
+    rows, pw = idbuf.shape
+    dev = idbuf.device
+    C = colour.shape[0]
+    packed = pack_planes(idbuf, payload, colour)
+    x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
+    r = torch.arange(rows, device=dev)
+    y = (r.to(torch.float32) + 0.5)[:, None]
+
+    # share planes (C + 6): as the a-side of the pair to the right / below,
+    # as the b-side of the pair to the left / above
+    right, left, down, up = (torch.zeros((C + 6, rows, pw), device=dev)
+                             for _ in range(4))
+    m = (x[:-1] - 0.5) < width - 1
+    sa, sb = pair_grad(packed[:, :, :-1], packed[:, :, 1:], x[:-1], y,
+                       x[:-1] + 1.0, y, gout[:, :, :-1], gout[:, :, 1:])
+    right[:, :, :-1] = torch.where(m, sa, 0.0)
+    left[:, :, 1:] = torch.where(m, sb, 0.0)
+
+    m = (torch.remainder(r[:-1], sample_ph) < height - 1)[:, None]
+    sa, sb = pair_grad(packed[:, :-1], packed[:, 1:], x, y[:-1], x,
+                       y[:-1] + 1.0, gout[:, :-1], gout[:, 1:])
+    down[:, :-1] = torch.where(m, sa, 0.0)
+    up[:, 1:] = torch.where(m, sb, 0.0)
+
+    gcolour = (gout + (right[:C] + left[:C])) + (down[:C] + up[:C])
+    gverts = (right[C:] + left[C:]) + (down[C:] + up[C:])
+    return gcolour, gverts
+
+
+def antialias_planes_bwd(idbuf: Tensor, payload: Tensor, colour: Tensor,
+                         gout: Tensor, height: int, width: int,
+                         sample_ph: int):
+    """K3: the backward of :func:`antialias_planes`.
+
+    :param idbuf, payload, colour, height, width, sample_ph: as given to
+        :func:`antialias_planes`.
+    :param gout: (C, rows, pw) cotangent of its output.
+    :return: (gcolour (C, rows, pw) cotangent of ``colour``, gverts (6,
+        rows, pw) cotangent of the payload's screen-corner planes 5-10).
+    """
+    dev = idbuf.device
+    rows, pw = idbuf.shape
+    C = colour.shape[0]
+    _check_planes(idbuf, payload, {"colour": colour, "gout": gout}, height,
+                  width, sample_ph)
+    if dev.type == "cpu":
+        return antialias_planes_bwd_plain(idbuf, payload, colour, gout,
+                                          height, width, sample_ph)
+
+    gcolour = torch.empty((C, rows, pw), device=dev)
+    gverts = torch.empty((6, rows, pw), device=dev)
+    lib = build.load("antialias_bwd")
+    fn = lib.antialias_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 3)
+    antialias_planes_bwd.launches += 1
+    ptr = build.ptr
+    status = fn(ptr(idbuf), ptr(payload), ptr(colour), ptr(gout), rows, pw,
+                C, height, width, sample_ph, ptr(gcolour), ptr(gverts),
+                build.stream(dev))
+    build.check(status, "antialias_bwd")
+    return gcolour, gverts
+
+
+antialias_planes_bwd.launches = 0

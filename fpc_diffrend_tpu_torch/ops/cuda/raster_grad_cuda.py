@@ -1,0 +1,197 @@
+"""The rasterizer's gradient kernels: pixel -> bin entry (K5), bin entry ->
+triangle (K6).
+
+Port of ``fpc_diffrend_tpu.ops.pallas.raster_grad_tpu``: ``_grad_kernel``
+(launched by ``pixel_grad_pallas``) as ``pixel_grad`` and the fold after
+it (the JAX step's ``segment_sum``, or the opt-in ``_fold_kernel`` of
+``banded_fold``) as ``fold_entries``, both in ``csrc/raster_grad.cu``.
+
+K1 resolves each pixel's winning bin entry and writes the residual planes
+the chain rule needs, so the backward streams no triangle records: K5
+computes 32 coefficients per pixel (one per record slot) from the payload
+cotangents and reduces them onto the winner's entry row; K6 sums the
+entry rows (about 2.4 per triangle) and the global-list rows into
+per-triangle rows in the record layout (geometry slots 0-15, aux slots
+16-31; the id, neighbour and pad slots stay 0).
+
+Each function runs its kernel for CUDA tensors and its plain PyTorch
+version (``*_plain``) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fpc_diffrend_tpu_torch.kernels import build
+from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
+    MAX_GLOBAL, N_EXTRA, REC, TILE_H, TILE_W, Bins)
+
+Tensor = torch.Tensor
+
+N_GPL = 11        # cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]
+# record slots that carry gradient: all but the id (12) and pad (28-31)
+LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
+_AREA_EPS = 1e-12
+
+
+def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
+                       x: Tensor, y: Tensor) -> Tensor:
+    """The 32 per-pixel gradient coefficients (raster_grad_tpu.py
+    :286-310, in the kernel's order): (32, rows, pw)."""
+    D, iw0, iw1, iw2, du02, du12, dv02, dv12 = extra
+    gz, gtu, gtv = gpl[2], gpl[3], gpl[4]
+    d0 = u * D
+    d1 = v * D
+    d2 = (D - d0) - d1
+    gu = (gpl[0] + gtu * du02) + gtv * dv02
+    gv = (gpl[1] + gtu * du12) + gtv * dv12
+    rD = 1.0 / torch.where(torch.abs(D) > _AREA_EPS, D, 1.0)
+    S = ((gu * d0 + gv * d1) * rD) * rD
+    gd0 = gu * rD - S
+    gd1 = gv * rD - S
+    gd2 = -S
+    gl0 = gd0 * iw0
+    gl1 = gd1 * iw1
+    gl2 = gd2 * iw2
+    wp = (1.0 - u) - v
+    zero = torch.zeros_like(u)
+    planes = [gl0 * x, gl0 * y, gl0, gl1 * x, gl1 * y, gl1,
+              gl2 * x, gl2 * y, gl2, gz * x, gz * y, gz, zero,
+              -gd0 * d0 * iw0, -gd1 * d1 * iw1, -gd2 * d2 * iw2,
+              gtu * u, gtv * u, gtu * v, gtv * v, gtu * wp, gtv * wp,
+              *gpl[5:11], zero, zero, zero, zero]
+    return torch.stack([p.expand_as(u) for p in planes])
+
+
+def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
+                     extra: Tensor, gpl: Tensor):
+    """Plain PyTorch version of K5 (same arguments as :func:`pixel_grad`);
+    its rows past the live prefix are 0."""
+    rows, pw = entry.shape
+    dev = entry.device
+    x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
+    y = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    coeff = coefficient_planes(u, v, extra, gpl, x, y).reshape(REC, -1).T
+    e = entry.reshape(-1).long()
+    gbase = bins.gbase
+    grad_entries = torch.zeros((gbase, REC), device=dev)
+    grad_global = torch.zeros((MAX_GLOBAL, REC), device=dev)
+    binned = (e >= 0) & (e < gbase)
+    grad_entries.index_add_(0, e[binned], coeff[binned])
+    glob = e >= gbase
+    grad_global.index_add_(0, e[glob] - gbase, coeff[glob])
+    return grad_entries, grad_global
+
+
+def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
+               extra: Tensor, gpl: Tensor):
+    """K5: per-pixel gradient coefficients summed onto each winner entry.
+
+    :param bins: the bins K1 rasterized.
+    :param entry: (rows, pw) int32 K1 winner entry, -1 = none; global-list
+        winners are ``bins.gbase + row``.
+    :param u, v: (rows, pw) K1 payload planes 0-1.
+    :param extra: (8, rows, pw) K1 residual planes.
+    :param gpl: (11, rows, pw) cotangents of payload planes 0-10.
+    :return: (grad_entries (gbase, 32): one row per bin entry, rows past
+        ``bin_start[-1]`` unspecified; grad_global (MAX_GLOBAL, 32)).
+    """
+    dev = entry.device
+    rows, pw = entry.shape
+    if rows % TILE_H or pw % TILE_W:
+        raise ValueError(f"stacked image {rows}x{pw} is not whole tiles")
+    n_tiles = rows // TILE_H * (pw // TILE_W)
+    check = build.check_tensor
+    check(entry, "entry", torch.int32, (rows, pw), dev)
+    check(u, "u", torch.float32, (rows, pw), dev)
+    check(v, "v", torch.float32, (rows, pw), dev)
+    check(extra, "extra", torch.float32, (N_EXTRA, rows, pw), dev)
+    check(gpl, "gpl", torch.float32, (N_GPL, rows, pw), dev)
+    check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
+    if dev.type == "cpu":
+        return pixel_grad_plain(bins, entry, u, v, extra, gpl)
+    if dev.type != "cuda":
+        raise ValueError(f"pixel_grad: unsupported device {dev}")
+
+    grad_entries = torch.empty((bins.gbase, REC), device=dev)
+    grad_global = torch.empty((MAX_GLOBAL, REC), device=dev)
+    lib = build.load("raster_grad")
+    fn = lib.pixel_grad_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    pixel_grad.launches += 1
+    ptr = build.ptr
+    status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gpl),
+                ptr(bins.bin_start), n_tiles, pw // TILE_W, rows, bins.gbase,
+                ptr(grad_entries), ptr(grad_global), MAX_GLOBAL,
+                build.stream(dev))
+    build.check(status, "pixel_grad")
+    return grad_entries, grad_global
+
+
+pixel_grad.launches = 0
+
+
+def fold_entries_plain(grad_entries: Tensor, grad_global: Tensor,
+                       bins: Bins, n_tris: int) -> Tensor:
+    """Plain PyTorch version of K6 (same arguments as
+    :func:`fold_entries`): ``index_add_`` by ``sorted_tri`` and
+    ``global_idx``."""
+    dev = grad_entries.device
+    n_raw = bins.sorted_tri.shape[0]
+    live_cols = torch.zeros(REC, dtype=torch.bool, device=dev)
+    live_cols[LIVE_SLOTS] = True
+    live = (torch.arange(n_raw, device=dev) < bins.bin_start[-1])[:, None]
+    out = torch.zeros((n_tris + 1, REC), device=dev)
+    out.index_add_(0, torch.clamp(bins.sorted_tri, max=n_tris).long(),
+                   torch.where(live & live_cols, grad_entries[:n_raw], 0.0))
+    live = (torch.arange(MAX_GLOBAL, device=dev) < bins.n_global)[:, None]
+    out.index_add_(0, torch.clamp(bins.global_idx, max=n_tris).long(),
+                   torch.where(live & live_cols, grad_global, 0.0))
+    return out[:n_tris]
+
+
+def fold_entries(grad_entries: Tensor, grad_global: Tensor, bins: Bins,
+                 n_tris: int) -> Tensor:
+    """K6: bin-entry and global-list gradient rows summed per triangle.
+
+    :param grad_entries, grad_global: from :func:`pixel_grad` on ``bins``.
+    :param n_tris: stacked triangle count B * T.
+    :return: (n_tris, 32) per-triangle gradient rows.
+    """
+    dev = grad_entries.device
+    check = build.check_tensor
+    check(grad_entries, "grad_entries", torch.float32, (bins.gbase, REC),
+          dev)
+    check(grad_global, "grad_global", torch.float32, (MAX_GLOBAL, REC), dev)
+    n_raw = bins.sorted_tri.shape[0]
+    if n_raw > bins.gbase:
+        raise ValueError(f"{n_raw} bin entries exceed {bins.gbase} rows")
+    check(bins.sorted_tri, "sorted_tri", torch.int32, (n_raw,), dev)
+    check(bins.global_idx, "global_idx", torch.int32, (MAX_GLOBAL,), dev)
+    check(bins.n_global, "n_global", torch.int32, (1,), dev)
+    if dev.type == "cpu":
+        return fold_entries_plain(grad_entries, grad_global, bins, n_tris)
+    if dev.type != "cuda":
+        raise ValueError(f"fold_entries: unsupported device {dev}")
+
+    out = torch.empty((n_tris, REC), device=dev)
+    lib = build.load("raster_grad")
+    fn = lib.fold_entries_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    fold_entries.launches += 1
+    ptr = build.ptr
+    n_live = bins.bin_start[-1:]           # a view: read on the device
+    status = fn(ptr(grad_entries), ptr(grad_global), ptr(bins.sorted_tri),
+                ptr(bins.global_idx), ptr(n_live), ptr(bins.n_global),
+                n_raw + MAX_GLOBAL, n_tris, ptr(out), build.stream(dev))
+    build.check(status, "fold_entries")
+    return out
+
+
+fold_entries.launches = 0

@@ -103,10 +103,9 @@ def triangle_setup(pos_clip: Tensor, faces: Tensor, height: int, width: int):
     zy = b0 * z0 + b1 * z1 + b2 * z2
     zc = c0 * z0 + c1 * z1 + c2 * z2
     # invalid triangles: an edge plane of -1e30 covers no pixel
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=pos_clip.device)
-    c0 = torch.where(valid, c0, neg)
-    c1 = torch.where(valid, c1, neg)
-    c2 = torch.where(valid, c2, neg)
+    c0 = torch.where(valid, c0, -1e30)
+    c1 = torch.where(valid, c1, -1e30)
+    c2 = torch.where(valid, c2, -1e30)
     tri_id = torch.arange(faces.shape[0], dtype=torch.float32,
                           device=pos_clip.device).expand_as(a0)
     w0, w1, w2 = fw.unbind(-1)
@@ -203,6 +202,10 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
                       width: int, aux_b: Tensor):
     """Stacked-batch triangle setup and one-sort binning.
 
+    The bins are built from detached records: they are constants of the
+    backward (stop-gradient, as in the JAX package), and gradients reach
+    ``data_s``/``aux_s`` only through ``ops.rasterize``'s autograd Function.
+
     :param pos_clip_b: (B, V, 4) clip positions per sample.
     :param aux_b: (B, T, 16) per-sample aux records (``aux_records``).
     :return: (data_s (B, T, 16), aux_s (B, T, 16) shifted records, Bins
@@ -245,7 +248,8 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     sorted_tri = torch.where(sorted_tile < n_tiles, b_of * T + keys % T,
                              B * T).to(torch.int32)
 
-    rec = torch.cat([data_s, aux_s], dim=-1).reshape(B * T, REC)
+    rec = torch.cat([data_s.detach(), aux_s.detach()],
+                    dim=-1).reshape(B * T, REC)
     P = keys.shape[0]
     pad_rows = CHUNK + (-P) % CHUNK
     sorted_rec = torch.cat([
@@ -264,7 +268,7 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     grow = (big_idx < B * T)[:, None]
     global_rec = torch.where(grow, rec[safe_big], 0.0)
     box = torch.stack([tx0, ty0, tx1, ty1], dim=-1).reshape(B * T, 4)
-    empty = torch.tensor([1, 1, 0, 0], device=dev)
+    empty = (torch.arange(4, device=dev) < 2).long()     # box (1, 1, 0, 0)
     global_bbox = torch.where(grow, box[safe_big], empty).to(torch.int32)
 
     bins = Bins(sorted_rec=sorted_rec.contiguous(), bin_start=bin_start,
@@ -427,8 +431,6 @@ def fused_raster(bins: Bins, tex: Tensor, rows: int, pw: int):
         return fused_raster_plain(bins, tex, rows, pw)
     if dev.type != "cuda":
         raise ValueError(f"fused_raster: unsupported device {dev}")
-    build.refuse_grad(tex, bins.sorted_rec, bins.global_rec)
-
     idbuf = torch.empty((rows, pw), dtype=torch.int32, device=dev)
     entry = torch.empty((rows, pw), dtype=torch.int32, device=dev)
     payload = torch.empty((N_PAYLOAD, rows, pw), device=dev)

@@ -1,8 +1,10 @@
-"""Mesh regularizer losses, forward (port of ``fpc_diffrend_tpu.ops.mesh_ops``).
+"""Mesh regularizer losses (port of ``fpc_diffrend_tpu.ops.mesh_ops``).
 
 All adjacency is precomputed once (``data.obj.build_topology``), so each
 loss is a fixed-shape gather and reduction. Inputs are batched over any
 leading dims: ``verts3`` is (..., V, 3) and each loss returns (...).
+Gradients are autograd's, except the padded neighbour sum's, which is the
+same gather applied to the cotangent (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -25,10 +27,30 @@ def mesh_edge_loss(verts3: Tensor, edges: Tensor,
                       dim=-1)
 
 
+def _gather_sum(x: Tensor, nbr_idx: Tensor, nbr_mask: Tensor) -> Tensor:
+    g = x[..., nbr_idx, :]                                   # (..., V, D, 3)
+    return torch.sum(torch.where(nbr_mask[..., None] != 0, g, 0.0), dim=-2)
+
+
+class _NeighborSum(torch.autograd.Function):
+    """The undirected adjacency is symmetric, so the padded neighbour sum
+    is self-adjoint: its backward is the same gather on the cotangent, and
+    neither direction scatters."""
+
+    @staticmethod
+    def forward(ctx, verts3, nbr_idx, nbr_mask):
+        ctx.save_for_backward(nbr_idx, nbr_mask)
+        return _gather_sum(verts3, nbr_idx, nbr_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        nbr_idx, nbr_mask = ctx.saved_tensors
+        return _gather_sum(g, nbr_idx, nbr_mask), None, None
+
+
 def neighbor_sum(verts3: Tensor, nbr_idx: Tensor, nbr_mask: Tensor) -> Tensor:
     """Sum of each vertex's neighbours over the padded (V, D) table."""
-    g = verts3[..., nbr_idx, :]                              # (..., V, D, 3)
-    return torch.sum(torch.where(nbr_mask[..., None] != 0, g, 0.0), dim=-2)
+    return _NeighborSum.apply(verts3, nbr_idx, nbr_mask)
 
 
 def uniform_laplacian_padded(verts3: Tensor, nbr_idx: Tensor,

@@ -1,34 +1,92 @@
-"""Stacked-batch rasterize + texture + antialias, forward.
+"""Stacked-batch rasterize + texture + antialias, forward and backward.
 
-Port of the forward of ``fpc_diffrend_tpu.ops.rasterize``'s
-``rasterize_pallas_textured_sepaa_stacked`` and
+Port of ``fpc_diffrend_tpu.ops.rasterize``'s
+``rasterize_pallas_textured_sepaa_stacked`` and its custom VJP
 ``rasterize_texture_sepaa_stacked``: aux records and binning on the
 device, then K1 (fused raster + texture) and K2 (antialias), each one pass
 over the B samples stacked vertically into one image. The backward is
-slice 2: asking for a gradient through the kernels raises.
+K3 (antialias) -> K4 (texture) -> K5 (pixel -> bin entry) -> K6 (bin
+entry -> triangle), under one ``torch.autograd.Function``; the y-shift and
+the triangle setup chain back to clip positions through ordinary autograd,
+as the JAX package leaves them to autodiff.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import antialias_planes
+from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
+    antialias_planes, antialias_planes_bwd)
+from fpc_diffrend_tpu_torch.ops.cuda.raster_grad_cuda import (
+    fold_entries, pixel_grad)
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
     aux_records, bin_scene_stacked, fused_raster, pad_resolution)
+from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import texture_planes_bwd
 
 Tensor = torch.Tensor
+
+
+class RasterizeTexturedSepaaStacked(torch.autograd.Function):
+    """K1 -> K2 forward, K3 -> K4 -> K5 -> K6 backward.
+
+    ``apply(data_s, aux_s, tex, bins, sample_ph, height, width)``:
+
+    :param data_s, aux_s: (B, T, 16) shifted stacked records
+        (``bin_scene_stacked``), differentiable.
+    :param tex: (TH, TW, C) texture, differentiable.
+    :param bins: the Bins built from the same records (no gradient).
+    :param sample_ph: row pitch of the stacked samples.
+    :param height, width: one sample's real size.
+    :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
+        before the background composite).
+    """
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+        B, T = data_s.shape[:2]
+        _, pw = pad_resolution(height, width)
+        idbuf, entry, payload, extra, colour = fused_raster(
+            bins, tex, B * sample_ph, pw)
+        aa = antialias_planes(idbuf, payload, colour, height, width,
+                              sample_ph)
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
+        ctx.bins = bins
+        ctx.dims = (B, T, sample_ph, height, width)
+        ctx.mark_non_differentiable(idbuf)
+        return idbuf, aa
+
+    @staticmethod
+    def backward(ctx, _g_id, g_aa):
+        idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
+        B, T, sample_ph, height, width = ctx.dims
+        gcolour, gverts = antialias_planes_bwd(
+            idbuf, payload, colour, g_aa.contiguous(), height, width,
+            sample_ph)
+        gtex, gtu, gtv = texture_planes_bwd(tex, payload[3], payload[4],
+                                            gcolour)
+        # the 11 cotangent planes of payload 0-10 [gu gv gz gtu gtv
+        # g(x0..y2)]: u, v and z get none (the payload never leaves this
+        # op, and the antialias differentiates only corners and colour)
+        gpl = torch.cat([torch.zeros((3,) + gtu.shape, device=gtu.device),
+                         gtu[None], gtv[None], gverts])
+        grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[0],
+                                               payload[1], extra, gpl)
+        grad = fold_entries(grad_entries, grad_global, ctx.bins, B * T)
+        return (grad[:, :16].reshape(B, T, 16), grad[:, 16:].reshape(B, T, 16),
+                gtex, None, None, None, None)
 
 
 def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
                 uv_idx: Tensor, face_neighbors: Tensor, resolution):
     """Aux records and stacked binning for a batch of clip positions.
 
-    :return: Bins over the (B * ph, pw) stacked image.
+    :return: (data_s, aux_s (B, T, 16) shifted records, differentiable,
+        Bins over the (B * ph, pw) stacked image).
     """
     height, width = resolution
     aux_b = aux_records(uv, uv_idx, pos_clip_b, faces, face_neighbors,
                         height, width)
-    return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b)[2]
+    return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b)
 
 
 def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
@@ -39,12 +97,12 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     :param pos_clip_b: (B, V, 4) clip positions per sample.
     :param tex: (TH, TW, C) texture.
     :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
-        before the background composite).
+        before the background composite), differentiable with respect to
+        ``pos_clip_b`` and ``tex``.
     """
     height, width = resolution
-    ph, pw = pad_resolution(height, width)
-    bins = bin_stacked(pos_clip_b, faces, uv, uv_idx, face_neighbors,
-                       resolution)
-    idbuf, _entry, payload, _extra, colour = fused_raster(
-        bins, tex, pos_clip_b.shape[0] * ph, pw)
-    return idbuf, antialias_planes(idbuf, payload, colour, height, width, ph)
+    ph, _ = pad_resolution(height, width)
+    data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
+                                      face_neighbors, resolution)
+    return RasterizeTexturedSepaaStacked.apply(data_s, aux_s, tex, bins, ph,
+                                               height, width)

@@ -1,18 +1,24 @@
-"""Where the slice-1 forward spends its device time, at the bench workload.
+"""Where the forward and the fit step spend their device time, at the
+bench workload.
 
-    python -m fpc_diffrend_tpu_torch.profile_forward [--batches 3]
+    python -m fpc_diffrend_tpu_torch.profile_forward [--batches 3] [--steps 3]
 
-Needs a CUDA device. Traces ``fit.loop.evaluate`` with ``torch.profiler``
-(CPU and CUDA activities) and prints:
+Needs a CUDA device. Traces ``fit.loop.evaluate`` and ``fit.loop.
+train_steps`` with ``torch.profiler`` (CPU and CUDA activities) and prints
+for each:
 
 * the device busy share of the traced window: the summed time of the CUDA
   kernels and copies over the window's wall time (one stream, so device
   work does not overlap);
-* device time per stage (prologue, binning, K1, K2, composite + loss) of
-  one batch, each stage traced under its own ``record_function`` label;
-* the kernels with the most device time.
+* the kernels with the most device time;
 
-The record goes to ``chiprun_out/profile_forward.json``.
+and the device time per stage of one step (prologue, binning, K1, K2,
+composite + loss with its backward, K3, K4, K5, K6, the setup chain's
+backward, the gate + Adam + renorm), each stage traced under its own
+``record_function`` label. Kernels that autograd's engine launches from
+its own thread (the backward of the loss and of the setup chain) fall
+outside those labels; ``chip_smoke.py``'s CUDA-event spans time them. The
+record goes to ``chiprun_out/profile_forward.json``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from fpc_diffrend_tpu_torch.fit import loop
 from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+from fpc_diffrend_tpu_torch.fit import state as state_mod
+from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
 from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
 from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
 from fpc_diffrend_tpu_torch.workload import build_workload
@@ -37,9 +46,13 @@ _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
 def _device_kernels(prof):
-    """(name, self device ms, count) of device-side events, largest first."""
+    """(name, self device ms, count) of device-side events, largest first;
+    annotations (``record_function`` ranges mirrored on the device, such as
+    ``Optimizer.step``) are spans over kernels, not work, and are left
+    out."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -47,7 +60,8 @@ def forward_stages(wl: dict, state: dict):
     """The slice's forward on the workload's first batch, as
     [(stage name, fn)] in order: prologue, binning, K1, K2, composite +
     loss. Each fn reads its inputs from ``state`` and writes its outputs
-    there (pc, v3, bins, k1, aa, loss), so a stage can be rerun alone."""
+    there (pc, v3, data_s, aux_s, bins, k1, aa, loss), so a stage can be
+    rerun alone."""
     config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
                                     wl["batch"])
     H, W, B = wl["H"], wl["W"], wl["B"]
@@ -58,9 +72,9 @@ def forward_stages(wl: dict, state: dict):
             config, scene, params, batch.cam_idx, batch.frame_idx)
 
     def binning():
-        state["bins"] = bin_stacked(state["pc"], scene.faces, scene.uv,
-                                    scene.uv_idx, scene.face_neighbors,
-                                    config.resolution)
+        state["data_s"], state["aux_s"], state["bins"] = bin_stacked(
+            state["pc"], scene.faces, scene.uv, scene.uv_idx,
+            scene.face_neighbors, config.resolution)
 
     def k1():
         state["k1"] = rc.fused_raster(state["bins"], params["tex"], B * ph,
@@ -80,59 +94,146 @@ def forward_stages(wl: dict, state: dict):
             ("composite+loss", tail)]
 
 
-def _stages(wl):
-    for name, fn in forward_stages(wl, {}):
+def step_stages(wl: dict, state: dict):
+    """One fit step on the workload's first batch, stage by stage, as
+    [(stage name, fn)]: the forward stages (run with gradients), the loss's
+    backward to the antialiased planes, K3, K4, K5, K6, the backward of the
+    setup chain (shift, setup, clip, pose, blend) into the parameters, and
+    Adam with the quaternion renorm. Each fn reads and writes ``state``
+    like :func:`forward_stages`; the setup chain keeps its graph, so any
+    stage but Adam can be rerun. Gradients accumulate across reruns."""
+    config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
+                                    wl["batch"])
+    H, W, B = wl["H"], wl["W"], wl["B"]
+    T = scene.faces.shape[0]
+    ph, _ = rc.pad_resolution(H, W)
+    for p in params.values():
+        p.requires_grad_(True)
+    fwd = forward_stages(wl, state)[:4]
+
+    def tail():
+        aa = state["aa"].detach().requires_grad_(True)
+        imgs = composite_stacked(state["k1"][0], aa, B, (H, W))
+        loss = loop.loss_from_render(config, scene, params, batch, imgs,
+                                     state["v3"])[0]
+        state["loss"] = loss.detach()
+        state["g_aa"], = torch.autograd.grad(loss, aa)
+
+    def k3():
+        idbuf, _, payload, _, colour = state["k1"]
+        state["k3"] = ac.antialias_planes_bwd(idbuf, payload, colour,
+                                              state["g_aa"], H, W, ph)
+
+    def k4():
+        payload = state["k1"][2]
+        gcolour, gverts = state["k3"]
+        gtex, gtu, gtv = tc.texture_planes_bwd(params["tex"].detach(),
+                                               payload[3], payload[4],
+                                               gcolour)
+        state["gtex"] = gtex
+        state["gpl"] = torch.cat([torch.zeros((3,) + gtu.shape,
+                                              device=gtu.device),
+                                  gtu[None], gtv[None], gverts])
+
+    def k5():
+        _, entry, payload, extra, _ = state["k1"]
+        state["k5"] = gc.pixel_grad(state["bins"], entry, payload[0],
+                                    payload[1], extra, state["gpl"])
+
+    def k6():
+        state["k6"] = gc.fold_entries(*state["k5"], state["bins"], B * T)
+
+    def setup_bwd():
+        g = state["k6"]
+        torch.autograd.backward(
+            [state["data_s"], state["aux_s"]],
+            [g[:, :16].reshape(B, T, 16), g[:, 16:].reshape(B, T, 16)],
+            retain_graph=True)
+        tex = params["tex"]
+        tex.grad = state["gtex"] if tex.grad is None else (tex.grad
+                                                           + state["gtex"])
+
+    def adam():
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state_mod.optimizer_step(config, wl["state"])
+
+    return fwd + [("composite+loss fwd+bwd", tail), ("K3 antialias_bwd", k3),
+                  ("K4 texture_bwd", k4), ("K5 pixel_grad", k5),
+                  ("K6 fold_entries", k6), ("setup chain bwd", setup_bwd),
+                  ("Adam", adam)]
+
+
+def _stages(stages):
+    for name, fn in stages:
         with record_function("stage:" + name):
             fn()
+
+
+def _traced(fn):
+    """(wall ms, device kernels) of fn() under the profiler."""
+    with profile(activities=_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, _device_kernels(prof)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     wl = build_workload(device="cuda")
+    config, scene, params = wl["config"], wl["scene"], wl["params"]
     gen = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        loop.evaluate(wl["config"], wl["scene"], wl["params"],
-                      wl["frames_u8"], 1, gen)       # warm-up
-        _stages(wl)
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(0)
+
+    def evaluate():
+        loop.evaluate(config, scene, params, wl["frames_u8"], args.batches,
+                      gen)
+
+    def steps():
+        loop.train_steps(config, scene, wl["state"], wl["frames_u8"], dgen,
+                         args.steps, wl["n_frames"])
+
+    record = {"card": torch.cuda.get_device_name(0)}
+    for name, fn, n in (("evaluate", evaluate, args.batches),
+                        ("train_steps", steps, args.steps)):
+        fn()                                            # warm-up
         torch.cuda.synchronize()
-
-        with profile(activities=_ACTIVITIES) as prof:
-            t0 = time.perf_counter()
-            loop.evaluate(wl["config"], wl["scene"], wl["params"],
-                          wl["frames_u8"], args.batches, gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = _device_kernels(prof)
+        wall_ms, kernels = _traced(fn)
         busy_ms = sum(r[1] for r in kernels)
+        record[name] = {"n": n, "wall_ms": wall_ms, "busy_ms": busy_ms,
+                        "kernels": kernels[:40]}
+        if busy_ms == 0:
+            print("the profiler recorded no device time: use CUDA events")
+        print(f"{name} x{n}: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+        for kname, ms, cnt in kernels[:15]:
+            print(f"  {ms / n:9.3f} ms/iter  x{cnt // n:<4d} {kname[:100]}")
 
-        with profile(activities=_ACTIVITIES) as sprof:
-            _stages(wl)
-            torch.cuda.synchronize()
-    stages = {e.key[len("stage:"):]: e.device_time_total / 1e3
-              for e in sprof.key_averages() if e.key.startswith("stage:")}
-
-    print(f"card: {torch.cuda.get_device_name(0)}")
-    if busy_ms == 0:
-        print("the profiler recorded no device time: use CUDA events")
-    print(f"evaluate x{args.batches}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-    print("stage device ms (one batch): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages.items()))
-    for name, ms, n in kernels[:15]:
-        print(f"  {ms / args.batches:9.3f} ms/batch  x{n // args.batches:<4d}"
-              f" {name[:100]}")
+    stages = step_stages(wl, {})
+    _stages(stages)                                     # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=_ACTIVITIES) as sprof:
+        _stages(stages)
+        torch.cuda.synchronize()
+    record["stage_device_ms"] = {
+        e.key[len("stage:"):]: e.device_time_total / 1e3
+        for e in sprof.key_averages() if e.key.startswith("stage:")}
+    print("stage device ms (one step): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in record["stage_device_ms"].items()))
     out = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "profile_forward.json"), "w") as f:
-        json.dump({"card": torch.cuda.get_device_name(0),
-                   "batches": args.batches, "wall_ms": wall_ms,
-                   "busy_ms": busy_ms, "stage_device_ms": stages,
-                   "kernels": kernels[:40]}, f, indent=1)
+        json.dump(record, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -25,9 +25,10 @@ from fpc_diffrend_tpu_torch.models import camera
 def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
                    batch: int = 8, tex_size: int = 1024, n_cams: int = 3,
                    n_frames: int = 4, device=None) -> dict:
-    """:return: dict with config, scene, params, frames_u8 (C, F, H, W)
-    uint8 on the device, batch (the fixed first batch bench.py draws),
-    faces (numpy) and the sizes H, W, B, n_frames."""
+    """:return: dict with config, scene, params, state (the initial
+    TrainState over those params), frames_u8 (C, F, H, W) uint8 on the
+    device, batch (the fixed first batch bench.py draws), faces (numpy) and
+    the sizes H, W, B, n_frames."""
     device = resolve_device(device)
     rng = np.random.default_rng(0)
 
@@ -76,5 +77,6 @@ def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
     fr = torch.as_tensor(rng.integers(0, n_frames, batch), device=device)
     first = fit_loop.Batch(cam, fr, fit_loop.decode_refs(frames_u8, cam, fr))
     return dict(config=config, scene=scene, params=params,
+                state=state_mod.init_state(config, params),
                 frames_u8=frames_u8, batch=first, faces=faces, H=height,
                 W=width, B=batch, n_frames=n_frames)

@@ -1,0 +1,322 @@
+"""The backward kernels' plain versions (K3-K6) and the render Function
+against the JAX package.
+
+Planes come from K1's plain version on stacked quads scenes; cotangents
+are numpy draws from a seed. The JAX side runs its Pallas kernels in
+interpret mode on identical inputs, or ``jax.vjp`` of its XLA functions.
+
+Tolerances:
+* K3, 1e-6 absolute (the values are O(1)): the same pair math in the same
+  order; what remains is the order XLA sums a vjp's terms in;
+* K4, gtu/gtv within 1e-6 relative and 1e-6 times the texture's width
+  (height) absolute, as they are a texel slope scaled by that size (one
+  pixel's 4 texels); gtex within 1e-5 of its largest value (sums over ~30
+  pixels in another order);
+* K5 + K6, 1e-5 of the largest per-triangle value: the TPU kernel sums
+  pixels with one-hot matmuls of a 3-way bf16 split (exact to ~2^-24 per
+  product), the port with index_add_;
+* the Function, 1e-5 of the largest value: its K3-K6 backward against
+  autograd straight through the plain forward, which rounds each chain
+  rule step differently.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from fpc_diffrend_tpu.ops import antialias as jaa
+from fpc_diffrend_tpu.ops.pallas import antialias_tpu as jat
+from fpc_diffrend_tpu.ops.pallas import rasterize_tpu as jr
+from fpc_diffrend_tpu.ops.pallas.raster_grad_tpu import pixel_grad_pallas
+from fpc_diffrend_tpu.ops.texture import texture as jtexture
+from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as tac
+from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as tgc
+from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
+from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
+from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTexturedSepaaStacked
+from fpc_diffrend_tpu_torch.ops.texture import bilinear
+
+from _torch_scenes import clip_batch, quads_scene
+
+# (B, H, W): the wide case spills triangles into the global list
+SCENES = [(2, 40, 100), (3, 72, 300)]
+
+
+def _scene(rng, B, H, W, C=1, tex_size=16):
+    verts, faces, uv, fn = quads_scene(rng)
+    pc = clip_batch(verts, rng, B)
+    tex = rng.uniform(size=(tex_size, tex_size, C)).astype(np.float32)
+    t = {k: torch.as_tensor(v) for k, v in
+         dict(pc=pc, faces=faces, uv=uv, fn=fn, tex=tex).items()}
+    aux = tr.aux_records(t["uv"], t["faces"], t["pc"], t["faces"], t["fn"],
+                         H, W)
+    data_s, aux_s, bins = tr.bin_scene_stacked(t["pc"], t["faces"], H, W,
+                                               aux)
+    ph, pw = tr.pad_resolution(H, W)
+    k1 = tr.fused_raster(bins, t["tex"], B * ph, pw)
+    return dict(pc=pc, faces=faces, uv=uv, fn=fn, tex=t["tex"], aux=aux,
+                data_s=data_s, aux_s=aux_s, bins=bins, k1=k1, ph=ph, pw=pw,
+                T=faces.shape[0])
+
+
+def _close_to_max(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+# ---------------------------------------------------------------- K3 ----
+
+def test_k3_plain_matches_pallas_kernel_interpret_stacked(rng):
+    B, H, W = 3, 36, 100
+    s = _scene(rng, B, H, W, C=2)
+    idbuf, _, payload, _, colour = s["k1"]
+    g = rng.normal(size=colour.shape).astype(np.float32)
+    gcol, gverts = tac.antialias_planes_bwd(idbuf, payload, colour,
+                                            torch.as_tensor(g), H, W,
+                                            s["ph"])
+    assert tac.antialias_planes_bwd.launches == 0
+    assert float(gverts.abs().max()) > 0     # silhouettes carry gradient
+    packed = jat._pack_planes(tuple(jnp.asarray(c.numpy()) for c in colour),
+                              jnp.asarray(idbuf.numpy()),
+                              jnp.asarray(payload.numpy()))
+    rows, pw = idbuf.shape
+    jcol, jverts = jat.aa_planes_bwd_core(packed, jnp.asarray(g), H, W, 2,
+                                          rows, pw, True, sample_ph=s["ph"])
+    np.testing.assert_allclose(gcol.numpy(), np.stack(jcol), atol=1e-6)
+    np.testing.assert_allclose(gverts.numpy(), np.asarray(jverts), atol=1e-6)
+
+
+def test_k3_plain_matches_vjp_of_xla_antialias_single_image(rng):
+    """One unstacked image against jax.vjp of ops/antialias.py
+    antialias_fused (every pair, XLA)."""
+    H, W = 40, 100
+    s = _scene(rng, 1, H, W)
+    idbuf, _, payload, _, colour = s["k1"]
+    g = np.zeros(colour.shape, np.float32)
+    g[:, :H, :W] = rng.normal(size=(colour.shape[0], H, W))
+    gcol, gverts = tac.antialias_planes_bwd(idbuf, payload, colour,
+                                            torch.as_tensor(g), H, W, H)
+    rast = np.stack([payload[0], payload[1], payload[2],
+                     idbuf.float() + 1.0], -1)[:H, :W]
+    verts = payload[5:11].permute(1, 2, 0)[:H, :W].numpy()
+    neigh = payload[11:14].permute(1, 2, 0)[:H, :W].numpy()
+    col = colour.permute(1, 2, 0)[:H, :W].numpy()
+    _, vjp = jax.vjp(lambda c, v: jaa.antialias_fused(
+        c, jnp.asarray(rast), v, jnp.asarray(neigh)), jnp.asarray(col),
+        jnp.asarray(verts))
+    jcol, jverts = vjp(jnp.asarray(g[:, :H, :W].transpose(1, 2, 0)))
+    np.testing.assert_allclose(gcol.permute(1, 2, 0)[:H, :W].numpy(),
+                               np.asarray(jcol), atol=1e-6)
+    np.testing.assert_allclose(gverts.permute(1, 2, 0)[:H, :W].numpy(),
+                               np.asarray(jverts), atol=1e-6)
+
+
+# ---------------------------------------------------------------- K4 ----
+
+def test_k4_plain_matches_vjp_of_xla_texture(rng):
+    """Wrap-mode gtex, gtu, gtv against jax.vjp of ops/texture.py, with
+    samples across the seams and missed pixels at uv (0, 0)."""
+    rows, pw, C = 24, 128, 2
+    tex = rng.uniform(size=(16, 32, C)).astype(np.float32)
+    tu = rng.uniform(-0.2, 1.2, size=(rows, pw)).astype(np.float32)
+    tv = rng.uniform(-0.2, 1.2, size=(rows, pw)).astype(np.float32)
+    tu[:, :8] = rng.uniform(0.97, 1.03, size=(rows, 8))     # the seams
+    tv[:4] = rng.uniform(-0.03, 0.03, size=(4, pw))
+    tu[-4:], tv[-4:] = 0.0, 0.0                              # misses
+    g = rng.normal(size=(C, rows, pw)).astype(np.float32)
+    g[:, 10:12] = 0.0                                        # dead pixels
+    gtex, gtu, gtv = ttc.texture_planes_bwd(
+        torch.as_tensor(tex), torch.as_tensor(tu), torch.as_tensor(tv),
+        torch.as_tensor(g))
+    assert ttc.texture_planes_bwd.launches == 0
+    uv = jnp.stack([jnp.asarray(tu), jnp.asarray(tv)], -1)
+    _, vjp = jax.vjp(lambda t, q: jtexture(t, q, boundary_mode="wrap"),
+                     jnp.asarray(tex), uv)
+    jtex, juv = vjp(jnp.asarray(g.transpose(1, 2, 0)))
+    _close_to_max(gtex.numpy(), jtex, 1e-5)
+    np.testing.assert_allclose(gtu.numpy(), np.asarray(juv[..., 0]),
+                               atol=1e-6 * 32, rtol=1e-6)
+    np.testing.assert_allclose(gtv.numpy(), np.asarray(juv[..., 1]),
+                               atol=1e-6 * 16, rtol=1e-6)
+    assert np.all(gtu.numpy()[10:12] == 0) and np.all(gtex.numpy()[0, 0])
+
+
+def test_k4_plain_matches_autograd_of_the_forward_sampler(rng):
+    """The explicit backward equals autograd of ops.texture.bilinear."""
+    tex = torch.as_tensor(rng.uniform(size=(8, 8, 1)).astype(np.float32))
+    tu = torch.as_tensor(rng.uniform(-1, 2, size=(8, 128)).astype(
+        np.float32))
+    tv = torch.as_tensor(rng.uniform(-1, 2, size=(8, 128)).astype(
+        np.float32))
+    g = torch.as_tensor(rng.normal(size=(1, 8, 128)).astype(np.float32))
+    gtex, gtu, gtv = ttc.texture_planes_bwd(tex, tu, tv, g)
+    t, u, v = (x.clone().requires_grad_(True) for x in (tex, tu, tv))
+    (bilinear(t, u, v, "wrap").movedim(-1, 0) * g).sum().backward()
+    torch.testing.assert_close(gtex, t.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gtu, u.grad, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gtv, v.grad, atol=1e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------------- K5 + K6 ----
+
+@pytest.mark.parametrize("B,H,W", SCENES)
+def test_k5_k6_plain_match_pallas_kernel_interpret(rng, B, H, W):
+    """Per-triangle rows against pixel_grad_pallas in interpret mode on
+    bins made from the same clip positions (bit-equal to the port's), the
+    wide scene through the global list."""
+    s = _scene(rng, B, H, W)
+    bins = s["bins"]
+    _, entry, payload, extra, _ = s["k1"]
+    rows, pw = entry.shape
+    gpl = rng.normal(size=(tgc.N_GPL, rows, pw)).astype(np.float32)
+    ge, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra,
+                            torch.as_tensor(gpl))
+    grad = tgc.fold_entries(ge, gg, bins, B * s["T"]).numpy()
+    assert tgc.pixel_grad.launches == tgc.fold_entries.launches == 0
+    if W > 256:
+        assert int(bins.n_global[0]) > 0
+        assert float(gg.abs().max()) > 0     # global winners have rows
+
+    aux_j = jax.vmap(lambda p: jr.aux_records(
+        jnp.asarray(s["uv"]), jnp.asarray(s["faces"]), p,
+        jnp.asarray(s["faces"]), jnp.asarray(s["fn"]), H, W))(
+            jnp.asarray(s["pc"]))
+    _, _, bins_j = jr.bin_scene_stacked(jnp.asarray(s["pc"]),
+                                        jnp.asarray(s["faces"]), H, W, aux_j)
+    np.testing.assert_array_equal(np.asarray(bins_j.sorted_tri),
+                                  bins.sorted_tri.numpy())
+    gd, ga = pixel_grad_pallas(
+        bins_j, jnp.asarray(entry.numpy().astype(np.float32)),
+        jnp.asarray(payload[0].numpy()), jnp.asarray(payload[1].numpy()),
+        jnp.asarray(extra.numpy()), jnp.asarray(gpl), B * s["T"], rows, W,
+        pair_cap=bins.sorted_tri.shape[0], interpret=True, stacked=True)
+    want = np.concatenate([np.asarray(gd), np.asarray(ga)], axis=1)
+    _close_to_max(grad, want, 1e-5)
+    assert np.all(grad[:, [12, 28, 29, 30, 31]] == 0)
+
+
+def test_k5_rows_hold_only_their_own_pixels(rng):
+    """A pixel adds to its winner entry only: a triangle's entry rows sum
+    the coefficients of exactly the pixels K1 gave it, so a pixel of a
+    global triangle's box that K1 did not give it adds nothing to it."""
+    B, H, W = 3, 72, 300
+    s = _scene(rng, B, H, W)
+    bins = s["bins"]
+    _, entry, payload, extra, _ = s["k1"]
+    rows, pw = entry.shape
+    gpl = torch.as_tensor(rng.normal(size=(tgc.N_GPL, rows, pw)).astype(
+        np.float32))
+    _, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    x = torch.arange(pw, dtype=torch.float32) + 0.5
+    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
+    coeff = tgc.coefficient_planes(payload[0], payload[1], extra, gpl, x, y)
+    for g in range(int(bins.n_global[0])):
+        mine = coeff[:, entry == bins.gbase + g]
+        # sums of ~1e3 pixels in another order: 1e-5 of their magnitude
+        err = (gg[g] - mine.sum(dim=1)).abs()
+        assert bool(torch.all(err <= 1e-5 * mine.abs().sum(dim=1))), g
+    assert int(bins.n_global[0]) > 0
+
+
+# ----------------------------------------------------- the Function ----
+
+def _reference_forward(data_s, aux_s, tex, bins, k1, H, W, ph):
+    """The forward in plain, differentiable torch ops: each pixel's
+    winner record gathered from the records by K1's entry, resolved,
+    textured and antialiased (bins and winners held fixed)."""
+    B, T = data_s.shape[:2]
+    _, entry, payload, _, _ = k1
+    rows, pw = entry.shape
+    rec = torch.cat([data_s, aux_s], -1).reshape(B * T, tr.REC)
+    n_raw = bins.sorted_tri.shape[0]
+    tri = torch.cat([bins.sorted_tri.long(),
+                     torch.zeros(bins.gbase - n_raw, dtype=torch.long),
+                     bins.global_idx.long()]).clamp(max=B * T - 1)
+    hit = entry >= 0
+    F = torch.where(hit[..., None], rec[tri[entry.long().clamp(min=0)]],
+                    0.0)
+    x = torch.arange(pw, dtype=torch.float32) + 0.5
+    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
+    pay, _ = tr.resolve_payload(F, x, y, hit, payload[2])
+    colour = bilinear(tex, pay[3], pay[4], "wrap").movedim(-1, 0)
+    idbuf = torch.where(hit, F[..., 12].detach().to(torch.int32), -1)
+    return tac.antialias_planes_plain(idbuf, torch.stack(pay), colour, H, W,
+                                      ph)
+
+
+@pytest.mark.parametrize("B,H,W", SCENES)
+def test_function_backward_matches_autograd_of_plain_forward(rng, B, H, W):
+    s = _scene(rng, B, H, W, C=2)
+    ph, bins = s["ph"], s["bins"]
+    R = torch.as_tensor(rng.normal(size=(2, B * ph, s["pw"])).astype(
+        np.float32))
+    grads = []
+    for use_function in (True, False):
+        d, a, t = (x.detach().clone().requires_grad_(True)
+                   for x in (s["data_s"], s["aux_s"], s["tex"]))
+        if use_function:
+            idbuf, aa = RasterizeTexturedSepaaStacked.apply(d, a, t, bins,
+                                                            ph, H, W)
+            assert torch.equal(idbuf, s["k1"][0])
+        else:
+            aa = _reference_forward(d, a, t, bins, s["k1"], H, W, ph)
+        (aa * R).sum().backward()
+        grads.append((aa.detach(), d.grad, a.grad, t.grad))
+    (aa0, *g0), (aa1, *g1) = grads
+    assert torch.equal(aa0, aa1)
+    for got, want in zip(g0, g1):
+        _close_to_max(got.numpy(), want.numpy(), 1e-5)
+    assert float(g0[1][..., 6:12].abs().max()) > 0   # screen corners
+
+
+def test_function_texture_gradient_matches_finite_differences(rng):
+    """The loss is linear in the texture, so central differences in float32
+    are exact to rounding: a few texels, 1e-3 relative (each difference
+    of two ~1e2 sums divided by 2h = 0.2 loses ~1e-5 absolute)."""
+    B, H, W = 2, 40, 100
+    s = _scene(rng, B, H, W)
+    R = torch.as_tensor(rng.normal(size=(1, B * s["ph"], s["pw"])).astype(
+        np.float32))
+
+    def loss(tex):
+        _, aa = RasterizeTexturedSepaaStacked.apply(
+            s["data_s"].detach(), s["aux_s"].detach(), tex, s["bins"],
+            s["ph"], H, W)
+        return (aa.double() * R.double()).sum()
+
+    tex = s["tex"].clone().requires_grad_(True)
+    loss(tex).backward()
+    h = 0.1
+    flat = tex.grad.reshape(-1)
+    for i in np.argsort(-np.abs(flat.numpy()))[:4]:
+        e = torch.zeros_like(flat)
+        e[i] = h
+        e = e.reshape(tex.shape)
+        with torch.no_grad():
+            fd = (loss(s["tex"] + e) - loss(s["tex"] - e)) / (2 * h)
+        np.testing.assert_allclose(float(flat[i]), float(fd), rtol=1e-3)
+
+
+def test_cpu_calls_leave_counters_and_check_shapes(rng):
+    s = _scene(rng, 2, 16, 40)
+    idbuf, entry, payload, extra, colour = s["k1"]
+    g = torch.zeros_like(colour)
+    with pytest.raises(ValueError):
+        tac.antialias_planes_bwd(idbuf, payload, colour, g[:, :8], 16, 40,
+                                 16)
+    with pytest.raises(ValueError):
+        ttc.texture_planes_bwd(s["tex"], payload[3], payload[4],
+                               g.double())
+    with pytest.raises(ValueError):
+        tgc.pixel_grad(s["bins"], entry.long(), payload[0], payload[1],
+                       extra, torch.zeros((tgc.N_GPL,) + entry.shape))
+    ge, gg = tgc.pixel_grad(s["bins"], entry, payload[0], payload[1], extra,
+                            torch.zeros((tgc.N_GPL,) + entry.shape))
+    with pytest.raises(ValueError):
+        tgc.fold_entries(ge[:-1], gg, s["bins"], 2 * s["T"])
+    assert (tac.antialias_planes_bwd.launches, ttc.texture_planes_bwd.launches,
+            tgc.pixel_grad.launches, tgc.fold_entries.launches) == (0,) * 4

@@ -5,8 +5,9 @@
   ``fpc_diffrend_tpu_torch`` is not the JAX package).
 * Entry points run on CUDA unless the caller asks for the CPU, and raise
   without a card: nothing falls back to the CPU on its own.
-* On the card, each kernel equals its plain version on the same inputs
-  (marked ``cuda``: skipped without a card; the chip runs them).
+* On the card, each kernel equals its plain version on the same inputs,
+  and a gradient through K1 and K2 runs (marked ``cuda``: skipped without
+  a card; the chip runs them).
 """
 
 import os
@@ -84,7 +85,8 @@ def card():
 def test_kernels_match_plain_versions_on_the_card(card):
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+    from fpc_diffrend_tpu_torch.ops.rasterize import (
+        RasterizeTexturedSepaaStacked, bin_stacked)
     from fpc_diffrend_tpu_torch.fit import loop
 
     for grid in (20, 4):     # binned triangles; the global list
@@ -93,8 +95,8 @@ def test_kernels_match_plain_versions_on_the_card(card):
         s, p, b = wl["scene"], wl["params"], wl["batch"]
         pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
                                            b.frame_idx)
-        bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx, s.face_neighbors,
-                           (96, 200))
+        data_s, aux_s, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
+                                          s.face_neighbors, (96, 200))
         ph, pw = rc.pad_resolution(96, 200)
         before = rc.fused_raster.launches
         k1 = rc.fused_raster(bins, p["tex"], 2 * ph, pw)
@@ -106,6 +108,42 @@ def test_kernels_match_plain_versions_on_the_card(card):
         k2 = ac.antialias_planes(k1[0], k1[2], k1[4], 96, 200, ph)
         p2 = ac.antialias_planes_plain(k1[0], k1[2], k1[4], 96, 200, ph)
         torch.testing.assert_close(k2, p2, atol=1e-6, rtol=0)
-    tex = p["tex"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        rc.fused_raster(bins, tex, 2 * ph, pw)
+    # a gradient through K1 and K2 runs K3-K6
+    d, a, tex = (x.detach().clone().requires_grad_(True)
+                 for x in (data_s, aux_s, p["tex"]))
+    _, aa = RasterizeTexturedSepaaStacked.apply(d, a, tex, bins, ph, 96, 200)
+    aa.sum().backward()
+    for g in (d.grad, a.grad, tex.grad):
+        assert bool(torch.isfinite(g).all()) and bool(g.any())
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_versions_on_the_card(card):
+    """K3-K6 against their plain versions with chip_smoke's tolerances:
+    K3 and K4's gtu/gtv within 1e-6, the sums taken with atomics within
+    1e-5 of the magnitudes they add up."""
+    import chip_smoke
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+    from fpc_diffrend_tpu_torch.fit import loop
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    for grid in (20, 4):     # binned triangles; the global list
+        wl = build_workload(96, 200, grid=grid, batch=2, tex_size=64,
+                            device=card)
+        s, p, b = wl["scene"], wl["params"], wl["batch"]
+        pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
+                                           b.frame_idx)
+        _, _, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
+                                 s.face_neighbors, (96, 200))
+        ph, pw = rc.pad_resolution(96, 200)
+        k1 = rc.fused_raster(bins, p["tex"], 2 * ph, pw)
+        g_aa = torch.randn(k1[4].shape, device=card, generator=gen)
+        gtuv = torch.randn((3, 2 * ph, pw), device=card, generator=gen)
+        errs, _, _ = chip_smoke.check_backward(
+            k1, bins, p["tex"], g_aa, gtuv, 96, 200, ph,
+            2 * wl["faces"].shape[0], f"grid {grid}")
+        assert errs["K3 gcolour"] <= chip_smoke.K3_ATOL
+        if grid == 4:
+            assert int(bins.n_global[0]) > 0

@@ -12,10 +12,15 @@ Phases, each fatal on failure:
    a 32-triangle dome whose large triangles fill the global list, 1024^2
    texture), each kernel against its plain PyTorch version on the same
    inputs: K1 (ids and entries exactly equal, payload/extra/colour within
-   1e-5), K2 (within 1e-6), K3 (within 1e-6: a deterministic gather in the
-   plain version's order), K4 (gtu/gtv within 1e-6), and K4's gtex, K5's
-   and K6's rows, whose atomics sum in another order, each element within
-   1e-5 of the sum of the magnitudes it adds up;
+   1e-5; its texture-free mode, which the mip path runs, equal to the
+   textured mode on ids, entries, payload and extra), K2 (within 1e-6),
+   K3 (within 1e-6: a deterministic gather in the plain version's order),
+   K4 (gtu/gtv within 1e-6), K8 and K9 on the 7-level pyramid with the
+   real LOD and with a random LOD plane past both clamps (K8 and K9's
+   gtu/gtv within 1e-6: one thread per pixel, no atomics), and K4's gtex,
+   K9's gradient pyramid, K5's and K6's rows, whose atomics sum in another
+   order, each element within 1e-5 of the sum of the magnitudes it adds
+   up;
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0) through ``fit.loop.evaluate``: 1 warm-up batch, then 5
@@ -24,11 +29,18 @@ Phases, each fatal on failure:
 5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
    dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
    (a host sync on the step's path fails it), then 2 timed dispatches of 5
-   with the six launch counters set to 0 just before; every loss term and
-   parameter must be finite and each of K1-K6 launched once per step;
-   then per-stage CUDA-event times of one batch's forward and one step;
-6. each kernel at the main path's shapes against its plain version, with
-   its time, the plain version's time, the library call's time where one
+   with the launch counters set to 0 just before; every loss term and
+   parameter must be finite and each of K1-K6 launched once per step (K8,
+   K9 never); then per-stage CUDA-event times of one batch's forward and
+   one step;
+5b. the mip path at full width: the same workload with trilinear mipmap
+   sampling (``enable_mip``, ``max_mip_level=6``: 7 levels, 1024..16),
+   5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch) and
+   2 timed dispatches of 5 steps through ``fit.loop.train_steps`` after a
+   warm-up dispatch under sync-debug "error" (K1, K2, K3, K5, K6, K8, K9
+   once per step, K4 never), finite; then its stage times;
+6. each kernel at the main path's shapes (K8, K9: the mip path's) against
+   its plain version, with its time, the plain version's time, the library call's time where one
    computes the same function, and its bound, printed as one
    ``{"kernels": [...]}`` line.
 
@@ -52,7 +64,10 @@ K1_ATOL = 1e-5                 # payload / extra / colour; ids exact
 K2_ATOL = 1e-6
 K3_ATOL = 1e-6                 # deterministic, the plain version's order
 K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
-ATOMIC_RTOL = 1e-5             # gtex, K5/K6 rows: atomics reorder sums
+K8_ATOL = 1e-6                 # one thread per pixel, no atomics
+K9_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
+ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5/K6 rows: atomics reorder sums
+MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
 
 
 def fail(msg: str) -> None:
@@ -106,6 +121,11 @@ def check_kernels(bins, tex, rows, pw, height, width, sample_ph, label):
              f"({bad} pixels; {errs})")
     if max(errs["payload"], errs["extra"], errs["colour"]) > K1_ATOL:
         fail(f"{label}: K1 planes differ from the plain version: {errs}")
+    k0 = rc.fused_raster(bins, None, rows, pw)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(k0[:4], k1[:4]))
+            and k0[4].shape == (0, rows, pw)):
+        fail(f"{label}: K1 without its texture tail differs from K1")
     k2 = ac.antialias_planes(k1[0], k1[2], k1[4], height, width, sample_ph)
     torch.cuda.synchronize()
     p2 = ac.antialias_planes_plain(k1[0], k1[2], k1[4], height, width,
@@ -217,6 +237,51 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
     return errs, abs_errs, (k3, k4, k5, k6, gpl)
 
 
+def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
+    """K8 and K9 against their plain versions on K1's uv, with the LOD of
+    the mip path and, where ``lam_random`` is given, with that plane too.
+
+    :param g: (C, rows, pw) cotangent of K8's output.
+    :return: (the checked errors, kernel name -> max abs error, (pyramid,
+        sizes, the real LOD)).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops import texture_mip as tm
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+
+    idbuf, _, payload, _, _ = k1
+    tu, tv = payload[3], payload[4]
+    pyr, sizes = tm.mip_pyramid(tex, MAX_MIP_LEVEL)
+    lam = tm.lod_from_texc(tu, tv, idbuf, *sizes[0], height, width,
+                           sample_ph)
+    errs, abs_errs = {}, {"mip_sample": 0.0, "mip_sample_bwd": 0.0}
+    planes = {"LOD": lam}
+    if lam_random is not None:
+        planes["random LOD"] = lam_random
+    for name, lp in planes.items():
+        k8 = tmc.mip_sample(pyr, sizes, tu, tv, lp)
+        torch.cuda.synchronize()
+        e8 = max_err(k8, tmc.mip_sample_plain(pyr, sizes, tu, tv, lp))
+        k9 = tmc.mip_sample_bwd(pyr, sizes, tu, tv, lp, g)
+        torch.cuda.synchronize()
+        p9 = tmc.mip_sample_bwd_plain(pyr, sizes, tu, tv, lp, g)
+        m9 = tmc.mip_sample_bwd_plain(pyr, sizes, tu, tv, lp, g.abs())[0]
+        e9 = {"gtu": max_err(k9[1], p9[1]), "gtv": max_err(k9[2], p9[2]),
+              "gpyr rel": atomic_err(k9[0], p9[0], m9)}
+        errs[f"K8 {name}"] = e8
+        errs.update({f"K9 {k} {name}": v for k, v in e9.items()})
+        if not (e8 <= K8_ATOL and max(e9["gtu"], e9["gtv"]) <= K9_ATOL
+                and e9["gpyr rel"] <= ATOMIC_RTOL):
+            fail(f"{label}: K8/K9 differ from the plain versions: {errs}")
+        abs_errs["mip_sample"] = max(abs_errs["mip_sample"], e8)
+        abs_errs["mip_sample_bwd"] = max(abs_errs["mip_sample_bwd"],
+                                         e9["gtu"], e9["gtv"],
+                                         max_err(k9[0], p9[0]))
+    print(f"check {label}: mip max err {errs}", flush=True)
+    return errs, abs_errs, (pyr, sizes, lam)
+
+
 def k1_bound_ms(bins, rows, pw, C, tex):
     """Least time for K1's work: each input read once, each output written
     once (bytes), against ~16 flops per (pixel, live entry) coverage test
@@ -301,6 +366,36 @@ def k4_bound_ms(gcolour, tex):
     return _bound(nbytes, 40 * live * C)
 
 
+def _hi_live(lam, n_levels):
+    """Pixels whose LOD blends a second level."""
+    import torch
+
+    lc = torch.clamp(lam, 0.0, float(n_levels - 1))
+    return (torch.floor(lc) + 1 < n_levels) & (lc != torch.floor(lc))
+
+
+def k8_bound_ms(lam, C, pyr, n_levels):
+    """K8: tu, tv and lam read and C planes written per pixel, the pyramid
+    read once (bytes); ~(12 C + 12) flops for each level a pixel samples,
+    4 taps and 3 lerps a channel and the coordinates (operations)."""
+    px = lam.numel()
+    levels = px + int(_hi_live(lam, n_levels).sum())
+    return _bound(px * 4 * (3 + C) + pyr.numel() * 4, levels * (12 * C + 12))
+
+
+def k9_bound_ms(lam, gcolour, pyr, n_levels):
+    """K9: C cotangent planes read and gtu/gtv written per pixel, tu, tv and
+    lam read where the cotangent is not 0, the pyramid read and the
+    gradient pyramid written (bytes); ~(24 C + 12) flops for each level
+    such a pixel samples (operations)."""
+    C = gcolour.shape[0]
+    px = lam.numel()
+    live = (gcolour != 0).any(dim=0)
+    levels = int(live.sum()) + int((_hi_live(lam, n_levels) & live).sum())
+    nbytes = px * 4 * (C + 2) + int(live.sum()) * 12 + 2 * pyr.numel() * 4
+    return _bound(nbytes, levels * (24 * C + 12))
+
+
 def k5_bound_ms(entry, bins):
     """K5: entry read for every pixel, u, v, 8 extra and 11 cotangent
     planes for every covered pixel, one 128-byte row written per live and
@@ -326,6 +421,8 @@ KERNELS = {
     "texture_bwd": ("csrc/texture_bwd.cu", "texture_tpu.py:463"),
     "pixel_grad": ("csrc/raster_grad.cu", "raster_grad_tpu.py:97"),
     "fold_entries": ("csrc/raster_grad.cu", "raster_grad_tpu.py:338"),
+    "mip_sample": ("csrc/texture_mip.cu", "texture_mip_tpu.py:163"),
+    "mip_sample_bwd": ("csrc/texture_mip.cu", "texture_mip_tpu.py:246"),
 }
 
 
@@ -345,6 +442,7 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
     from fpc_diffrend_tpu_torch.profile_forward import (forward_stages,
                                                         step_stages)
     from fpc_diffrend_tpu_torch.workload import build_workload
@@ -392,6 +490,11 @@ def main() -> int:
         gtuv = torch.randn((3, 2 * ph, pw), device=dev, generator=gen)
         check_backward(k1, bins, wl["params"]["tex"], g_aa, gtuv, 256, 384,
                        ph, 2 * wl["faces"].shape[0], label)
+        # a LOD plane over every level of the 7 and past both clamps
+        lam_random = (torch.rand((2 * ph, pw), device=dev, generator=gen)
+                      * (MAX_MIP_LEVEL + 3) - 1.5)
+        check_mip(k1, wl["params"]["tex"].detach(), g_aa, lam_random, 256,
+                  384, ph, label)
 
     # ---- 4. the forward at full width ----
     t0 = time.perf_counter()
@@ -413,7 +516,9 @@ def main() -> int:
                 "antialias_bwd": ac.antialias_planes_bwd,
                 "texture_bwd": tc.texture_planes_bwd,
                 "pixel_grad": gc.pixel_grad,
-                "fold_entries": gc.fold_entries}
+                "fold_entries": gc.fold_entries,
+                "mip_sample": tmc.mip_sample,
+                "mip_sample_bwd": tmc.mip_sample_bwd}
     for f in counters.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -466,8 +571,9 @@ def main() -> int:
     for name, p in params.items():
         if not bool(torch.isfinite(p).all()):
             fail(f"non-finite parameter {name} after the steps")
-    if any(n != n_steps for n in launches.values()):
-        fail(f"kernel launches {launches} != {n_steps} steps each")
+    want = {k: 0 if k.startswith("mip") else n_steps for k in counters}
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
     record.update(step_ms=step_ms, mpix_per_s=mpix, step_losses=losses,
                   launches=launches, steps_taken=state.step)
 
@@ -485,6 +591,75 @@ def main() -> int:
     record["step_stage_ms"] = step_stage_ms
     print("step stages (CUDA events, ms, batch of 8): " + ", ".join(
         f"{k} {v:.3f}" for k, v in step_stage_ms.items()), flush=True)
+
+    # ---- 5b. the mip path at full width ----
+    wlm = build_workload(mip=True, device=dev)
+    cm, scm, pm = wlm["config"], wlm["scene"], wlm["params"]
+    loop.evaluate(cm, scm, pm, wlm["frames_u8"], 1, cpu_gen)
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics = loop.evaluate(cm, scm, pm, wlm["frames_u8"], n_batches,
+                            cpu_gen)
+    torch.cuda.synchronize()
+    mip_fwd_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    launches_fwd = {k: f.launches for k, f in counters.items()}
+    metrics = {k: v.tolist() for k, v in metrics.items()}
+    print(f"mip evaluate: {n_batches} batches, forward {mip_fwd_ms:.3f} "
+          f"ms/batch; launches {launches_fwd}; loss {metrics['loss']}",
+          flush=True)
+    for m, v in metrics.items():
+        if not all(math.isfinite(x) for x in v):
+            fail(f"mip: non-finite {m}: {v}")
+    want = dict.fromkeys(counters, 0)
+    want.update(fused_raster=n_batches, antialias=n_batches,
+                mip_sample=n_batches)
+    if launches_fwd != want:
+        fail(f"mip: kernel launches {launches_fwd} != {want}")
+    mstate = wlm["state"]
+    torch.cuda.set_sync_debug_mode("error")
+    loop.train_steps(cm, scm, mstate, wlm["frames_u8"], gen, k,
+                     wlm["n_frames"])
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    runs = [loop.train_steps(cm, scm, mstate, wlm["frames_u8"], gen, k,
+                             wlm["n_frames"])[1] for _ in range(n_dispatch)]
+    torch.cuda.synchronize()
+    mip_step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    mip_launches = {k: f.launches for k, f in counters.items()}
+    mlosses = {m: torch.cat([r[m] for r in runs]).tolist() for m in runs[0]}
+    print(f"mip train_steps: {n_dispatch} x {k} steps, {mip_step_ms:.3f} "
+          f"ms/step (host clock, synchronized), "
+          f"{B * H * W / mip_step_ms / 1e3:.1f} Mpix/s; launches "
+          f"{mip_launches}; loss first {mlosses['loss'][0]} last "
+          f"{mlosses['loss'][-1]}", flush=True)
+    for m, v in mlosses.items():
+        if not all(math.isfinite(x) for x in v):
+            fail(f"mip: non-finite step {m}: {v}")
+    for name, p in pm.items():
+        if not bool(torch.isfinite(p).all()):
+            fail(f"mip: non-finite parameter {name} after the steps")
+    want = {k: 0 if k == "texture_bwd" else n_steps for k in counters}
+    if mip_launches != want:
+        fail(f"mip: kernel launches {mip_launches} != {want}")
+    with torch.no_grad():
+        mip_stages = {name: cuda_ms(fn, 5)
+                      for name, fn in forward_stages(wlm, {})}
+    print("mip forward stages (CUDA events, ms, batch of 8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in mip_stages.items()), flush=True)
+    mstage = {}
+    mip_step_stages = {name: cuda_ms(fn, 3)
+                       for name, fn in step_stages(wlm, mstage)}
+    print("mip step stages (CUDA events, ms, batch of 8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in mip_step_stages.items()), flush=True)
+    record.update(mip_forward_ms_per_batch=mip_fwd_ms, mip_metrics=metrics,
+                  mip_launches_evaluate=launches_fwd, mip_step_ms=mip_step_ms,
+                  mip_step_losses=mlosses, mip_launches=mip_launches,
+                  mip_stage_ms=mip_stages, mip_step_stage_ms=mip_step_stages)
 
     # ---- 6. kernels at the main path's shapes ----
     bins = sstate["bins"]
@@ -529,6 +704,20 @@ def main() -> int:
                 lambda: gc.fold_entries(*k5, bins, B * T),
                 lambda: gc.fold_entries_plain(*k5, bins, B * T)),
         }
+        # K8 and K9 at the mip step's shapes
+        _, mabs, (pyr, sizes, lam) = check_mip(
+            mstage["k1"], pm["tex"].detach(), mstage["k3"][0], None, H, W,
+            ph, "bench batch, mip")
+        mpay = mstage["k1"][2]
+        mg = mstage["k3"][0]
+        t["mip_sample"] = (
+            lambda: tmc.mip_sample(pyr, sizes, mpay[3], mpay[4], lam),
+            lambda: tmc.mip_sample_plain(pyr, sizes, mpay[3], mpay[4], lam))
+        t["mip_sample_bwd"] = (
+            lambda: tmc.mip_sample_bwd(pyr, sizes, mpay[3], mpay[4], lam,
+                                       mg),
+            lambda: tmc.mip_sample_bwd_plain(pyr, sizes, mpay[3], mpay[4],
+                                             lam, mg))
         times = {name: (cuda_ms(kf, 20), cuda_ms(pf, 2))
                  for name, (kf, pf) in t.items()}
         # the library yardstick of K6: one index_add_ of the live rows
@@ -544,8 +733,12 @@ def main() -> int:
         "texture_bwd": k4_bound_ms(gcolour, tex),
         "pixel_grad": k5_bound_ms(entry, bins),
         "fold_entries": k6_bound_ms(bins, B * T),
+        "mip_sample": k8_bound_ms(lam, C, pyr, len(sizes)),
+        "mip_sample_bwd": k9_bound_ms(lam, mg, pyr, len(sizes)),
     }
-    errs = {"fused_raster": k1_err, "antialias": k2_err, **babs}
+    errs = {"fused_raster": k1_err, "antialias": k2_err, **babs, **mabs}
+    launches = {**launches, "mip_sample": mip_launches["mip_sample"],
+                "mip_sample_bwd": mip_launches["mip_sample_bwd"]}
     kernels = []
     for name, (src_file, tpu) in KERNELS.items():
         ms, plain = times[name]

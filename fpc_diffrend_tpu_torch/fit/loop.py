@@ -1,10 +1,11 @@
 """The batched fit step (port of ``fpc_diffrend_tpu.fit.loop``).
 
-blend -> pose -> clip -> stacked-batch render (K1, K2) -> composite ->
-photometric + mesh regularizer + staging/temporal losses, then the
-backward (K3 -> K4 -> K5 -> K6, and autograd for the rest), the corrective
-gate, Adam at the ramped rates and the quaternion renorm. The mvp matches
-the JAX package's:
+blend -> pose -> clip -> stacked-batch render (K1, K2; with mip, K1, LOD,
+K8, K2) -> composite -> photometric + mesh regularizer + staging/temporal
+losses, then the backward (K3 -> K4 -> K5 -> K6, with mip K3 -> K9 -> K5
+-> K6, and autograd for the rest), the corrective gate, Adam at the
+ramped rates and the quaternion renorm. The mvp matches the JAX
+package's:
   proj @ rigid(per-frame pose) @ rigid(per-camera correction) @ modelview
 
 Entry points: ``evaluate`` (the loss forward for a few sampled batches),
@@ -67,16 +68,22 @@ def render_batch(config: FitConfig, scene: Scene, params: dict,
                  cam_idx: Tensor, frame_idx: Tensor):
     """Render a (B,) batch through the stacked-batch kernel pipeline.
 
+    With ``config.enable_mip`` the texture is sampled trilinearly across
+    its mip chain (K8, K9 in place of K1's tail and K4). The JAX package
+    renders that configuration per sample under ``vmap``; the port renders
+    it stacked, which gives each sample the same result (the JAX package
+    calls its stacked path "functionally identical to vmapping").
+
     :return: (imgs (B, H, W, C), verts3 (B, V, 3)).
     """
-    if config.enable_mip:
-        raise NotImplementedError("the mip texture path is not ported yet")
     pos_clip_b, verts3 = sample_clip_positions(config, scene, params,
                                                cam_idx, frame_idx)
     imgs = render_batch_stacked(pos_clip_b, scene.faces, scene.uv,
                                 scene.uv_idx, params["tex"],
                                 tuple(config.resolution),
-                                scene.face_neighbors)
+                                scene.face_neighbors,
+                                enable_mip=config.enable_mip,
+                                max_mip_level=config.max_mip_level)
     return imgs, verts3
 
 

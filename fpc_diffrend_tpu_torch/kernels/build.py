@@ -36,6 +36,7 @@ SOURCES = {
     "antialias_bwd": "antialias_bwd.cu",
     "texture_bwd": "texture_bwd.cu",
     "raster_grad": "raster_grad.cu",
+    "texture_mip": "texture_mip.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds every

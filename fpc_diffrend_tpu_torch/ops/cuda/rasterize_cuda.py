@@ -326,7 +326,7 @@ def resolve_payload(F: Tensor, x: Tensor, y: Tensor, hit: Tensor,
     return payload, extra
 
 
-def fused_raster_plain(bins: Bins, tex: Tensor, rows: int, pw: int):
+def fused_raster_plain(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     """Plain PyTorch version of K1 (same inputs and outputs as
     :func:`fused_raster`).
 
@@ -337,7 +337,7 @@ def fused_raster_plain(bins: Bins, tex: Tensor, rows: int, pw: int):
     on the tiles sorted by bin size, so each step touches only the tiles
     that still have entries.
     """
-    dev = tex.device
+    dev = bins.sorted_rec.device
     gy, gx = rows // TILE_H, pw // TILE_W
     n_tiles = gy * gx
     t = torch.arange(n_tiles, device=dev)
@@ -392,20 +392,26 @@ def fused_raster_plain(bins: Bins, tex: Tensor, rows: int, pw: int):
                        torch.zeros((1, REC), device=dev)])
     F = table[torch.where(hit, be, table.shape[0] - 1)]
     payload, extra = resolve_payload(F, x, y, hit, bz)
-    colour = bilinear(tex, payload[3], payload[4], "wrap").movedim(-1, 0)
+    if tex is None:
+        colour = torch.empty((0, rows, pw), device=dev)
+    else:
+        colour = _planes(bilinear(tex, payload[3], payload[4],
+                                  "wrap").movedim(-1, 0), rows,
+                         pw).contiguous()
     idbuf = torch.where(hit, F[..., 12].to(torch.int32), -1)
     entry = torch.where(hit, be, -1).to(torch.int32)
     return (_planes(idbuf, rows, pw), _planes(entry, rows, pw),
             _planes(torch.stack(payload), rows, pw),
-            _planes(torch.stack(extra), rows, pw),
-            _planes(colour, rows, pw).contiguous())
+            _planes(torch.stack(extra), rows, pw), colour)
 
 
-def fused_raster(bins: Bins, tex: Tensor, rows: int, pw: int):
+def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     """K1: rasterize, interpolate and texture the stacked image in one pass.
 
     :param bins: from :func:`bin_scene_stacked`.
-    :param tex: (TH, TW, C) float32 texture, sampled bilinearly with wrap.
+    :param tex: (TH, TW, C) float32 texture, sampled bilinearly with wrap;
+        None skips the texture tail (C = 0: the mip path samples the
+        payload's uv itself).
     :param rows, pw: stacked image size, whole 8x128 tiles.
     :return: (idbuf (rows, pw) int32 winning triangle id, -1 = none;
         entry (rows, pw) int32 winning bin entry, -1 = none;
@@ -413,13 +419,16 @@ def fused_raster(bins: Bins, tex: Tensor, rows: int, pw: int):
         extra (8, rows, pw) [D iw0 iw1 iw2 du02 du12 dv02 dv12];
         colour (C, rows, pw)). A pixel no triangle covers samples uv (0, 0).
     """
-    dev = tex.device
+    dev = bins.sorted_rec.device
     if rows % TILE_H or pw % TILE_W:
         raise ValueError(f"stacked image {rows}x{pw} is not whole tiles")
     n_tiles = rows // TILE_H * (pw // TILE_W)
-    th, tw, C = tex.shape
     check = build.check_tensor
-    check(tex, "tex", torch.float32, (th, tw, C), dev)
+    if tex is None:
+        th, tw, C = 1, 1, 0
+    else:
+        th, tw, C = tex.shape
+        check(tex, "tex", torch.float32, (th, tw, C), dev)
     check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
     check(bins.sorted_rec, "sorted_rec", torch.float32, (bins.gbase, REC),
           dev)
@@ -445,8 +454,9 @@ def fused_raster(bins: Bins, tex: Tensor, rows: int, pw: int):
     ptr = build.ptr
     status = fn(ptr(bins.sorted_rec), ptr(bins.global_rec),
                 ptr(bins.global_bbox), ptr(bins.n_global),
-                ptr(bins.bin_start), ptr(tex), th, tw, C, n_tiles,
-                pw // TILE_W, bins.gbase, rows, ptr(idbuf), ptr(entry),
+                ptr(bins.bin_start), None if tex is None else ptr(tex),
+                th, tw, C, n_tiles, pw // TILE_W, bins.gbase, rows,
+                ptr(idbuf), ptr(entry),
                 ptr(payload), ptr(extra), ptr(colour), build.stream(dev))
     build.check(status, "fused_raster")
     return idbuf, entry, payload, extra, colour

@@ -39,13 +39,18 @@ def composite_stacked(idbuf: Tensor, aa: Tensor, batch: int,
 def render_batch_stacked(pos_clip_b: Tensor, pos_idx: Tensor, uv: Tensor,
                          uv_idx: Tensor, tex: Tensor,
                          resolution: Tuple[int, int], face_neighbors: Tensor,
-                         background: float = BACKGROUND) -> Tensor:
+                         background: float = BACKGROUND,
+                         enable_mip: bool = False,
+                         max_mip_level: int = 0) -> Tensor:
     """Render a batch of clip positions through the stacked pipeline.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
+    :param enable_mip: trilinear mipmap sampling (``linear-mipmap-linear``
+        with up to ``max_mip_level`` levels) in place of bilinear.
     :return: (B, H, W, C) images in [0, 1], row 0 = bottom (GL convention).
     """
     idbuf, aa = rasterize_textured_sepaa_stacked(
-        pos_clip_b, pos_idx, uv, uv_idx, tex, face_neighbors, resolution)
+        pos_clip_b, pos_idx, uv, uv_idx, tex, face_neighbors, resolution,
+        enable_mip, max_mip_level)
     return composite_stacked(idbuf, aa, pos_clip_b.shape[0], resolution,
                              background)

@@ -2,10 +2,12 @@
 bench workload.
 
     python -m fpc_diffrend_tpu_torch.profile_forward [--batches 3] [--steps 3]
+        [--mip]
 
 Needs a CUDA device. Traces ``fit.loop.evaluate`` and ``fit.loop.
-train_steps`` with ``torch.profiler`` (CPU and CUDA activities) and prints
-for each:
+train_steps`` with ``torch.profiler`` (CPU and CUDA activities) on the
+bench workload (``--mip``: its trilinear-mipmap variant) and prints for
+each:
 
 * the device busy share of the traced window: the summed time of the CUDA
   kernels and copies over the window's wall time (one stream, so device
@@ -14,11 +16,15 @@ for each:
 
 and the device time per stage of one step (prologue, binning, K1, K2,
 composite + loss with its backward, K3, K4, K5, K6, the setup chain's
-backward, the gate + Adam + renorm), each stage traced under its own
-``record_function`` label. Kernels that autograd's engine launches from
-its own thread (the backward of the loss and of the setup chain) fall
-outside those labels; ``chip_smoke.py``'s CUDA-event spans time them. The
-record goes to ``chiprun_out/profile_forward.json``.
+backward, the gate + Adam + renorm; on the mip path K1 without its
+texture tail, the pyramid build, the LOD and K8 before K2, and K9 in
+place of K4 with the pyramid's backward after the setup chain's), each
+stage traced under its own ``record_function`` label. Kernels that
+autograd's engine launches from its own thread (the backward of the loss
+and of the setup chain) fall outside those labels; ``chip_smoke.py``'s
+CUDA-event spans time them. The record goes to
+``chiprun_out/profile_forward.json`` (``profile_forward_mip.json`` with
+``--mip``).
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
 from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
 from fpc_diffrend_tpu_torch.workload import build_workload
 
 _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -59,9 +67,10 @@ def _device_kernels(prof):
 def forward_stages(wl: dict, state: dict):
     """The slice's forward on the workload's first batch, as
     [(stage name, fn)] in order: prologue, binning, K1, K2, composite +
-    loss. Each fn reads its inputs from ``state`` and writes its outputs
-    there (pc, v3, data_s, aux_s, bins, k1, aa, loss), so a stage can be
-    rerun alone."""
+    loss; with ``enable_mip``, K1 without its texture tail, then the
+    pyramid build, the LOD and K8 before K2. Each fn reads its inputs from
+    ``state`` and writes its outputs there (pc, v3, data_s, aux_s, bins,
+    k1, pyr, lam, colour, aa, loss), so a stage can be rerun alone."""
     config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
                                     wl["batch"])
     H, W, B = wl["H"], wl["W"], wl["B"]
@@ -76,32 +85,57 @@ def forward_stages(wl: dict, state: dict):
             state["pc"], scene.faces, scene.uv, scene.uv_idx,
             scene.face_neighbors, config.resolution)
 
+    mip = config.enable_mip
+
     def k1():
-        state["k1"] = rc.fused_raster(state["bins"], params["tex"], B * ph,
-                                      pw)
+        state["k1"] = rc.fused_raster(state["bins"],
+                                      None if mip else params["tex"],
+                                      B * ph, pw)
+        state["colour"] = state["k1"][4]
+
+    def pyramid():
+        state["pyr"] = mip_pyramid(params["tex"], config.max_mip_level)
+
+    def lod():
+        idbuf, _, payload, _, _ = state["k1"]
+        th, tw = state["pyr"][1][0]
+        state["lam"] = lod_from_texc(payload[3], payload[4], idbuf, th, tw,
+                                     H, W, ph)
+
+    def k8():
+        payload = state["k1"][2]
+        pyr, sizes = state["pyr"]
+        state["colour"] = tmc.mip_sample(pyr.detach(), sizes, payload[3],
+                                         payload[4], state["lam"])
 
     def k2():
-        idbuf, _, payload, _, colour = state["k1"]
-        state["aa"] = ac.antialias_planes(idbuf, payload, colour, H, W, ph)
+        idbuf, _, payload, _, _ = state["k1"]
+        state["aa"] = ac.antialias_planes(idbuf, payload, state["colour"], H,
+                                          W, ph)
 
     def tail():
         imgs = composite_stacked(state["k1"][0], state["aa"], B, (H, W))
         state["loss"] = loop.loss_from_render(config, scene, params, batch,
                                               imgs, state["v3"])[0]
 
-    return [("prologue", prologue), ("binning", binning),
-            ("K1 fused_raster", k1), ("K2 antialias", k2),
-            ("composite+loss", tail)]
+    raster = [("prologue", prologue), ("binning", binning),
+              ("K1 fused_raster", k1)]
+    if mip:
+        raster += [("mip pyramid", pyramid), ("LOD", lod),
+                   ("K8 mip_sample", k8)]
+    return raster + [("K2 antialias", k2), ("composite+loss", tail)]
 
 
 def step_stages(wl: dict, state: dict):
     """One fit step on the workload's first batch, stage by stage, as
     [(stage name, fn)]: the forward stages (run with gradients), the loss's
-    backward to the antialiased planes, K3, K4, K5, K6, the backward of the
-    setup chain (shift, setup, clip, pose, blend) into the parameters, and
-    Adam with the quaternion renorm. Each fn reads and writes ``state``
-    like :func:`forward_stages`; the setup chain keeps its graph, so any
-    stage but Adam can be rerun. Gradients accumulate across reruns."""
+    backward to the antialiased planes, K3, K4 (K9 on the mip path), K5,
+    K6, the backward of the setup chain (shift, setup, clip, pose, blend)
+    into the parameters, on the mip path the pyramid's backward into the
+    texture, and Adam with the quaternion renorm. Each fn reads and writes
+    ``state`` like :func:`forward_stages`; the setup chain and the pyramid
+    keep their graphs, so any stage but Adam can be rerun. Gradients
+    accumulate across reruns."""
     config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
                                     wl["batch"])
     H, W, B = wl["H"], wl["W"], wl["B"]
@@ -109,7 +143,7 @@ def step_stages(wl: dict, state: dict):
     ph, _ = rc.pad_resolution(H, W)
     for p in params.values():
         p.requires_grad_(True)
-    fwd = forward_stages(wl, state)[:4]
+    fwd = forward_stages(wl, state)[:-1]
 
     def tail():
         aa = state["aa"].detach().requires_grad_(True)
@@ -120,8 +154,8 @@ def step_stages(wl: dict, state: dict):
         state["g_aa"], = torch.autograd.grad(loss, aa)
 
     def k3():
-        idbuf, _, payload, _, colour = state["k1"]
-        state["k3"] = ac.antialias_planes_bwd(idbuf, payload, colour,
+        idbuf, _, payload, _, _ = state["k1"]
+        state["k3"] = ac.antialias_planes_bwd(idbuf, payload, state["colour"],
                                               state["g_aa"], H, W, ph)
 
     def k4():
@@ -134,6 +168,22 @@ def step_stages(wl: dict, state: dict):
         state["gpl"] = torch.cat([torch.zeros((3,) + gtu.shape,
                                               device=gtu.device),
                                   gtu[None], gtv[None], gverts])
+
+    def k9():
+        payload = state["k1"][2]
+        gcolour, gverts = state["k3"]
+        pyr, sizes = state["pyr"]
+        gpyr, gtu, gtv = tmc.mip_sample_bwd(pyr.detach(), sizes, payload[3],
+                                            payload[4], state["lam"],
+                                            gcolour)
+        state["gpyr"] = gpyr
+        state["gpl"] = torch.cat([torch.zeros((3,) + gtu.shape,
+                                              device=gtu.device),
+                                  gtu[None], gtv[None], gverts])
+
+    def pyramid_bwd():
+        torch.autograd.backward(state["pyr"][0], state["gpyr"],
+                                retain_graph=True)
 
     def k5():
         _, entry, payload, extra, _ = state["k1"]
@@ -149,9 +199,10 @@ def step_stages(wl: dict, state: dict):
             [state["data_s"], state["aux_s"]],
             [g[:, :16].reshape(B, T, 16), g[:, 16:].reshape(B, T, 16)],
             retain_graph=True)
-        tex = params["tex"]
-        tex.grad = state["gtex"] if tex.grad is None else (tex.grad
-                                                           + state["gtex"])
+        if not config.enable_mip:
+            tex = params["tex"]
+            tex.grad = state["gtex"] if tex.grad is None else (
+                tex.grad + state["gtex"])
 
     def adam():
         for p in params.values():
@@ -159,6 +210,12 @@ def step_stages(wl: dict, state: dict):
                 p.grad = torch.zeros_like(p)
         state_mod.optimizer_step(config, wl["state"])
 
+    if config.enable_mip:
+        return fwd + [("composite+loss fwd+bwd", tail),
+                      ("K3 antialias_bwd", k3), ("K9 mip_sample_bwd", k9),
+                      ("K5 pixel_grad", k5), ("K6 fold_entries", k6),
+                      ("setup chain bwd", setup_bwd),
+                      ("mip pyramid bwd", pyramid_bwd), ("Adam", adam)]
     return fwd + [("composite+loss fwd+bwd", tail), ("K3 antialias_bwd", k3),
                   ("K4 texture_bwd", k4), ("K5 pixel_grad", k5),
                   ("K6 fold_entries", k6), ("setup chain bwd", setup_bwd),
@@ -185,10 +242,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--mip", action="store_true",
+                    help="the trilinear-mipmap variant of the workload")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
-    wl = build_workload(device="cuda")
+    wl = build_workload(mip=args.mip, device="cuda")
     config, scene, params = wl["config"], wl["scene"], wl["params"]
     gen = torch.Generator().manual_seed(0)
     dgen = torch.Generator(device="cuda")
@@ -202,7 +261,7 @@ def main() -> None:
         loop.train_steps(config, scene, wl["state"], wl["frames_u8"], dgen,
                          args.steps, wl["n_frames"])
 
-    record = {"card": torch.cuda.get_device_name(0)}
+    record = {"card": torch.cuda.get_device_name(0), "mip": args.mip}
     for name, fn, n in (("evaluate", evaluate, args.batches),
                         ("train_steps", steps, args.steps)):
         fn()                                            # warm-up
@@ -232,7 +291,8 @@ def main() -> None:
     out = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_forward.json"), "w") as f:
+    name = "profile_forward_mip.json" if args.mip else "profile_forward.json"
+    with open(os.path.join(out, name), "w") as f:
         json.dump(record, f, indent=1)
 
 

@@ -5,7 +5,9 @@ The same scene, cameras, config, texture and frames as ``bench.py``'s
 123x123 grid dome of 29,768 triangles seen by 3 narrow-FOV cameras at
 1600x1200, a 1024^2 one-channel texture, batch 8, 4 frames, free mode,
 Laplacian weight 1.0. The TPU-only cap autotuning is left out, so the bins
-are uncapped. Sizes are arguments, so tests build it tiny.
+are uncapped. Sizes are arguments, so tests build it tiny. ``mip=True`` is
+``bench.py`` with ``FPC_BENCH_MIP=1``: trilinear mipmap sampling with
+``max_mip_level=6``, the same draws.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from fpc_diffrend_tpu_torch.models import camera
 
 def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
                    batch: int = 8, tex_size: int = 1024, n_cams: int = 3,
-                   n_frames: int = 4, device=None) -> dict:
+                   n_frames: int = 4, mip: bool = False,
+                   device=None) -> dict:
     """:return: dict with config, scene, params, state (the initial
     TrainState over those params), frames_u8 (C, F, H, W) uint8 on the
     device, batch (the fixed first batch bench.py draws), faces (numpy) and
@@ -65,7 +68,8 @@ def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
     config = FitConfig(max_iter=1000, resolution=(height, width),
                        texshape=(tex_size, tex_size, 1), mode="free",
                        cam_idxs=tuple(range(n_cams)), batch_size=batch,
-                       weight_laplacian=1.0, log_interval=0)
+                       weight_laplacian=1.0, enable_mip=mip,
+                       max_mip_level=6 if mip else 0, log_interval=0)
     tex = rng.uniform(size=(tex_size, tex_size, 1)).astype(np.float32)
     params = state_mod.init_params(config, n_frames, scene.v_base.shape[0],
                                    scene.deltas.shape[1], tex,

@@ -43,3 +43,43 @@ def clip_batch(verts, rng, B):
             np.float32)
         out.append(np.concatenate([(verts + off) * w, w], axis=1))
     return np.stack(out).astype(np.float32)
+
+
+def close_to_max(got, want, rtol):
+    """got == want within ``rtol`` of want's largest magnitude."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+def reference_forward(data_s, aux_s, bins, k1, H, W, ph, sample):
+    """The stacked forward in plain, differentiable torch ops: each
+    pixel's winner record gathered from the records by K1's entry,
+    resolved, sampled and antialiased (bins and winners held fixed).
+
+    :param sample: fn(tu, tv) -> (C, rows, pw) colour of the resolved uv.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as tac
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
+
+    B, T = data_s.shape[:2]
+    _, entry, payload, _, _ = k1
+    rows, pw = entry.shape
+    rec = torch.cat([data_s, aux_s], -1).reshape(B * T, tr.REC)
+    n_raw = bins.sorted_tri.shape[0]
+    tri = torch.cat([bins.sorted_tri.long(),
+                     torch.zeros(bins.gbase - n_raw, dtype=torch.long),
+                     bins.global_idx.long()]).clamp(max=B * T - 1)
+    hit = entry >= 0
+    F = torch.where(hit[..., None], rec[tri[entry.long().clamp(min=0)]],
+                    0.0)
+    x = torch.arange(pw, dtype=torch.float32) + 0.5
+    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
+    pay, _ = tr.resolve_payload(F, x, y, hit, payload[2])
+    colour = sample(pay[3], pay[4])
+    idbuf = torch.where(hit, F[..., 12].detach().to(torch.int32), -1)
+    return tac.antialias_planes_plain(idbuf, torch.stack(pay), colour, H, W,
+                                      ph)

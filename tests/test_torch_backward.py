@@ -38,7 +38,8 @@ from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
 from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTexturedSepaaStacked
 from fpc_diffrend_tpu_torch.ops.texture import bilinear
 
-from _torch_scenes import clip_batch, quads_scene
+from _torch_scenes import (clip_batch, close_to_max, quads_scene,
+                          reference_forward)
 
 # (B, H, W): the wide case spills triangles into the global list
 SCENES = [(2, 40, 100), (3, 72, 300)]
@@ -59,13 +60,6 @@ def _scene(rng, B, H, W, C=1, tex_size=16):
     return dict(pc=pc, faces=faces, uv=uv, fn=fn, tex=t["tex"], aux=aux,
                 data_s=data_s, aux_s=aux_s, bins=bins, k1=k1, ph=ph, pw=pw,
                 T=faces.shape[0])
-
-
-def _close_to_max(got, want, rtol):
-    got, want = np.asarray(got), np.asarray(want)
-    scale = np.abs(want).max()
-    assert scale > 0
-    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
 
 
 # ---------------------------------------------------------------- K3 ----
@@ -137,7 +131,7 @@ def test_k4_plain_matches_vjp_of_xla_texture(rng):
     _, vjp = jax.vjp(lambda t, q: jtexture(t, q, boundary_mode="wrap"),
                      jnp.asarray(tex), uv)
     jtex, juv = vjp(jnp.asarray(g.transpose(1, 2, 0)))
-    _close_to_max(gtex.numpy(), jtex, 1e-5)
+    close_to_max(gtex.numpy(), jtex, 1e-5)
     np.testing.assert_allclose(gtu.numpy(), np.asarray(juv[..., 0]),
                                atol=1e-6 * 32, rtol=1e-6)
     np.testing.assert_allclose(gtv.numpy(), np.asarray(juv[..., 1]),
@@ -195,7 +189,7 @@ def test_k5_k6_plain_match_pallas_kernel_interpret(rng, B, H, W):
         jnp.asarray(extra.numpy()), jnp.asarray(gpl), B * s["T"], rows, W,
         pair_cap=bins.sorted_tri.shape[0], interpret=True, stacked=True)
     want = np.concatenate([np.asarray(gd), np.asarray(ga)], axis=1)
-    _close_to_max(grad, want, 1e-5)
+    close_to_max(grad, want, 1e-5)
     assert np.all(grad[:, [12, 28, 29, 30, 31]] == 0)
 
 
@@ -224,30 +218,6 @@ def test_k5_rows_hold_only_their_own_pixels(rng):
 
 # ----------------------------------------------------- the Function ----
 
-def _reference_forward(data_s, aux_s, tex, bins, k1, H, W, ph):
-    """The forward in plain, differentiable torch ops: each pixel's
-    winner record gathered from the records by K1's entry, resolved,
-    textured and antialiased (bins and winners held fixed)."""
-    B, T = data_s.shape[:2]
-    _, entry, payload, _, _ = k1
-    rows, pw = entry.shape
-    rec = torch.cat([data_s, aux_s], -1).reshape(B * T, tr.REC)
-    n_raw = bins.sorted_tri.shape[0]
-    tri = torch.cat([bins.sorted_tri.long(),
-                     torch.zeros(bins.gbase - n_raw, dtype=torch.long),
-                     bins.global_idx.long()]).clamp(max=B * T - 1)
-    hit = entry >= 0
-    F = torch.where(hit[..., None], rec[tri[entry.long().clamp(min=0)]],
-                    0.0)
-    x = torch.arange(pw, dtype=torch.float32) + 0.5
-    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
-    pay, _ = tr.resolve_payload(F, x, y, hit, payload[2])
-    colour = bilinear(tex, pay[3], pay[4], "wrap").movedim(-1, 0)
-    idbuf = torch.where(hit, F[..., 12].detach().to(torch.int32), -1)
-    return tac.antialias_planes_plain(idbuf, torch.stack(pay), colour, H, W,
-                                      ph)
-
-
 @pytest.mark.parametrize("B,H,W", SCENES)
 def test_function_backward_matches_autograd_of_plain_forward(rng, B, H, W):
     s = _scene(rng, B, H, W, C=2)
@@ -263,13 +233,15 @@ def test_function_backward_matches_autograd_of_plain_forward(rng, B, H, W):
                                                             ph, H, W)
             assert torch.equal(idbuf, s["k1"][0])
         else:
-            aa = _reference_forward(d, a, t, bins, s["k1"], H, W, ph)
+            aa = reference_forward(
+                d, a, bins, s["k1"], H, W, ph,
+                lambda tu, tv: bilinear(t, tu, tv, "wrap").movedim(-1, 0))
         (aa * R).sum().backward()
         grads.append((aa.detach(), d.grad, a.grad, t.grad))
     (aa0, *g0), (aa1, *g1) = grads
     assert torch.equal(aa0, aa1)
     for got, want in zip(g0, g1):
-        _close_to_max(got.numpy(), want.numpy(), 1e-5)
+        close_to_max(got.numpy(), want.numpy(), 1e-5)
     assert float(g0[1][..., 6:12].abs().max()) > 0   # screen corners
 
 

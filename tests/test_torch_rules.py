@@ -147,3 +147,34 @@ def test_backward_kernels_match_plain_versions_on_the_card(card):
         assert errs["K3 gcolour"] <= chip_smoke.K3_ATOL
         if grid == 4:
             assert int(bins.n_global[0]) > 0
+
+
+@pytest.mark.cuda
+def test_mip_kernels_match_plain_versions_on_the_card(card):
+    """K8 and K9 against their plain versions with chip_smoke's
+    tolerances, with the real LOD and a random one past both clamps, and
+    K1's texture-free mode equal to its textured mode."""
+    import chip_smoke
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+    from fpc_diffrend_tpu_torch.fit import loop
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    wl = build_workload(96, 200, grid=20, batch=2, tex_size=256, device=card)
+    s, p, b = wl["scene"], wl["params"], wl["batch"]
+    pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
+                                       b.frame_idx)
+    _, _, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx, s.face_neighbors,
+                             (96, 200))
+    ph, pw = rc.pad_resolution(96, 200)
+    k1 = rc.fused_raster(bins, p["tex"], 2 * ph, pw)
+    k0 = rc.fused_raster(bins, None, 2 * ph, pw)
+    assert all(torch.equal(x, y) for x, y in zip(k0[:4], k1[:4]))
+    g = torch.randn(k1[4].shape, device=card, generator=gen)
+    lam = torch.rand((2 * ph, pw), device=card, generator=gen) * 9.0 - 1.5
+    errs, _, _ = chip_smoke.check_mip(k1, p["tex"].detach(), g, lam, 96, 200,
+                                      ph, "mip")
+    assert max(v for k, v in errs.items() if "K8" in k) <= chip_smoke.K8_ATOL
+    assert max(v for k, v in errs.items()
+               if "rel" in k) <= chip_smoke.ATOMIC_RTOL

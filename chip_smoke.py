@@ -20,29 +20,45 @@ Phases, each fatal on failure:
    gtu/gtv within 1e-6: one thread per pixel, no atomics), and K4's gtex,
    K9's gradient pyramid, K5's and K6's rows, whose atomics sum in another
    order, each element within 1e-5 of the sum of the magnitudes it adds
-   up;
+   up; and K11 (bin placement) equal to its plain version exactly
+   (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
+   at a cap of half the live entries, which drops entries;
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
-   Laplacian 1.0) through ``fit.loop.evaluate``: 1 warm-up batch, then 5
-   timed batches with the launch counters set to 0 just before; the losses
-   must be finite and K1 and K2 launched once per batch;
+   Laplacian 1.0, the entry cap autotuned with no K11 launch) through
+   ``fit.loop.evaluate``: 1 warm-up batch, then 5 timed batches with the
+   launch counters set to 0 just before; the losses must be finite and K1,
+   K2 and K11 launched once per batch;
 5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
    dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
    (a host sync on the step's path fails it), then 2 timed dispatches of 5
    with the launch counters set to 0 just before; every loss term and
-   parameter must be finite and each of K1-K6 launched once per step (K8,
-   K9 never); then per-stage CUDA-event times of one batch's forward and
-   one step;
+   parameter must be finite and each of K1-K6 and K11 launched once per
+   step (K8, K9 never); the same steps uncapped, for information; then
+   per-stage CUDA-event times of one batch's forward and one step;
 5b. the mip path at full width: the same workload with trilinear mipmap
    sampling (``enable_mip``, ``max_mip_level=6``: 7 levels, 1024..16),
    5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch) and
    2 timed dispatches of 5 steps through ``fit.loop.train_steps`` after a
-   warm-up dispatch under sync-debug "error" (K1, K2, K3, K5, K6, K8, K9
-   once per step, K4 never), finite; then its stage times;
-6. each kernel at the main path's shapes (K8, K9: the mip path's) against
-   its plain version, with its time, the plain version's time, the library call's time where one
-   computes the same function, and its bound, printed as one
-   ``{"kernels": [...]}`` line.
+   warm-up dispatch under sync-debug "error" (K1, K2, K3, K5, K6, K8, K9,
+   K11 once per step, K4 never), finite; then its stage times;
+5c. ``fit.api.fit_take`` at full width: the bench dome, eight blendshapes,
+   the three cameras' calibration and 3 x 4 frames of 1600x1200 as
+   uncompressed TIFFs written to a temporary take; a prior-mode fit of 20
+   steps (batch 8, 1024^2 texture, log every 5, checkpoint every 10) must
+   read its data through the native runtime, load the frames back clipped
+   and flipped, autotune the cap, run K1-K6 and K11 once per step, keep a
+   finite loss and write metrics.jsonl, result/{0..3}.obj, texture.png,
+   pose.json and config.txt that parse; a second fit_take to 25 steps must
+   resume from the checkpoint, end at step 25 and write them again;
+6. each kernel at the main path's shapes (K8, K9: the mip path's; K11 the
+   step's batch at the autotuned cap, checked also uncapped and at half
+   the live entries) against its plain version, with its time, the plain
+   version's time, the library call's time where one computes the same
+   function, and its bound, printed as one ``{"kernels": [...]}`` line;
+   beside it the record gather's time capped and uncapped, and K11's
+   count step by its shared-memory histogram against device-memory
+   atomics, in turns.
 
 The card's line and the kernels line come before the last line, which is
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -68,6 +84,25 @@ K8_ATOL = 1e-6                 # one thread per pixel, no atomics
 K9_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5/K6 rows: atomics reorder sums
 MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
+
+
+def write_tiff(path: str, img) -> None:
+    """Write an (H, W) uint8 image as an uncompressed little-endian
+    grayscale TIFF in one strip (the capture rig's export format)."""
+    import struct
+
+    h, w = img.shape
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
+            (273, 4, None), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
+    data_at = 8 + 2 + 12 * len(tags) + 4
+    ifd = struct.pack("<H", len(tags))
+    for tag, kind, value in tags:
+        value = data_at if value is None else value
+        ifd += (struct.pack("<HHIHH", tag, 3, 1, value, 0) if kind == 3
+                else struct.pack("<HHII", tag, 4, 1, value))
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8) + ifd
+                + struct.pack("<I", 0) + img.astype("uint8").tobytes())
 
 
 def fail(msg: str) -> None:
@@ -282,6 +317,177 @@ def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
     return errs, abs_errs, (pyr, sizes, lam)
 
 
+def check_place(pc, faces, height, width, autotuned, label):
+    """K11 against its plain version, exactly, uncapped, at the autotuned
+    per-sample cap and at P = half the live entries, which drops entries.
+
+    :return: (tile_ids, n_tiles, cap name -> P, live entries).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+
+    tile_ids, n_tiles = rc.pair_tile_ids(pc.detach(), faces, height, width)
+    B, T, _ = tile_ids.shape
+    live = int((tile_ids < n_tiles).sum())
+    Ps = {"uncapped": rc.entry_count(B, T),
+          "autotuned": rc.entry_count(B, T, autotuned),
+          "half live": max(live // 2, 1)}
+    for name, P in Ps.items():
+        got = bp.place_pairs(tile_ids, n_tiles, P)
+        torch.cuda.synchronize()
+        want = bp.place_pairs_plain(tile_ids, n_tiles, P)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail(f"{label}: K11 differs from its plain version at P = {P} "
+                 f"({name}): {int((got[0] != want[0]).sum())} offsets, "
+                 f"{int((got[1] != want[1]).sum())} entries")
+        if name == "half live" and live > 1 and not int(got[0][-1]) == P:
+            fail(f"{label}: the half-live cap dropped no entry")
+    print(f"check {label}: K11 equals its plain version exactly at P = "
+          f"{Ps} ({live} live of {tile_ids.numel()} pair slots)", flush=True)
+    return tile_ids, n_tiles, Ps, live
+
+
+def check_place_synthetic(dev):
+    """K11 where the bench does not take it, exactly against its plain
+    version: a bin of 6,000 entries (past a warp's shared-memory cache of
+    the in-bin sort) and 70,000 tiles (past the shared-memory histogram:
+    the count adds in device memory), uncapped and at half the live
+    entries."""
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+
+    rng = np.random.default_rng(5)
+    K = 8
+    for n_tiles, T, hot in ((600, 3000, True), (70000, 20000, False)):
+        base = rng.integers(8, n_tiles - K, size=(2, T, 1))
+        tid = base + np.arange(K)
+        n_live = rng.integers(0, K + 1, size=(2, T, 1))
+        tid = np.where(np.arange(K) < n_live, tid, n_tiles)
+        if hot:
+            tid[:, :, 0] = 7
+        tile_ids = torch.as_tensor(tid.astype(np.int32), device=dev)
+        live = int((tid < n_tiles).sum())
+        for P in (tid.size, live // 2):
+            got = bp.place_pairs(tile_ids, n_tiles, P)
+            torch.cuda.synchronize()
+            want = bp.place_pairs_plain(tile_ids, n_tiles, P)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"K11 differs from its plain version at {n_tiles} "
+                     f"tiles, P = {P}")
+        print(f"check K11 synthetic: {n_tiles} tiles, {live} live, largest "
+              f"bin {int(np.bincount(tid[tid < n_tiles]).max())}: exact",
+              flush=True)
+
+
+def k11_bound_ms(tile_ids, n_tiles, P):
+    """K11's function: the pair slots read once, bin_start and the P
+    entries written (bytes); one comparison a slot (operations, at the fp32
+    rate). The two-pass design moves more (:func:`k11_design_bytes`)."""
+    n = tile_ids.numel()
+    return _bound(n * 4 + (n_tiles + 1) * 4 + P * 4, n)
+
+
+def k11_design_bytes(tile_ids, n_tiles, P, live):
+    """Bytes K11's count-then-place design moves: the slots read twice, the
+    counts written and read thrice, the live entries through the scratch
+    and back, bin_start and the P entries written."""
+    n = tile_ids.numel()
+    return 2 * n * 4 + 4 * (n_tiles + 1) * 4 + 2 * live * 4 + P * 4
+
+
+def write_take(root, wl):
+    """The bench workload as a take on disk: the dome as basemesh.obj
+    (shifted by -170 in y, which the calibration's baked +170 undoes),
+    eight blendshapes of it with small seeded offsets, calibration.json
+    with the bench's three cameras, and 3 x 4 frames as uncompressed TIFFs
+    (``{imdir}/take_camC/take_camC_FF.tif``).
+
+    :return: (FitConfig keyword arguments for the paths, the frames written
+        (C, F, H, W) uint8, the camera directory names).
+    """
+    import numpy as np
+
+    from fpc_diffrend_tpu_torch.data.obj import save_obj
+    from fpc_diffrend_tpu_torch.models import camera
+
+    scene, H, W = wl["scene"], wl["H"], wl["W"]
+    verts = scene.v_base.cpu().numpy().reshape(-1, 3).copy()
+    verts[:, 1] -= 170.0
+    uv = scene.uv.cpu().numpy()
+    faces = scene.faces.cpu().numpy()
+    fuv = scene.uv_idx.cpu().numpy()
+    paths = {k: os.path.join(root, v) for k, v in (
+        ("basemeshpath", "basemesh.obj"), ("localblpath", "blendshapes"),
+        ("calibpath", "calibration.json"), ("imdir", "take"))}
+    save_obj(paths["basemeshpath"], verts, uv, faces, fuv)
+    os.makedirs(paths["localblpath"])
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        offset = rng.normal(scale=0.05, size=verts.shape).astype(np.float32)
+        save_obj(os.path.join(paths["localblpath"], f"bs{i:02d}.obj"),
+                 verts + offset, uv, faces, fuv)
+    calib = {}
+    for c in range(3):
+        intr = [[7000.0 * H / 1600.0, 0.0, W * 0.5],
+                [0.0, 7000.0 * H / 1600.0, H * 0.5], [0.0, 0.0, 1.0]]
+        calib[f"cam{c}"] = {
+            "intrinsic": intr, "distortion": [[0.0]] * 5,
+            "rotation": camera.rotate_y(0.3 * (c - 1))[:3, :3].tolist(),
+            "translation": [[0.0], [0.0], [100.0]]}
+    with open(paths["calibpath"], "w") as f:
+        json.dump(calib, f)
+    frames = rng.integers(0, 256, size=(3, 4, H, W), dtype=np.uint8)
+    cams = [f"take_cam{c}" for c in range(3)]
+    for c, cam in enumerate(cams):
+        os.makedirs(os.path.join(paths["imdir"], cam))
+        for fi in range(4):
+            write_tiff(os.path.join(paths["imdir"], cam,
+                                    f"{cam}_{fi:02d}.tif"), frames[c, fi])
+    return paths, frames, cams
+
+
+def check_fit_outputs(cfg, n_verts, n_tris, n_frames, label):
+    """The files fit_take writes exist and parse; :return: the
+    metrics.jsonl records."""
+    import numpy as np
+
+    from fpc_diffrend_tpu_torch.data.obj import load_obj
+    from fpc_diffrend_tpu_torch.utils.image import load_image
+
+    with open(os.path.join(cfg.out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    result = os.path.join(cfg.out_dir, "result")
+    for i in range(n_frames):
+        mesh = load_obj(os.path.join(result, f"{i}.obj"))
+        if (mesh.vertices.shape != (3 * n_verts,)
+                or mesh.faces.shape != (n_tris, 3)
+                or not np.isfinite(mesh.vertices).all()):
+            fail(f"{label}: result/{i}.obj holds {mesh.vertices.shape} "
+                 f"coordinates and {mesh.faces.shape} faces")
+    tex = load_image(os.path.join(result, "texture.png"))
+    if tex.shape != tuple(cfg.texshape):
+        fail(f"{label}: texture.png is {tex.shape}, not {cfg.texshape}")
+    with open(os.path.join(result, "pose.json")) as f:
+        pose = json.load(f)
+    t = np.asarray(pose["translation"])
+    q = np.asarray(pose["rotation"])
+    if (t.shape != (n_frames, 3) or q.shape != (n_frames, 4)
+            or not (np.isfinite(t).all() and np.isfinite(q).all())):
+        fail(f"{label}: pose.json holds {t.shape} and {q.shape}")
+    with open(os.path.join(cfg.out_dir, "config.txt")) as f:
+        conf = dict(ln.rstrip("\n").split(": ", 1) for ln in f)
+    if conf.get("mode") != "'prior'" or int(conf["pair_cap"][1:-1]) <= 0:
+        fail(f"{label}: config.txt records mode {conf.get('mode')} and "
+             f"pair_cap {conf.get('pair_cap')}")
+    return records
+
+
 def k1_bound_ms(bins, rows, pw, C, tex):
     """Least time for K1's work: each input read once, each output written
     once (bytes), against ~16 flops per (pixel, live entry) coverage test
@@ -423,6 +629,7 @@ KERNELS = {
     "fold_entries": ("csrc/raster_grad.cu", "raster_grad_tpu.py:338"),
     "mip_sample": ("csrc/texture_mip.cu", "texture_mip_tpu.py:163"),
     "mip_sample_bwd": ("csrc/texture_mip.cu", "texture_mip_tpu.py:246"),
+    "bin_place": ("csrc/bin_place.cu", "rasterize_tpu.py:350"),
 }
 
 
@@ -436,14 +643,25 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "fpc_diffrend_tpu_torch")):
         fail("the fpc_diffrend_tpu_torch package is not beside this script")
     sys.path.insert(0, REPO)
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from fpc_diffrend_tpu_torch.data import frames as frames_mod
+    from fpc_diffrend_tpu_torch.fit import api as fit_api
+    from fpc_diffrend_tpu_torch.fit import checkpoint as ckpt_mod
     from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.fit.config import FitConfig
     from fpc_diffrend_tpu_torch.kernels import build
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-    from fpc_diffrend_tpu_torch.profile_forward import (forward_stages,
+    from fpc_diffrend_tpu_torch.profile_forward import (device_kernels,
+                                                        forward_stages,
                                                         step_stages)
     from fpc_diffrend_tpu_torch.workload import build_workload
 
@@ -495,22 +713,11 @@ def main() -> int:
                       * (MAX_MIP_LEVEL + 3) - 1.5)
         check_mip(k1, wl["params"]["tex"].detach(), g_aa, lam_random, 256,
                   384, ph, label)
+        check_place(state["pc"], wl["scene"].faces, 256, 384,
+                    wl["config"].pair_cap, label)
+    check_place_synthetic(dev)
 
     # ---- 4. the forward at full width ----
-    t0 = time.perf_counter()
-    wl = build_workload(device=dev)
-    torch.cuda.synchronize()
-    record["workload_build_s"] = time.perf_counter() - t0
-    config, scene, params = wl["config"], wl["scene"], wl["params"]
-    H, W, B = wl["H"], wl["W"], wl["B"]
-    T = wl["faces"].shape[0]
-    print(f"workload: {H}x{W}, {T} tris, batch {B}, "
-          f"tex {tuple(params['tex'].shape)}, built in "
-          f"{record['workload_build_s']:.1f} s", flush=True)
-    cpu_gen = torch.Generator().manual_seed(0)
-    loop.evaluate(config, scene, params, wl["frames_u8"], 1, cpu_gen)
-    torch.cuda.synchronize()
-    n_batches = 5
     counters = {"fused_raster": rc.fused_raster,
                 "antialias": ac.antialias_planes,
                 "antialias_bwd": ac.antialias_planes_bwd,
@@ -518,7 +725,29 @@ def main() -> int:
                 "pixel_grad": gc.pixel_grad,
                 "fold_entries": gc.fold_entries,
                 "mip_sample": tmc.mip_sample,
-                "mip_sample_bwd": tmc.mip_sample_bwd}
+                "mip_sample_bwd": tmc.mip_sample_bwd,
+                "bin_place": bp.place_pairs}
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    wl = build_workload(device=dev)      # autotunes the cap: raster_stats
+    torch.cuda.synchronize()
+    record["workload_build_s"] = time.perf_counter() - t0
+    if any(f.launches for f in counters.values()):
+        fail("building the workload (raster_stats, autotune_caps) launched "
+             f"a kernel: { {k: f.launches for k, f in counters.items()} }")
+    config, scene, params = wl["config"], wl["scene"], wl["params"]
+    H, W, B = wl["H"], wl["W"], wl["B"]
+    T = wl["faces"].shape[0]
+    print(f"workload: {H}x{W}, {T} tris, batch {B}, "
+          f"tex {tuple(params['tex'].shape)}, pair_cap {config.pair_cap} "
+          f"(P = {rc.entry_count(B, T, config.pair_cap)} of "
+          f"{rc.entry_count(B, T)} pair slots), built in "
+          f"{record['workload_build_s']:.1f} s", flush=True)
+    cpu_gen = torch.Generator().manual_seed(0)
+    loop.evaluate(config, scene, params, wl["frames_u8"], 1, cpu_gen)
+    torch.cuda.synchronize()
+    n_batches = 5
     for f in counters.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -535,11 +764,12 @@ def main() -> int:
         if not all(math.isfinite(x) for x in v):
             fail(f"non-finite {k}: {v}")
     want = dict.fromkeys(counters, 0)
-    want.update(fused_raster=n_batches, antialias=n_batches)
+    want.update(fused_raster=n_batches, antialias=n_batches,
+                bin_place=n_batches)
     if launches != want:
         fail(f"kernel launches {launches} != {want}")
     record.update(forward_ms_per_batch=fwd_ms, metrics=metrics,
-                  launches_evaluate=launches)
+                  launches_evaluate=launches, pair_cap=config.pair_cap)
 
     # ---- 5. the fit step at full width ----
     state = wl["state"]
@@ -576,6 +806,27 @@ def main() -> int:
         fail(f"kernel launches {launches} != {want}")
     record.update(step_ms=step_ms, mpix_per_s=mpix, step_losses=losses,
                   launches=launches, steps_taken=state.step)
+
+    # the same steps with the bins uncapped, between two capped runs: for
+    # information only (the host binds the step; no claim)
+    uncapped = dataclasses.replace(config, pair_cap=0)
+    turns = {}
+    for name, cfg in (("uncapped", uncapped), ("capped", config),
+                      ("uncapped", uncapped), ("capped", config)):
+        loop.train_steps(cfg, scene, state, wl["frames_u8"], gen, 1,
+                         wl["n_frames"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_dispatch):
+            loop.train_steps(cfg, scene, state, wl["frames_u8"], gen, k,
+                             wl["n_frames"])
+        torch.cuda.synchronize()
+        turns.setdefault(name, []).append(
+            (time.perf_counter() - t0) / n_steps * 1e3)
+    print(f"step ms/step in turns (host clock): capped {turns['capped']} "
+          f"(first run {step_ms:.3f}), uncapped {turns['uncapped']}",
+          flush=True)
+    record["step_ms_turns"] = turns
 
     # per-stage device times of one batch's forward and one step
     stages = {}
@@ -614,7 +865,7 @@ def main() -> int:
             fail(f"mip: non-finite {m}: {v}")
     want = dict.fromkeys(counters, 0)
     want.update(fused_raster=n_batches, antialias=n_batches,
-                mip_sample=n_batches)
+                mip_sample=n_batches, bin_place=n_batches)
     if launches_fwd != want:
         fail(f"mip: kernel launches {launches_fwd} != {want}")
     mstate = wlm["state"]
@@ -660,6 +911,96 @@ def main() -> int:
                   mip_launches_evaluate=launches_fwd, mip_step_ms=mip_step_ms,
                   mip_step_losses=mlosses, mip_launches=mip_launches,
                   mip_stage_ms=mip_stages, mip_step_stage_ms=mip_step_stages)
+
+    # ---- 5c. fit_take at full width: a take on disk, fitted end to end ----
+    from fpc_diffrend_tpu_torch.runtime import native
+
+    n_fit = 20
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_take_") as tmp:
+        paths, written, cams = write_take(tmp, wl)
+        fcfg = FitConfig(
+            max_iter=n_fit, resolution=(H, W), texshape=(1024, 1024, 1),
+            mode="prior", cam_idxs=(0, 1, 2), batch_size=B,
+            weight_laplacian=1.0, log_interval=5, checkpoint_interval=10,
+            checkpoint_dir=os.path.join(tmp, "ckpt"),
+            out_dir=os.path.join(tmp, "out"), **paths)
+        native.load_tiffs.files = native.parse_obj_vertices.files = 0
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        fstate = fit_api.fit_take(fcfg)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = {k: f.launches for k, f in counters.items()}
+        read = (native.load_tiffs.files, native.parse_obj_vertices.files)
+        if read != (12, 8):
+            fail(f"fit_take read {read} TIFFs and blendshapes through the "
+                 "native runtime, not (12, 8): "
+                 f"{native.unavailable_reason()}")
+        loaded = frames_mod.load_take(paths["imdir"], cams)
+        if not np.array_equal(loaded,
+                              np.clip(written, 0, 140)[:, :, ::-1, :]):
+            fail("the take's frames loaded back differ from those written, "
+                 "clipped to 140 and flipped")
+        want = {k: 0 if k.startswith("mip") else n_fit for k in counters}
+        if fit_launches != want or fstate.step != n_fit:
+            fail(f"fit_take ran {fstate.step} steps with launches "
+                 f"{fit_launches} != {want}")
+        nv, nt = scene.n_vertices, T
+        records = check_fit_outputs(fcfg, nv, nt, 4, "fit_take")
+        if [r["step"] for r in records] != [1, 6, 11, 16]:
+            fail(f"metrics.jsonl steps {[r['step'] for r in records]}")
+        losses = [r["loss"] for r in records]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"fit_take: non-finite loss {losses}")
+        for name, p in fstate.params.items():
+            if not bool(torch.isfinite(p).all()):
+                fail(f"fit_take: non-finite parameter {name}")
+        cap, live0 = records[0]["pair_cap"], records[0]["n_valid_pairs"]
+        # the health record is taken after the first step; the cap was
+        # sized before it, at 1.25 x the entries then
+        if not (cap % 128 == 0 and live0 <= cap <= 2 * live0 + 128):
+            fail(f"fit_take: pair_cap {cap} is not the autotuned cap of "
+                 f"{live0} bin entries")
+        latest = ckpt_mod.latest_checkpoint(fcfg.checkpoint_dir)
+        if not latest.endswith(f"step_{n_fit:09d}.pt"):
+            fail(f"fit_take: latest checkpoint {latest}")
+        # ms/step between the loss reads at steps 5 and 15 (each a sync)
+        at = {r["step"] - 1: r["step"] / r["it_per_s"] for r in records}
+        fit_ms = (at[15] - at[5]) / 10 * 1e3
+        print(f"fit_take: {n_fit} steps of a take on disk (prior mode, "
+              f"{len(cams)} cameras x 4 frames of {H}x{W}, {nt} tris, 8 "
+              f"blendshapes) in {fit_s:.1f} s with set-up and results; "
+              f"{fit_ms:.3f} ms/step over steps 5-15 (host clock); "
+              f"pair_cap {cap} beside {live0} bin entries of the worst "
+              f"camera (P = {rc.entry_count(B, nt, cap)} of NP = "
+              f"{rc.entry_count(B, nt)} pair slots); launches "
+              f"{fit_launches}; loss {losses}", flush=True)
+
+        # resume: the second call continues from the step-20 checkpoint
+        import shutil
+
+        shutil.rmtree(os.path.join(fcfg.out_dir, "result"))
+        os.remove(os.path.join(fcfg.out_dir, "config.txt"))
+        for f in counters.values():
+            f.launches = 0
+        rstate = fit_api.fit_take(dataclasses.replace(fcfg,
+                                                      max_iter=n_fit + 5))
+        torch.cuda.synchronize()
+        resumed = {k: f.launches for k, f in counters.items()}
+        want = {k: 0 if k.startswith("mip") else 5 for k in counters}
+        if rstate.step != n_fit + 5 or resumed != want:
+            fail(f"the resumed fit_take ended at step {rstate.step} with "
+                 f"launches {resumed} != {want}")
+        check_fit_outputs(fcfg, nv, nt, 4, "resumed fit_take")
+        if not ckpt_mod.latest_checkpoint(fcfg.checkpoint_dir).endswith(
+                f"step_{n_fit + 5:09d}.pt"):
+            fail("the resumed fit_take left no step-25 checkpoint")
+        print(f"fit_take resumed from step {n_fit} to {rstate.step}; "
+              f"launches {resumed}", flush=True)
+    record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
+                  fit_take_launches=fit_launches, fit_take_losses=losses,
+                  fit_take_pair_cap=cap, fit_take_live_pairs=live0)
 
     # ---- 6. kernels at the main path's shapes ----
     bins = sstate["bins"]
@@ -718,8 +1059,74 @@ def main() -> int:
                                        mg),
             lambda: tmc.mip_sample_bwd_plain(pyr, sizes, mpay[3], mpay[4],
                                              lam, mg))
+        # K11 on the step's batch: exact at three caps, timed at the
+        # autotuned one
+        tile_ids, n_tiles, Ps, live11 = check_place(
+            sstate["pc"], scene.faces, H, W, config.pair_cap, "bench batch")
+        P = Ps["autotuned"]
+        t["bin_place"] = (lambda: bp.place_pairs(tile_ids, n_tiles, P),
+                          lambda: bp.place_pairs_plain(tile_ids, n_tiles, P))
         times = {name: (cuda_ms(kf, 20), cuda_ms(pf, 2))
                  for name, (kf, pf) in t.items()}
+        # K11's library yardstick: torch.sort and torch.searchsorted of the
+        # same keys (the calls it replaces)
+        n_tri = B * T
+        keys = (tile_ids.long() * n_tri + torch.arange(
+            n_tri, device=dev).reshape(B, T, 1)).reshape(-1)
+        bounds_k = torch.arange(n_tiles + 1, device=dev) * n_tri
+        place_lib = cuda_ms(lambda: torch.searchsorted(
+            torch.sort(keys)[0][:P], bounds_k), 20)
+        # K11's device time alone: the host takes longer to launch its
+        # kernels and small ops than the card takes to run them
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                bp.place_pairs(tile_ids, n_tiles, P)
+            torch.cuda.synchronize()
+        k11_dev = {name: ms / 20 for name, ms, _ in device_kernels(prof)}
+        # the count step's two paths at this batch, in turns: the
+        # shared-memory histogram K11 takes here, and one device-memory
+        # atomic a slot, its path past the card's shared memory
+        counts = bp.count_pairs(tile_ids, n_tiles)
+        if not torch.equal(counts, bp.count_pairs(tile_ids, n_tiles, True)):
+            fail("K11's two count paths disagree at the bench batch")
+        count_ev = {False: [], True: []}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for in_dev in (False, True, True, False):
+                count_ev[in_dev].append(cuda_ms(
+                    lambda: bp.count_pairs(tile_ids, n_tiles, in_dev), 50))
+            torch.cuda.synchronize()
+        count_dev = {name: ms / 102 for name, ms, _ in device_kernels(prof)
+                     if "count" in name}
+        print(f"K11 count step: shared-memory histogram {count_ev[False]} "
+              f"ms, device-memory atomics {count_ev[True]} ms a call (CUDA "
+              f"events, in turns); device ms a call: " + ", ".join(
+                  f"{k[:30]} {v:.5f}" for k, v in count_dev.items()),
+              flush=True)
+        # the record gather of the binning, capped and uncapped
+        rec = torch.cat([sstate["data_s"].detach(), sstate["aux_s"].detach()],
+                        dim=-1).reshape(n_tri, rc.REC)
+        gather = {}
+        for name in ("autotuned", "uncapped"):
+            tri = bp.place_pairs(tile_ids, n_tiles, Ps[name])[1]
+            idx = torch.clamp(tri, max=n_tri - 1).long()
+            gather[name] = cuda_ms(lambda: rec[idx], 20)
+        print(f"K11 {times['bin_place'][0]:.4f} ms (plain "
+              f"{times['bin_place'][1]:.4f}, torch.sort + searchsorted "
+              f"{place_lib:.4f}); its device work "
+              f"{sum(k11_dev.values()):.4f} ms a call: " + ", ".join(
+                  f"{k[:40]} {v:.4f}" for k, v in k11_dev.items())
+              + f"; record gather {gather['autotuned']:.4f} ms "
+              f"at P = {Ps['autotuned']} against {gather['uncapped']:.4f} ms "
+              f"uncapped (P = {Ps['uncapped']}); {live11} live", flush=True)
+        record.update(gather_ms=gather, place_P=Ps, place_live=live11,
+                      bin_place_device_ms=k11_dev,
+                      bin_count_event_ms={"shared": count_ev[False],
+                                          "device": count_ev[True]},
+                      bin_count_device_ms=count_dev,
+                      bin_place_design_bytes=k11_design_bytes(
+                          tile_ids, n_tiles, P, live11))
         # the library yardstick of K6: one index_add_ of the live rows
         live = int(bins.bin_start[-1])
         idx = bins.sorted_tri[:live].long()
@@ -735,8 +1142,12 @@ def main() -> int:
         "fold_entries": k6_bound_ms(bins, B * T),
         "mip_sample": k8_bound_ms(lam, C, pyr, len(sizes)),
         "mip_sample_bwd": k9_bound_ms(lam, mg, pyr, len(sizes)),
+        "bin_place": k11_bound_ms(tile_ids, n_tiles, P),
     }
-    errs = {"fused_raster": k1_err, "antialias": k2_err, **babs, **mabs}
+    # K11 equals its plain version exactly (check_place fails otherwise)
+    errs = {"fused_raster": k1_err, "antialias": k2_err, **babs, **mabs,
+            "bin_place": 0.0}
+    library = {"fold_entries": fold_lib, "bin_place": place_lib}
     launches = {**launches, "mip_sample": mip_launches["mip_sample"],
                 "mip_sample_bwd": mip_launches["mip_sample_bwd"]}
     kernels = []
@@ -749,7 +1160,7 @@ def main() -> int:
             "replaces": "fpc_diffrend_tpu/ops/pallas/" + tpu,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": fold_lib if name == "fold_entries" else None})
+            "library_ms": library.get(name)})
     record.update(kernels=kernels, backward_check=berr,
                   live_bin_entries=live, n_global=int(bins.n_global[0]),
                   total_s=time.perf_counter() - t_start)

@@ -1,9 +1,10 @@
-"""Mesh container and topology precomputation (numpy, host side).
+"""Wavefront OBJ I/O, mesh container and topology (numpy, host side).
 
 The port's own copy of ``fpc_diffrend_tpu.data.obj``'s ``MeshData``,
-``build_topology`` and ``corner_incidence``: same arrays, same order, so a
-scene built by either package has identical topology. The face neighbours
-feed the antialias kernel; ``nbr_idx``/``nbr_mask`` feed the Laplacian.
+``load_obj``, ``load_obj_vertices``, ``save_obj``, ``build_topology`` and
+``corner_incidence``: same arrays, same order, so a scene built by either
+package has identical topology. The face neighbours feed the antialias
+kernel; ``nbr_idx``/``nbr_mask`` feed the Laplacian.
 """
 
 from __future__ import annotations
@@ -35,6 +36,70 @@ class MeshData:
     @property
     def n_vertices(self) -> int:
         return self.vertices.shape[0] // 3
+
+
+def _parse_float_block(lines: list[str], prefix: str,
+                       ncols: int) -> np.ndarray:
+    sel = [ln[len(prefix):] for ln in lines if ln.startswith(prefix)]
+    if not sel:
+        return np.zeros((0, ncols), dtype=np.float32)
+    return np.array(" ".join(sel).split(), dtype=np.float32).reshape(-1,
+                                                                   ncols)
+
+
+def load_obj(path: str) -> MeshData:
+    """Parse an OBJ file (v / vt / f records; triangles only).
+
+    Faces are ``v/vt`` or ``v/vt/vn`` corners (a corner without vt uses its
+    vertex index); indices become 0-based.
+
+    :raises ValueError: a face that is not a triangle.
+    """
+    with open(path, "r") as f:
+        lines = f.readlines()
+    verts = _parse_float_block(lines, "v ", 3)
+    uv = _parse_float_block(lines, "vt ", 2)
+    face_lines = [ln for ln in lines if ln.startswith("f ")]
+    faces = np.zeros((len(face_lines), 3), dtype=np.int32)
+    fuv = np.zeros((len(face_lines), 3), dtype=np.int32)
+    for i, ln in enumerate(face_lines):
+        tri = ln.split()[1:]
+        if len(tri) != 3:
+            raise ValueError(f"non-triangle face in {path}: {tri}")
+        for j, corner in enumerate(tri):
+            parts = corner.split("/")
+            faces[i, j] = int(parts[0]) - 1
+            fuv[i, j] = (int(parts[1]) - 1 if len(parts) > 1 and parts[1]
+                         else faces[i, j])
+    return MeshData(vertices=verts.reshape(-1).astype(np.float32),
+                    uv=uv.astype(np.float32), faces=faces, fuv=fuv)
+
+
+def load_obj_vertices(path: str) -> np.ndarray:
+    """Only the flat (3V,) vertex array (for blendshape stacks); the
+    vertex block is read up to the first vt or f record after it."""
+    vals = []
+    with open(path, "r") as f:
+        for line in f:
+            if line.startswith("v "):
+                vals.append(line[2:])
+            elif vals and (line.startswith("vt ") or line.startswith("f ")):
+                break
+    return np.array(" ".join(vals).split(), dtype=np.float32)
+
+
+def save_obj(path: str, verts3: np.ndarray, uv: np.ndarray,
+             faces: np.ndarray, fuv: np.ndarray | None = None) -> None:
+    """Write an OBJ with v/vt/f records (f as v/vt, 1-based)."""
+    fuv = faces if fuv is None else fuv
+    with open(path, "w") as f:
+        for v in np.asarray(verts3).reshape(-1, 3):
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for t in np.asarray(uv).reshape(-1, 2):
+            f.write(f"vt {t[0]} {t[1]}\n")
+        for tri, triuv in zip(np.asarray(faces) + 1, np.asarray(fuv) + 1):
+            f.write(f"f {tri[0]}/{triuv[0]} {tri[1]}/{triuv[1]} "
+                    f"{tri[2]}/{triuv[2]}\n")
 
 
 @dataclasses.dataclass

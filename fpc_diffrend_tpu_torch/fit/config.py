@@ -82,3 +82,10 @@ class FitConfig:
             raise ValueError(
                 f"No valid mode ({self.mode!r}) selected from valid "
                 f"configurations {valid_modes}")
+
+    def save(self, path: str) -> None:
+        """Dump every field, one ``name: 'value'`` line each (the config.txt
+        record of reference fit.py:655-657)."""
+        with open(path, "w") as f:
+            for k, v in dataclasses.asdict(self).items():
+                f.write(f"{k}: '{v}'\n")

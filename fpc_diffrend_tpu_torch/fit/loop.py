@@ -72,7 +72,8 @@ def render_batch(config: FitConfig, scene: Scene, params: dict,
     its mip chain (K8, K9 in place of K1's tail and K4). The JAX package
     renders that configuration per sample under ``vmap``; the port renders
     it stacked, which gives each sample the same result (the JAX package
-    calls its stacked path "functionally identical to vmapping").
+    calls its stacked path "functionally identical to vmapping"). The bins
+    keep ``config.pair_cap`` entries a sample (0: all).
 
     :return: (imgs (B, H, W, C), verts3 (B, V, 3)).
     """
@@ -83,7 +84,8 @@ def render_batch(config: FitConfig, scene: Scene, params: dict,
                                 tuple(config.resolution),
                                 scene.face_neighbors,
                                 enable_mip=config.enable_mip,
-                                max_mip_level=config.max_mip_level)
+                                max_mip_level=config.max_mip_level,
+                                pair_cap=config.pair_cap)
     return imgs, verts3
 
 

@@ -8,12 +8,14 @@ carried across with ``fit.state.scene_from_numpy`` round-trips exactly.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
 
 from fpc_diffrend_tpu_torch.data import obj as objlib
 from fpc_diffrend_tpu_torch.device import resolve_device
+from fpc_diffrend_tpu_torch.models import camera
 
 Tensor = torch.Tensor
 
@@ -61,6 +63,31 @@ def scene_from_arrays(arrays: dict, device) -> Scene:
     return Scene(**{k: torch.tensor(np.asarray(v), device=device)
                     for k, v in arrays.items()
                     if k in fields and v is not None})
+
+
+def load_calibration(calibpath: str, cam_names: list[str],
+                     y_offset: float = 170.0):
+    """Per-camera projection and modelview stacks from calibration.json.
+
+    Each camera's ``intrinsic`` (3x3), ``rotation`` (3x3) and
+    ``translation`` (3x1), OpenCV convention; the reference's baked
+    ``translate(0, 170, 0)`` (fit.py:545) is folded into the modelview.
+
+    :param cam_names: calibration keys in camera-index order.
+    :return: (proj (C, 4, 4), mv (C, 4, 4)) numpy float32.
+    """
+    with open(calibpath) as f:
+        calibs = json.load(f)
+    trans = camera.translate(0.0, y_offset, 0.0)
+    projs, mvs = [], []
+    for name in cam_names:
+        calib = calibs[name]
+        intr = np.asarray(calib["intrinsic"], dtype=np.float32)
+        rot = np.asarray(calib["rotation"], dtype=np.float32)
+        t = np.asarray(calib["translation"], dtype=np.float32)
+        projs.append(camera.intrinsic_to_projection(intr).numpy())
+        mvs.append(camera.extrinsic_to_modelview(rot, t).numpy() @ trans)
+    return np.stack(projs), np.stack(mvs)
 
 
 def band_reorder(faces: np.ndarray, fuv: np.ndarray):

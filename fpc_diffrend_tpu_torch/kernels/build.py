@@ -37,6 +37,7 @@ SOURCES = {
     "texture_bwd": "texture_bwd.cu",
     "raster_grad": "raster_grad.cu",
     "texture_mip": "texture_mip.cu",
+    "bin_place": "bin_place.cu",
 }
 
 # -fmad=false: no multiply-add contraction, so each kernel rounds every

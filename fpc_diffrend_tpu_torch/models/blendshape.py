@@ -14,8 +14,13 @@ Parameter shapes:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+from fpc_diffrend_tpu_torch.data.obj import load_obj_vertices
+from fpc_diffrend_tpu_torch.runtime import native
 
 Tensor = torch.Tensor
 
@@ -77,3 +82,43 @@ def setup_dataset_free(n_frames: int, n_vertices_x3: int):
     m2 = np.eye(n_frames, dtype=np.float32)
     m3 = np.zeros((n_vertices_x3, n_frames), dtype=np.float32)
     return m1, m2, m3
+
+
+def load_blendshape_deltas(localblpath: str,
+                           v_basemesh: np.ndarray) -> np.ndarray:
+    """A directory of blendshape OBJs as a (3V, nB) delta matrix.
+
+    Each OBJ gives one column of per-vertex deltas against the base mesh,
+    in ``sorted(os.listdir)`` order. The vertex blocks are parsed by the
+    native runtime where it is available, else by :func:`load_obj_vertices`.
+    """
+    v_basemesh = np.asarray(v_basemesh, dtype=np.float32).reshape(-1)
+    paths = [os.path.join(localblpath, name)
+             for name in sorted(os.listdir(localblpath))]
+    if native.available():
+        out = native.parse_obj_vertices(paths, v_basemesh.shape[0])
+    else:
+        out = np.stack([load_obj_vertices(p) for p in paths])
+    return (out - v_basemesh[None, :]).T.copy()
+
+
+def setup_dataset(localblpath: str, globalblpath: str, n_frames: int,
+                  n_vertices_x3: int, v_basemesh: np.ndarray):
+    """Prior-mode initial data (reference setup_dataset, fit.py:183-230).
+
+    :return: (deltas (3V, nB), maps (F, F) zeros, maps_intermediate (nB, F)
+        identity).
+    :raises NotImplementedError: a global blendshape dataset, which the
+        reference does not implement either.
+    """
+    if globalblpath:
+        raise NotImplementedError(
+            "global blendshape datasets are not implemented (parity with "
+            "reference fit.py:196-197)")
+    deltas = load_blendshape_deltas(localblpath, v_basemesh)
+    if deltas.shape[0] != n_vertices_x3:
+        raise ValueError(f"blendshapes have {deltas.shape[0]} coordinates, "
+                         f"the base mesh {n_vertices_x3}")
+    maps = np.zeros((n_frames, n_frames), dtype=np.float32)
+    maps_intermediate = np.eye(deltas.shape[1], n_frames, dtype=np.float32)
+    return deltas, maps, maps_intermediate

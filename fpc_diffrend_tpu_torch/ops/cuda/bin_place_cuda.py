@@ -1,0 +1,140 @@
+"""K11: the counting-rank bin placement of the stacked binning.
+
+Port of ``fpc_diffrend_tpu.ops.pallas.rasterize_tpu``'s ``_place_pallas``
+(its ``_count_kernel`` and ``_place_kernel``) as the CUDA kernels of
+``csrc/bin_place.cu``: count the live (tile, triangle) pair slots per tile,
+scan the counts, then place each slot's triangle in its bin, ascending by
+triangle inside each bin, keeping the first P entries. The result equals
+the kept prefix of one sort of the keys ``tile * B * T + b * T + t``
+(``_place_sort``'s, for B = 1), which :func:`place_pairs_plain` takes with
+``torch.sort`` and ``torch.searchsorted``.
+
+``place_pairs`` runs the kernels for CUDA tensors and the plain version for
+CPU tensors. Its launches sit in a ``record_function`` range named
+``PROFILE_LABEL``, so a profile of the binning shows K11 as its own stage.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from fpc_diffrend_tpu_torch.kernels import build
+
+Tensor = torch.Tensor
+
+INT32_LIMIT = 1 << 31
+PROFILE_LABEL = "K11 bin_place"
+
+
+def _check_args(tile_ids: Tensor, n_tiles: int, P: int) -> None:
+    if tile_ids.ndim != 3:
+        raise ValueError(f"tile_ids must be (B, T, K), got "
+                         f"{tuple(tile_ids.shape)}")
+    B, T, K = tile_ids.shape
+    np_slots = B * T * K
+    if np_slots >= INT32_LIMIT or B * T + 1 >= INT32_LIMIT:
+        raise ValueError(f"{np_slots} pair slots exceed int32 positions")
+    if not 0 <= P <= np_slots:
+        raise ValueError(f"P = {P} is outside [0, {np_slots}]")
+    build.check_tensor(tile_ids, "tile_ids", torch.int32, (B, T, K),
+                       tile_ids.device)
+
+
+def place_pairs_plain(tile_ids: Tensor, n_tiles: int, P: int):
+    """Plain PyTorch version of K11 (same arguments and results as
+    :func:`place_pairs`): one sort of int64 keys, cut at P, and the bin
+    offsets by binary search."""
+    _check_args(tile_ids, n_tiles, P)
+    dev = tile_ids.device
+    B, T, _ = tile_ids.shape
+    n = B * T
+    tri = torch.arange(n, device=dev).reshape(B, T, 1)
+    keys, _ = torch.sort((tile_ids.long() * n + tri).reshape(-1))
+    keys = keys[:P]
+    sorted_tile = keys // n
+    bin_start = torch.searchsorted(
+        sorted_tile, torch.arange(n_tiles + 1, device=dev)).to(torch.int32)
+    sorted_tri = torch.where(sorted_tile < n_tiles, keys % n,
+                             n).to(torch.int32)
+    return bin_start, sorted_tri
+
+
+@functools.cache
+def _entry_points():
+    """(bin_count_launch, bin_place_launch), built and loaded at first use,
+    their signatures bound once."""
+    lib = build.load("bin_place")
+    count, place = lib.bin_count_launch, lib.bin_place_launch
+    count.restype = place.restype = ctypes.c_int
+    count.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    place.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    return count, place
+
+
+def count_pairs(tile_ids: Tensor, n_tiles: int,
+                in_device_memory: bool = False) -> Tensor:
+    """K11's count step: the live pair slots of each tile, (n_tiles,) int32.
+
+    :param in_device_memory: count with one device-memory atomic a slot,
+        the path of a histogram too large for shared memory, instead of the
+        shared-memory histogram (``chip_smoke.py`` times the two).
+    """
+    _check_args(tile_ids, n_tiles, 0)
+    dev = tile_ids.device
+    if dev.type == "cpu":
+        return torch.bincount(tile_ids.reshape(-1).long(),
+                              minlength=n_tiles + 1)[:n_tiles].int()
+    if dev.type != "cuda":
+        raise ValueError(f"count_pairs: unsupported device {dev}")
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    build.check(_entry_points()[0](
+        build.ptr(tile_ids), tile_ids.numel(), n_tiles, build.ptr(counts),
+        int(in_device_memory), build.stream(dev)), "bin_count")
+    return counts
+
+
+def place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
+    """K11: group the pair slots by tile.
+
+    :param tile_ids: (B, T, K) int32 stacked tile of each of triangle b*T+t's
+        K window slots; ``n_tiles`` marks a dead slot. Each triangle names a
+        tile at most once.
+    :param n_tiles: tiles of the stacked image.
+    :param P: entries kept (the entry cap, at most B*T*K).
+    :return: (bin_start (n_tiles + 1,) int32 bin offsets, clamped to P;
+        sorted_tri (P,) int32 stacked triangle ids, grouped by tile and
+        ascending inside each bin, B*T past the live prefix).
+    """
+    _check_args(tile_ids, n_tiles, P)
+    dev = tile_ids.device
+    if dev.type == "cpu":
+        return place_pairs_plain(tile_ids, n_tiles, P)
+    if dev.type != "cuda":
+        raise ValueError(f"place_pairs: unsupported device {dev}")
+    B, T, K = tile_ids.shape
+    np_slots = B * T * K
+    ptr, stream = build.ptr, build.stream(dev)
+    with torch.profiler.record_function(PROFILE_LABEL):
+        place_pairs.launches += 1
+        counts = count_pairs(tile_ids, n_tiles)
+        # the exclusive scan between the two launches, on the device
+        bin_start_full = torch.zeros((n_tiles + 1,), dtype=torch.int32,
+                                     device=dev)
+        torch.cumsum(counts, 0, dtype=torch.int32, out=bin_start_full[1:])
+        cursor = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+        scratch = torch.empty((np_slots,), dtype=torch.int32, device=dev)
+        sorted_tri = torch.empty((P,), dtype=torch.int32, device=dev)
+        build.check(_entry_points()[1](
+            ptr(tile_ids), np_slots, K, n_tiles, ptr(bin_start_full),
+            ptr(cursor), ptr(scratch), P, B * T, ptr(sorted_tri), stream),
+            "bin_place")
+        return torch.clamp(bin_start_full, max=P), sorted_tri
+
+
+place_pairs.launches = 0

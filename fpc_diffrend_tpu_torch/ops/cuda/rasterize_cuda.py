@@ -7,12 +7,14 @@ Port of the XLA-side setup and binning of
 fused raster+interpolate+texture kernel ``_fused_kernel`` (launched by
 ``fused_rasterize_from_bins``) as the CUDA kernel ``csrc/fused_raster.cu``.
 
-Binning keeps the TPU tiles of 8x128 pixels and the same sort key
-``tile * T + tri``, sorted with ``torch.sort`` (int64 keys, so there is no
-int32 guard) and cut with ``torch.searchsorted``: the bins come out
+Binning keeps the TPU tiles of 8x128 pixels and the order of the sort key
+``tile * T + tri``; the pairs are placed by K11 (``bin_place_cuda``, the
+counting-rank placement of ``_place_pallas``, in int32, hence the guard in
+:func:`bin_scene_stacked`) and cut at the entry cap, so the bins come out
 bit-equal to the JAX package's. The B samples of a batch are stacked
 vertically into one (B * ph, pw) image; each sample's records are shifted
-into its band.
+into its band. :func:`raster_stats` gives the binning's counts that size
+the cap.
 
 One deliberate difference: a triangle too large for the binning window
 (the global list) is tested only inside its own clipped tile box, which
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
+from fpc_diffrend_tpu_torch.ops.cuda.bin_place_cuda import place_pairs
 from fpc_diffrend_tpu_torch.ops.texture import bilinear
 
 Tensor = torch.Tensor
@@ -198,31 +201,54 @@ class Bins:
         return self.sorted_rec.shape[0]
 
 
-def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
-                      width: int, aux_b: Tensor):
-    """Stacked-batch triangle setup and one-sort binning.
+def raster_stats(pos_clip: Tensor, faces: Tensor, height: int,
+                 width: int) -> dict:
+    """Binning health counters (port of ``rasterize_tpu.raster_stats``),
+    batched over leading dims: one call takes every camera's clip
+    positions.
 
-    The bins are built from detached records: they are constants of the
-    backward (stop-gradient, as in the JAX package), and gradients reach
-    ``data_s``/``aux_s`` only through ``ops.rasterize``'s autograd Function.
-
-    :param pos_clip_b: (B, V, 4) clip positions per sample.
-    :param aux_b: (B, T, 16) per-sample aux records (``aux_records``).
-    :return: (data_s (B, T, 16), aux_s (B, T, 16) shifted records, Bins
-        over the (B * ph, pw) stacked image).
+    :param pos_clip: (..., V, 4) clip positions.
+    :return: dict of (...) int64 tensors: n_valid_pairs (bin entries),
+        n_global (oversized triangles in the global list), global_overflow
+        (oversized triangles dropped past MAX_GLOBAL), pair_cap_suggestion
+        (= n_valid_pairs), wy_max / wx_max (largest valid tile box).
     """
-    dev = pos_clip_b.device
-    B = pos_clip_b.shape[0]
-    T = faces.shape[0]
-    ph, pw = pad_resolution(height, width)
-    gx = pw // TILE_W
-    gy_s = ph // TILE_H
-    nt_s = gy_s * gx
-    n_tiles = B * nt_s
+    _, tile_bbox, valid = triangle_setup(pos_clip, faces, height, width)
+    tx0, ty0, tx1, ty1 = tile_bbox.unbind(-1)
+    wx = tx1 - tx0 + 1
+    wy = ty1 - ty0 + 1
+    fits = (wx <= WINDOW_X) & (wy <= WINDOW_Y)
+    n_pairs = torch.where(valid & fits, wx * wy, 0).sum(-1)
+    n_big = (valid & ~fits).sum(-1)
+    return {
+        "n_valid_pairs": n_pairs,
+        "n_global": torch.clamp(n_big, max=MAX_GLOBAL),
+        "global_overflow": torch.clamp(n_big - MAX_GLOBAL, min=0),
+        "pair_cap_suggestion": n_pairs,
+        "wy_max": torch.where(valid, wy, 0).amax(-1),
+        "wx_max": torch.where(valid, wx, 0).amax(-1),
+    }
 
-    data_b, bbox_b, valid_b = triangle_setup(pos_clip_b, faces, height, width)
-    data_s, aux_s = shift_records_stacked(data_b, aux_b, ph)
 
+def entry_count(B: int, T: int, entry_cap: int = 0) -> int:
+    """P, the entries the stacked bins keep: B x the per-sample cap rounded
+    up to 128, at most all B*T*K pair slots (a cap <= 0: all)."""
+    P_s = T * WINDOW_Y * WINDOW_X
+    if 0 < entry_cap < P_s:
+        P_s = min((int(entry_cap) + CHUNK - 1) // CHUNK * CHUNK, P_s)
+    return B * P_s
+
+
+def _stacked_tiles(bbox_b: Tensor, valid_b: Tensor, gy_s: int, gx: int):
+    """The stacked pair slots of B samples' tile boxes.
+
+    :return: (tile_ids (B, T, K) int32, the stacked tile of each window
+        slot, n_tiles where the slot is dead; fits (B, T), the triangles
+        inside the window; stacked boxes (tx0, ty0, tx1, ty1)).
+    """
+    dev = bbox_b.device
+    B = bbox_b.shape[0]
+    n_tiles = B * gy_s * gx
     row0 = (torch.arange(B, device=dev) * gy_s)[:, None]
     tx0, ty0, tx1, ty1 = bbox_b.unbind(-1)
     ty0 = ty0 + row0
@@ -230,27 +256,73 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     wx = tx1 - tx0 + 1
     wy = ty1 - ty0 + 1
     fits = (wx <= WINDOW_X) & (wy <= WINDOW_Y)
-
     k = torch.arange(WINDOW_Y * WINDOW_X, device=dev)
     dx = k % WINDOW_X
     dyk = k // WINDOW_X
     pair_valid = ((valid_b & fits)[..., None] & (dx < wx[..., None])
                   & (dyk < wy[..., None]))
     tile_ids = torch.where(pair_valid, (ty0[..., None] + dyk) * gx
-                           + tx0[..., None] + dx, n_tiles)    # (B, T, K)
+                           + tx0[..., None] + dx, n_tiles)
+    return tile_ids.to(torch.int32), fits, (tx0, ty0, tx1, ty1)
 
-    tri_l = torch.arange(T, device=dev)[None, :, None]
-    keys, _ = torch.sort((tile_ids * T + tri_l).reshape(-1))
-    sorted_tile = keys // T
-    bin_start = torch.searchsorted(
-        sorted_tile, torch.arange(n_tiles + 1, device=dev)).to(torch.int32)
-    b_of = torch.clamp(sorted_tile // nt_s, 0, B - 1)
-    sorted_tri = torch.where(sorted_tile < n_tiles, b_of * T + keys % T,
-                             B * T).to(torch.int32)
+
+def pair_tile_ids(pos_clip_b: Tensor, faces: Tensor, height: int,
+                  width: int):
+    """K11's input for a batch of clip positions, as
+    :func:`bin_scene_stacked` builds it.
+
+    :return: (tile_ids (B, T, K) int32, n_tiles of the stacked image).
+    """
+    ph, pw = pad_resolution(height, width)
+    _, bbox_b, valid_b = triangle_setup(pos_clip_b, faces, height, width)
+    tile_ids, _, _ = _stacked_tiles(bbox_b, valid_b, ph // TILE_H,
+                                    pw // TILE_W)
+    return tile_ids, pos_clip_b.shape[0] * (ph // TILE_H) * (pw // TILE_W)
+
+
+def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
+                      width: int, aux_b: Tensor,
+                      entry_cap: int = 0):
+    """Stacked-batch triangle setup and binning (K11 places the pairs).
+
+    The bins are built from detached records: they are constants of the
+    backward (stop-gradient, as in the JAX package), and gradients reach
+    ``data_s``/``aux_s`` only through ``ops.rasterize``'s autograd Function.
+
+    :param pos_clip_b: (B, V, 4) clip positions per sample.
+    :param aux_b: (B, T, 16) per-sample aux records (``aux_records``).
+    :param entry_cap: per-sample bin-entry cap (``FitConfig.pair_cap``),
+        rounded up to 128; the samples pool it into one prefix of B x cap
+        entries, and entries past it are dropped as the sort's kept prefix
+        drops them. A cap <= 0 keeps all B*T*K pair slots.
+    :return: (data_s (B, T, 16), aux_s (B, T, 16) shifted records, Bins
+        over the (B * ph, pw) stacked image).
+    :raises ValueError: the pair slots and the global list overflow int32
+        entry indices.
+    """
+    dev = pos_clip_b.device
+    B = pos_clip_b.shape[0]
+    T = faces.shape[0]
+    ph, pw = pad_resolution(height, width)
+    gy_s = ph // TILE_H
+    n_tiles = B * gy_s * (pw // TILE_W)
+    K = WINDOW_Y * WINDOW_X
+    if B * T * K + MAX_GLOBAL + 2 * CHUNK >= 1 << 31:
+        raise ValueError(
+            f"stacked binning overflow: {B} x {T} triangles x {K} slots "
+            "exceed int32 entry indices; render fewer samples per batch")
+    P = entry_count(B, T, entry_cap)
+
+    data_b, bbox_b, valid_b = triangle_setup(pos_clip_b, faces, height, width)
+    data_s, aux_s = shift_records_stacked(data_b, aux_b, ph)
+    tile_ids, fits, (tx0, ty0, tx1, ty1) = _stacked_tiles(
+        bbox_b, valid_b, gy_s, pw // TILE_W)
+    # a stacked tile holds one sample's triangles, so ordering a bin by the
+    # stacked id b*T + t orders it by t, as the key tile * T + t does
+    bin_start, sorted_tri = place_pairs(tile_ids, n_tiles, P)
 
     rec = torch.cat([data_s.detach(), aux_s.detach()],
                     dim=-1).reshape(B * T, REC)
-    P = keys.shape[0]
     pad_rows = CHUNK + (-P) % CHUNK
     sorted_rec = torch.cat([
         rec[torch.clamp(sorted_tri, max=B * T - 1).long()],

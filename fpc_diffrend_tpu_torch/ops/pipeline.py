@@ -41,16 +41,18 @@ def render_batch_stacked(pos_clip_b: Tensor, pos_idx: Tensor, uv: Tensor,
                          resolution: Tuple[int, int], face_neighbors: Tensor,
                          background: float = BACKGROUND,
                          enable_mip: bool = False,
-                         max_mip_level: int = 0) -> Tensor:
+                         max_mip_level: int = 0,
+                         pair_cap: int = 0) -> Tensor:
     """Render a batch of clip positions through the stacked pipeline.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
     :param enable_mip: trilinear mipmap sampling (``linear-mipmap-linear``
         with up to ``max_mip_level`` levels) in place of bilinear.
+    :param pair_cap: per-sample bin-entry cap (0: uncapped).
     :return: (B, H, W, C) images in [0, 1], row 0 = bottom (GL convention).
     """
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip_b, pos_idx, uv, uv_idx, tex, face_neighbors, resolution,
-        enable_mip, max_mip_level)
+        enable_mip, max_mip_level, pair_cap)
     return composite_stacked(idbuf, aa, pos_clip_b.shape[0], resolution,
                              background)

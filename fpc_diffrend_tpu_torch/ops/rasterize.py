@@ -142,23 +142,27 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
 
 
 def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
-                uv_idx: Tensor, face_neighbors: Tensor, resolution):
+                uv_idx: Tensor, face_neighbors: Tensor, resolution,
+                entry_cap: int = 0):
     """Aux records and stacked binning for a batch of clip positions.
 
+    :param entry_cap: per-sample bin-entry cap (0: uncapped).
     :return: (data_s, aux_s (B, T, 16) shifted records, differentiable,
         Bins over the (B * ph, pw) stacked image).
     """
     height, width = resolution
     aux_b = aux_records(uv, uv_idx, pos_clip_b, faces, face_neighbors,
                         height, width)
-    return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b)
+    return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b,
+                             entry_cap)
 
 
 def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
                                      uv: Tensor, uv_idx: Tensor, tex: Tensor,
                                      face_neighbors: Tensor, resolution,
                                      enable_mip: bool = False,
-                                     max_mip_level: int = 0):
+                                     max_mip_level: int = 0,
+                                     pair_cap: int = 0):
     """Render B samples through one pass of each kernel.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
@@ -166,6 +170,8 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     :param enable_mip: sample trilinearly across the mip chain of up to
         ``max_mip_level`` levels below the texture (K8, K9) instead of
         bilinearly (K1's tail, K4).
+    :param pair_cap: per-sample bin-entry cap (``FitConfig.pair_cap``;
+        0: uncapped).
     :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
         before the background composite), differentiable with respect to
         ``pos_clip_b`` and ``tex``.
@@ -173,7 +179,7 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     height, width = resolution
     ph, _ = pad_resolution(height, width)
     data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
-                                      face_neighbors, resolution)
+                                      face_neighbors, resolution, pair_cap)
     if enable_mip:
         pyramid, sizes = mip_pyramid(tex, max_mip_level)
         return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid, sizes,

@@ -14,7 +14,8 @@ each:
   work does not overlap);
 * the kernels with the most device time;
 
-and the device time per stage of one step (prologue, binning, K1, K2,
+and the device time per stage of one step (prologue, binning with K11's
+count and place launches as a stage of their own inside it, K1, K2,
 composite + loss with its backward, K3, K4, K5, K6, the setup chain's
 backward, the gate + Adam + renorm; on the mip path K1 without its
 texture tail, the pyramid build, the LOD and K8 before K2, and K9 in
@@ -41,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from fpc_diffrend_tpu_torch.fit import loop
 from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
 from fpc_diffrend_tpu_torch.fit import state as state_mod
+from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
@@ -53,7 +55,7 @@ from fpc_diffrend_tpu_torch.workload import build_workload
 _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def _device_kernels(prof):
+def device_kernels(prof):
     """(name, self device ms, count) of device-side events, largest first;
     annotations (``record_function`` ranges mirrored on the device, such as
     ``Optimizer.step``) are spans over kernels, not work, and are left
@@ -83,7 +85,7 @@ def forward_stages(wl: dict, state: dict):
     def binning():
         state["data_s"], state["aux_s"], state["bins"] = bin_stacked(
             state["pc"], scene.faces, scene.uv, scene.uv_idx,
-            scene.face_neighbors, config.resolution)
+            scene.face_neighbors, config.resolution, config.pair_cap)
 
     mip = config.enable_mip
 
@@ -235,7 +237,7 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, _device_kernels(prof)
+    return wall_ms, device_kernels(prof)
 
 
 def main() -> None:
@@ -283,9 +285,12 @@ def main() -> None:
     with profile(activities=_ACTIVITIES) as sprof:
         _stages(stages)
         torch.cuda.synchronize()
+    # K11's range lies inside the binning stage, whose time includes it
     record["stage_device_ms"] = {
-        e.key[len("stage:"):]: e.device_time_total / 1e3
-        for e in sprof.key_averages() if e.key.startswith("stage:")}
+        ("  " + e.key + " (in binning)" if e.key == bp.PROFILE_LABEL
+         else e.key[len("stage:"):]): e.device_time_total / 1e3
+        for e in sprof.key_averages()
+        if e.key.startswith("stage:") or e.key == bp.PROFILE_LABEL}
     print("stage device ms (one step): " + ", ".join(
         f"{k} {v:.3f}" for k, v in record["stage_device_ms"].items()))
     out = os.path.join(os.path.dirname(os.path.dirname(

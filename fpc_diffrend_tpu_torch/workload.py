@@ -4,8 +4,10 @@ The same scene, cameras, config, texture and frames as ``bench.py``'s
 ``build_workload`` (same numpy seed, same draws in the same order): a
 123x123 grid dome of 29,768 triangles seen by 3 narrow-FOV cameras at
 1600x1200, a 1024^2 one-channel texture, batch 8, 4 frames, free mode,
-Laplacian weight 1.0. The TPU-only cap autotuning is left out, so the bins
-are uncapped. Sizes are arguments, so tests build it tiny. ``mip=True`` is
+Laplacian weight 1.0. The binning's entry cap is autotuned from the scene
+(``fit.api.autotune_caps``), as ``bench.py`` does on its accelerator; the
+face-order flip it also runs there serves only the TPU's banded fold and is
+left out. Sizes are arguments, so tests build it tiny. ``mip=True`` is
 ``bench.py`` with ``FPC_BENCH_MIP=1``: trilinear mipmap sampling with
 ``max_mip_level=6``, the same draws.
 """
@@ -17,6 +19,7 @@ import torch
 
 from fpc_diffrend_tpu_torch.data import obj as objlib
 from fpc_diffrend_tpu_torch.device import resolve_device
+from fpc_diffrend_tpu_torch.fit import api as fit_api
 from fpc_diffrend_tpu_torch.fit import loop as fit_loop
 from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
@@ -74,6 +77,7 @@ def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
     params = state_mod.init_params(config, n_frames, scene.v_base.shape[0],
                                    scene.deltas.shape[1], tex,
                                    scene.n_cameras, device=device)
+    config = fit_api.autotune_caps(config, scene, params)
     frames_u8 = torch.as_tensor(rng.integers(
         0, 140, size=(n_cams, n_frames, height, width)).astype(np.uint8),
         device=device)

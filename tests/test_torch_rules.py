@@ -150,6 +150,53 @@ def test_backward_kernels_match_plain_versions_on_the_card(card):
 
 
 @pytest.mark.cuda
+def test_bin_place_matches_plain_version_on_the_card(card):
+    """K11 equals its plain version exactly (bin_start and sorted_tri),
+    uncapped, at a cap that rounds up, and at one that drops entries, and
+    launches once per binning."""
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+    from fpc_diffrend_tpu_torch.fit import loop
+
+    rng = np.random.default_rng(3)
+    T, K, n_tiles = 533, 8, 60
+    tid = np.full((2, T, K), 2 * n_tiles, np.int32)
+    for b in range(2):
+        for t in range(T):
+            n_live = rng.integers(0, K + 1)
+            tid[b, t, :n_live] = (rng.choice(n_tiles, size=n_live,
+                                             replace=False) + b * n_tiles)
+    tile_ids = torch.as_tensor(tid, device=card)
+    live = int((tid < 2 * n_tiles).sum())
+    for P in (tid.size, 128, live // 2):
+        before = bp.place_pairs.launches
+        got = bp.place_pairs(tile_ids, 2 * n_tiles, P)
+        assert bp.place_pairs.launches == before + 1
+        want = bp.place_pairs_plain(tile_ids, 2 * n_tiles, P)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), P
+    want = bp.count_pairs(tile_ids.cpu(), 2 * n_tiles)
+    for in_device_memory in (False, True):
+        got = bp.count_pairs(tile_ids, 2 * n_tiles, in_device_memory)
+        assert torch.equal(got.cpu(), want), in_device_memory
+    import chip_smoke
+
+    chip_smoke.check_place_synthetic(card)   # a 6,000-entry bin; 70k tiles
+    wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
+    s, p, b = wl["scene"], wl["params"], wl["batch"]
+    pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
+                                       b.frame_idx)
+    for cap in (0, wl["config"].pair_cap, 128):
+        _, _, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
+                                 s.face_neighbors, (96, 200), cap)
+        _, _, ref = bin_stacked(pc.cpu(), s.faces.cpu(), s.uv.cpu(),
+                                s.uv_idx.cpu(), s.face_neighbors.cpu(),
+                                (96, 200), cap)
+        assert torch.equal(bins.bin_start.cpu(), ref.bin_start)
+        assert torch.equal(bins.sorted_tri.cpu(), ref.sorted_tri)
+
+
+@pytest.mark.cuda
 def test_mip_kernels_match_plain_versions_on_the_card(card):
     """K8 and K9 against their plain versions with chip_smoke's
     tolerances, with the real LOD and a random one past both clamps, and

@@ -12,15 +12,19 @@ Phases, each fatal on failure:
    a 32-triangle dome whose large triangles fill the global list, 1024^2
    texture), each kernel against its plain PyTorch version on the same
    inputs: K1 (ids and entries exactly equal, payload/extra/colour within
-   1e-5; its texture-free mode, which the mip path runs, equal to the
-   textured mode on ids, entries, payload and extra), K2 (within 1e-6),
-   K3 (within 1e-6: a deterministic gather in the plain version's order),
-   K4 (gtu/gtv within 1e-6), K8 and K9 on the 7-level pyramid with the
-   real LOD and with a random LOD plane past both clamps (K8 and K9's
-   gtu/gtv within 1e-6: one thread per pixel, no atomics), and K4's gtex,
-   K9's gradient pyramid, K5's and K6's rows, whose atomics sum in another
-   order, each element within 1e-5 of the sum of the magnitudes it adds
-   up; and K11 (bin placement) equal to its plain version exactly
+   1e-5; its texture-free mode, which the mip path and K7's route run,
+   equal to the textured mode on ids, entries, payload and extra), K2
+   (within 1e-6), K10 (ids, entries, payload, extra and colour equal to
+   K1's exactly, aa within 1e-6 of K2's and of K2's plain version on those
+   planes), K7 (wrap and clamp, exactly, on K1's uv and on random uv past
+   every edge; its wrap output equal to K1's colour planes), K3 (within
+   1e-6: a deterministic gather in the plain version's order), K4
+   (gtu/gtv within 1e-6, wrap and clamp), K8 and K9 on the 7-level pyramid
+   with the real LOD and with a random LOD plane past both clamps (K8 and
+   K9's gtu/gtv within 1e-6: one thread per pixel, no atomics), and K4's
+   gtex, K9's gradient pyramid, K5's and K6's rows, whose atomics sum in
+   another order, each element within 1e-5 of the sum of the magnitudes
+   it adds up; and K11 (bin placement) equal to its plain version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
    at a cap of half the live entries, which drops entries;
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
@@ -28,7 +32,8 @@ Phases, each fatal on failure:
    Laplacian 1.0, the entry cap autotuned with no K11 launch) through
    ``fit.loop.evaluate``: 1 warm-up batch, then 5 timed batches with the
    launch counters set to 0 just before; the losses must be finite and K1,
-   K2 and K11 launched once per batch;
+   K2 and K11 launched once per batch (K7 and K10 never: they run on the
+   single view only);
 5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
    dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
    (a host sync on the step's path fails it), then 2 timed dispatches of 5
@@ -51,14 +56,28 @@ Phases, each fatal on failure:
    finite loss and write metrics.jsonl, result/{0..3}.obj, texture.png,
    pose.json and config.txt that parse; a second fit_take to 25 steps must
    resume from the checkpoint, end at step 25 and write them again;
-6. each kernel at the main path's shapes (K8, K9: the mip path's; K11 the
-   step's batch at the autotuned cap, checked also uncapped and at half
-   the live entries) against its plain version, with its time, the plain
-   version's time, the library call's time where one computes the same
-   function, and its bound, printed as one ``{"kernels": [...]}`` line;
-   beside it the record gather's time capped and uncapped, and K11's
-   count step by its shared-memory histogram against device-memory
-   atomics, in turns.
+5d. the single view at full width: ``ops.pipeline.render`` of the bench
+   dome through each of the bench's 3 cameras on each route ("sepaa":
+   K1 -> K2; "aa_fused": K10; "separate": K1 -> K7 -> K2), forward and
+   then forward + backward to the vertices and the texture (the first
+   backward of each route under sync-debug "error"); the routes' images
+   within 1e-6 of each other, their texture gradients within 1e-5 of the
+   largest magnitude and their vertex gradients within 4x the spread of a
+   route against itself (atomics reorder the sums); K10 launched once per
+   render on "aa_fused" only, K7 on "separate" only; ms per render (CUDA
+   events, host clock, and the device's work by the profiler); then
+   ``tools.render_result`` over 5c's fitted take (4 frames, a grid of the
+   3 cameras, and side by side with reference TIFFs the phase writes) and
+   ``tools.simple_render`` of one camera, whose PNGs must parse;
+6. each kernel at the main path's shapes (K7, K10: the single view's; K8,
+   K9: the mip path's; K11 the step's batch at the autotuned cap, checked
+   also uncapped and at half the live entries) against its plain version,
+   with its time, the plain version's time, the library call's time where
+   one computes the same function, and its bound, printed as one
+   ``{"kernels": [...]}`` line of all eleven; beside it the record
+   gather's time capped and uncapped, K11's count step by its
+   shared-memory histogram against device-memory atomics, in turns, K7's
+   clamp mode beside ``grid_sample``, and K1 and K2 at the single view.
 
 The card's line and the kernels line come before the last line, which is
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -83,7 +102,10 @@ K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 K8_ATOL = 1e-6                 # one thread per pixel, no atomics
 K9_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5/K6 rows: atomics reorder sums
+K10_ATOL = 1e-6                # aa against K2 on the same planes
 MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
+ROUTES = ("sepaa", "aa_fused", "separate")   # the single view's kernels
+N_VIEWS = 3                    # the bench's cameras, one view each
 
 
 def write_tiff(path: str, img) -> None:
@@ -317,6 +339,94 @@ def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
     return errs, abs_errs, (pyr, sizes, lam)
 
 
+def check_texture(k1, tex, g, gen, label):
+    """K7 against its plain version, wrap and clamp, exactly, on K1's uv and
+    on a random uv plane past every edge of the texture; K7's wrap output
+    equal to K1's colour planes on K1's uv; K4's clamp mode against its
+    plain version (K4's wrap mode is :func:`check_backward`'s).
+
+    :param g: (C, rows, pw) cotangent for K4.
+    :return: (the checked errors, K7's max abs error).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    _, _, payload, _, colour = k1
+    rows, pw = payload.shape[1:]
+    ruv = (torch.rand((2, rows, pw), device=g.device, generator=gen) * 1.5
+           - 0.25)
+    uvs = {"K1 uv": (payload[3], payload[4]), "random uv": (ruv[0], ruv[1])}
+    errs = {}
+    for name, (u, v) in uvs.items():
+        for mode in ("wrap", "clamp"):
+            k7 = tc.texture_planes(tex, u, v, mode)
+            torch.cuda.synchronize()
+            errs[f"K7 {mode} {name}"] = max_err(
+                k7, tc.texture_planes_plain(tex, u, v, mode))
+            if name == "K1 uv" and mode == "wrap" and not torch.equal(
+                    k7, colour):
+                fail(f"{label}: K7's wrap samples differ from K1's colour "
+                     f"planes by {max_err(k7, colour)}")
+        k4 = tc.texture_planes_bwd(tex, u, v, g, "clamp")
+        torch.cuda.synchronize()
+        p4 = tc.texture_planes_bwd_plain(tex, u, v, g, "clamp")
+        m4 = tc.texture_planes_bwd_plain(tex, u, v, g.abs(), "clamp")[0]
+        errs.update({f"K4 clamp gtu {name}": max_err(k4[1], p4[1]),
+                     f"K4 clamp gtv {name}": max_err(k4[2], p4[2]),
+                     f"K4 clamp gtex rel {name}": atomic_err(k4[0], p4[0],
+                                                             m4)})
+    e7 = max(v for k, v in errs.items() if k.startswith("K7"))
+    e4 = max(v for k, v in errs.items()
+             if k.startswith("K4") and "rel" not in k)
+    e4_rel = max(v for k, v in errs.items() if "rel" in k)
+    if e7 != 0 or e4 > K4_ATOL or e4_rel > ATOMIC_RTOL:
+        fail(f"{label}: K7/K4 clamp differ from the plain versions: {errs}")
+    print(f"check {label}: K7 equals its plain version and K1's colour "
+          f"exactly; K4 clamp max err {errs}", flush=True)
+    return errs, e7
+
+
+def check_aa_fused(bins, tex, rows, pw, height, width, sample_ph, k1,
+                   label):
+    """K10 against K1 and K2 on the same bins, and against its plain
+    version: ids, entries, payload, extra and colour equal to K1's exactly,
+    aa within K10_ATOL of K2 (kernel and plain version) on those planes;
+    against the plain version's own planes, ids and entries exactly and
+    the rest within K1's tolerance.
+
+    :return: (K10's outputs, its max abs error against its plain version).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+
+    k10 = rc.fused_raster_aa(bins, tex, rows, pw, height, width, sample_ph)
+    torch.cuda.synchronize()
+    names = ("idbuf", "entry", "payload", "extra", "colour")
+    for n, a, b in zip(names, k10, k1):
+        if not torch.equal(a, b):
+            fail(f"{label}: K10's {n} differs from K1's by {max_err(a, b)}")
+    e_k2 = max_err(k10[5], ac.antialias_planes(k1[0], k1[2], k1[4], height,
+                                               width, sample_ph))
+    e_p2 = max_err(k10[5], ac.antialias_planes_plain(k1[0], k1[2], k1[4],
+                                                     height, width,
+                                                     sample_ph))
+    p10 = rc.fused_raster_aa_plain(bins, tex, rows, pw, height, width,
+                                   sample_ph)
+    errs = {n: max_err(a, b) for n, a, b in zip(names, k10, p10)}
+    if (errs["idbuf"] or errs["entry"]
+            or max(errs["payload"], errs["extra"], errs["colour"]) > K1_ATOL
+            or max(e_k2, e_p2) > K10_ATOL):
+        fail(f"{label}: K10 differs: against K2 {e_k2}, K2's plain version "
+             f"{e_p2}; against its plain version {errs}")
+    print(f"check {label}: K10 equals K1 exactly, aa against K2 {e_k2}, K2's "
+          f"plain version {e_p2}; against its plain version {errs}",
+          flush=True)
+    return k10, max(e_p2, *errs.values())
+
+
 def check_place(pc, faces, height, width, autotuned, label):
     """K11 against its plain version, exactly, uncapped, at the autotuned
     per-sample cap and at P = half the live entries, which drops entries.
@@ -488,10 +598,209 @@ def check_fit_outputs(cfg, n_verts, n_tris, n_frames, label):
     return records
 
 
-def k1_bound_ms(bins, rows, pw, C, tex):
-    """Least time for K1's work: each input read once, each output written
-    once (bytes), against ~16 flops per (pixel, live entry) coverage test
-    plus ~60 per pixel for the payload and texture (operations)."""
+def _rel_err(a, b) -> float:
+    """max |a - b| over the largest magnitude of b."""
+    return max_err(a, b) / max(float(b.abs().max()), 1e-30)
+
+
+def single_view(wl, counters, gen, take):
+    """Phase 5d: ``ops.pipeline.render`` of each of the bench's cameras at
+    full width on every route, forward and then forward + backward to the
+    vertices and the texture (the first backward of each route under
+    sync-debug "error"), held equal across routes; each route's launches;
+    CUDA-event ms per render; then ``render_result`` over the fitted take
+    (grid over the three cameras, side by side with TIFF references) and
+    ``simple_render`` of one camera.
+
+    :param take: (the fit's FitConfig, the take's paths, the frames
+        written (C, F, H, W) uint8, a scratch directory).
+    :return: (the phase's record, camera 0's pos_clip, for phase 6).
+    """
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.models.camera import transform_clip
+    from fpc_diffrend_tpu_torch.ops.pipeline import render
+    from fpc_diffrend_tpu_torch.profile_forward import device_kernels
+    from fpc_diffrend_tpu_torch.tools.render_result import render_result
+    from fpc_diffrend_tpu_torch.tools.simple_render import simple_render
+    from fpc_diffrend_tpu_torch.utils.image import load_image
+
+    config, scene, params = wl["config"], wl["scene"], wl["params"]
+    H, W = wl["H"], wl["W"]
+    tex = params["tex"].detach()
+    dev = tex.device
+    views = []
+    with torch.no_grad():
+        for c in range(N_VIEWS):
+            idx = torch.tensor([c, 0], device=dev)
+            mvp = loop.build_mvp(scene, params, idx[:1], idx[1:])[0]
+            verts3 = loop.sample_clip_positions(config, scene, params,
+                                                idx[:1], idx[1:])[1][0]
+            views.append((mvp, verts3))
+    mesh = (scene.faces, scene.uv, scene.uv_idx)
+    g = torch.randn((H, W, tex.shape[2]), device=dev, generator=gen)
+
+    def draw(route, mvp, pos, t):
+        return render(mvp, pos, *mesh, t, (H, W), scene.face_neighbors,
+                      route=route)
+
+    out, spread, rec = {}, {}, {"launches": {}, "ms": {}}
+    for route in ROUTES:
+        for f in counters.values():
+            f.launches = 0
+        imgs, grads = [], []
+        for c, (mvp, pos) in enumerate(views):
+            with torch.no_grad():
+                imgs.append(draw(route, mvp, pos, tex))
+            p = pos.clone().requires_grad_(True)
+            t = tex.clone().requires_grad_(True)
+            if c == 0:
+                torch.cuda.set_sync_debug_mode("error")
+            (draw(route, mvp, p, t) * g).sum().backward()
+            torch.cuda.set_sync_debug_mode("default")
+            grads.append((p.grad, t.grad))
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        # camera 0 again: how far the atomics' order moves the gradients
+        p = views[0][1].clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(True)
+        (draw(route, views[0][0], p, t) * g).sum().backward()
+        spread[route] = [_rel_err(a, b) for a, b in zip((p.grad, t.grad),
+                                                         grads[0])]
+        want = dict.fromkeys(counters, 0)
+        want.update(bin_place=2 * N_VIEWS, antialias_bwd=N_VIEWS,
+                    texture_bwd=N_VIEWS, pixel_grad=N_VIEWS,
+                    fold_entries=N_VIEWS)
+        if route == "aa_fused":
+            want.update(fused_raster_aa=2 * N_VIEWS)
+        else:
+            want.update(fused_raster=2 * N_VIEWS, antialias=2 * N_VIEWS)
+        if route == "separate":
+            want.update(texture_fwd=2 * N_VIEWS)
+        if launches != want:
+            fail(f"single view, route {route}: launches {launches} != "
+                 f"{want}")
+        for img in imgs:
+            if img.shape != (H, W, tex.shape[2]) or not bool(
+                    torch.isfinite(img).all()):
+                fail(f"single view, route {route}: image {img.shape} "
+                     "not finite or of the wrong shape")
+        out[route] = (imgs, grads)
+        rec["launches"][route] = launches
+        # device time of one render, forward and forward + backward
+        mvp, pos = views[0]
+        p = pos.clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(True)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: draw(route, mvp, pos, tex), 5)
+        both = cuda_ms(lambda: (draw(route, mvp, p, t) * g).sum().backward(),
+                       5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for mvp_c, pos_c in views:
+                draw(route, mvp_c, pos_c, tex)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / N_VIEWS * 1e3
+        # the device's work in a forward render, by the profiler
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                for mvp_c, pos_c in views:
+                    draw(route, mvp_c, pos_c, tex)
+            torch.cuda.synchronize()
+        busy = sum(ms for _, ms, _ in device_kernels(prof)) / N_VIEWS
+        rec["ms"][route] = {"forward": fwd, "forward_backward": both,
+                            "forward_host": host, "forward_device": busy}
+    # The routes' planes are equal bit for bit (phase 3), so their
+    # gradients differ only by the order of the atomic sums (K4, K5, K6,
+    # the index backward of the setup chain). The texture's sums have
+    # terms of one size: within ATOMIC_RTOL of the largest magnitude. The
+    # vertex gradient sums terms of screen-coordinate size that cancel:
+    # within 4x the largest spread of a route against itself.
+    pos_tol = max(ATOMIC_RTOL, 4 * max(v[0] for v in spread.values()))
+    errs = {}
+    for route in ROUTES[1:]:
+        (imgs, grads), (ref_imgs, ref_grads) = out[route], out[ROUTES[0]]
+        e_img = max(max_err(a, b) for a, b in zip(imgs, ref_imgs))
+        e_pos = max(_rel_err(a[0], b[0]) for a, b in zip(grads, ref_grads))
+        e_tex = max(_rel_err(a[1], b[1]) for a, b in zip(grads, ref_grads))
+        errs[route] = {"image": e_img, "vertex grad rel": e_pos,
+                       "texture grad rel": e_tex}
+        if e_img > 1e-6 or e_pos > pos_tol or e_tex > ATOMIC_RTOL:
+            fail(f"single view: route {route} differs from sepaa: "
+                 f"{errs[route]} (vertex tolerance {pos_tol}; spread of "
+                 f"each route against itself {spread})")
+    rec.update(route_errs=errs, grad_spread=spread)
+    print(f"single view ({N_VIEWS} cameras, {H}x{W}): routes agree with "
+          f"sepaa {errs}; each route against itself (vertex, texture "
+          f"gradient) {spread}; launches {rec['launches']}; ms per render "
+          f"(CUDA events, camera 0; host clock forward, synchronized; "
+          f"device work of a forward, profiler) {rec['ms']}", flush=True)
+
+    # render_result over the fitted take, then simple_render
+    fcfg, paths, written, tmp = take
+    result_dir = os.path.join(fcfg.out_dir, "result")
+    refdir = os.path.join(tmp, "refs")
+    os.makedirs(refdir)
+    for i in range(written.shape[1]):
+        write_tiff(os.path.join(refdir, f"cam0_{i:03d}.tif"), written[0, i])
+    n_frames = written.shape[1]
+    per_frame = {}
+    for mode, cams, shape in (
+            ("grid", ["cam0", "cam1", "cam2"], (2 * H, 2 * W, 1)),
+            ("side-by-side", ["cam0"], (H, 2 * W, 1))):
+        t0 = time.perf_counter()
+        render_result(result_dir, paths["calibpath"], paths["basemeshpath"],
+                      cams, n_frames, refdir=refdir, resolution=(H, W),
+                      mode=mode, y_offset=170.0, write_imgs=True)
+        torch.cuda.synchronize()
+        per_frame[mode] = (time.perf_counter() - t0) / n_frames
+        for i in range(n_frames):
+            png = load_image(os.path.join(result_dir,
+                                          f"frame{i}_{mode}.png"))
+            if png.shape != shape:
+                fail(f"render_result {mode}: frame {i} is {png.shape}, "
+                     f"not {shape}")
+            if mode == "side-by-side" and not np.array_equal(
+                    png[:, :W, 0], written[0, i]):
+                fail(f"render_result: frame {i}'s reference half differs "
+                     "from the TIFF written")
+            if not (png > 45).any():
+                fail(f"render_result {mode}: frame {i} shows no mesh")
+    out_png = os.path.join(tmp, "simple_render.png")
+    t0 = time.perf_counter()
+    arr = simple_render(paths["calibpath"], "cam0",
+                        os.path.join(result_dir, "0.obj"),
+                        os.path.join(result_dir, "texture.png"), (H, W),
+                        out_png, y_offset=170.0)
+    simple_s = time.perf_counter() - t0
+    png = load_image(out_png)
+    covered = float((png > 0).mean())
+    if png.shape != (H, W, 1) or not np.array_equal(png, arr) or covered < 0.01:
+        fail(f"simple_render wrote {png.shape}, {covered:.3f} covered")
+    rec.update(render_result_s_per_frame=per_frame, simple_render_s=simple_s)
+    print(f"render_result: {n_frames} frames of the fitted take, "
+          f"s per frame {per_frame} (grid of {N_VIEWS} cameras; "
+          f"side by side with TIFF references), PNGs parse; simple_render "
+          f"{simple_s:.2f} s, {covered:.3f} of the view covered", flush=True)
+    mvp, pos = views[0]
+    return rec, transform_clip(mvp, pos)
+
+
+def _bound(nbytes, ops):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def k1_work(bins, rows, pw, C, tex):
+    """K1's work: each input read once, each output written once (bytes),
+    ~16 flops per (pixel, live entry) coverage test plus ~60 per pixel for
+    the payload and texture (operations).
+
+    :return: (bytes, operations, live bin entries)."""
     live = int(bins.bin_start[-1])
     ng = int(bins.n_global[0])
     box = bins.global_bbox[:ng].long()
@@ -502,10 +811,45 @@ def k1_bound_ms(bins, rows, pw, C, tex):
     in_bytes = ((live + ng) * 32 * 4 + bins.bin_start.numel() * 4
                 + tex.numel() * 4)
     ops = 16 * 1024 * (live + tiles_g) + 60 * px
-    return max((out_bytes + in_bytes) / HBM_BYTES_PER_S,
-               ops / FP32_FLOPS) * 1e3, (
-        "bytes" if (out_bytes + in_bytes) / HBM_BYTES_PER_S
-        >= ops / FP32_FLOPS else "operations"), live
+    return out_bytes + in_bytes, ops, live
+
+
+def k1_bound_ms(bins, rows, pw, C, tex):
+    """Least time for K1's work (:func:`k1_work`)."""
+    return _bound(*k1_work(bins, rows, pw, C, tex)[:2])
+
+
+def k10_bound_ms(bins, rows, pw, C, tex, idbuf, height, width, sample_ph):
+    """K10: K1's work, plus the C aa planes written (bytes) and K2's ~60
+    flops per pixel pair whose ids differ (operations); the planes K2
+    would read stay on the chip."""
+    nbytes, ops, _ = k1_work(bins, rows, pw, C, tex)
+    pairs, _ = _diff_pairs(idbuf, height, width, sample_ph)
+    return _bound(nbytes + idbuf.numel() * 4 * C, ops + 60 * pairs)
+
+
+def k7_bound_ms(tex, tu, tv, boundary_mode):
+    """K7: tu and tv read and C planes written per pixel, and each texel
+    the pixels touch read once (bytes); 4 taps and 3 lerps a channel and
+    the coordinates, ~(7 C + 12) flops a pixel (operations)."""
+    import torch
+
+    th, tw, C = tex.shape
+    s0 = torch.floor(tu * tw - 0.5).long()
+    t0 = torch.floor(tv * th - 0.5).long()
+    taps = []
+    for ds in (0, 1):
+        for dt in (0, 1):
+            if boundary_mode == "wrap":
+                si, ti = torch.remainder(s0 + ds, tw), torch.remainder(
+                    t0 + dt, th)
+            else:
+                si, ti = (torch.clamp(s0 + ds, 0, tw - 1),
+                          torch.clamp(t0 + dt, 0, th - 1))
+            taps.append((ti * tw + si).reshape(-1))
+    texels = int(torch.unique(torch.cat(taps)).numel())
+    px = tu.numel()
+    return _bound(px * 4 * (2 + C) + texels * 4 * C, px * (7 * C + 12))
 
 
 def k2_bound_ms(idbuf, C, height, width, sample_ph):
@@ -522,11 +866,6 @@ def k2_bound_ms(idbuf, C, height, width, sample_ph):
     v_pairs = int(((idbuf[:-1] != idbuf[1:]) & vmask[:, None]).sum())
     nbytes = px * 4 * (11 + 2 * C)
     ops = 60 * (h_pairs + v_pairs) + 2 * 2 * px
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-
-def _bound(nbytes, ops):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -620,17 +959,20 @@ def k6_bound_ms(bins, n_tris):
     return _bound(rows * (27 * 4 + 4) + n_tris * 128, 27 * rows)
 
 
-KERNELS = {
+KERNELS = {       # K1 .. K11
     "fused_raster": ("csrc/fused_raster.cu", "rasterize_tpu.py:1055"),
     "antialias": ("csrc/antialias.cu", "antialias_tpu.py:184"),
     "antialias_bwd": ("csrc/antialias_bwd.cu", "antialias_tpu.py:228"),
     "texture_bwd": ("csrc/texture_bwd.cu", "texture_tpu.py:463"),
     "pixel_grad": ("csrc/raster_grad.cu", "raster_grad_tpu.py:97"),
     "fold_entries": ("csrc/raster_grad.cu", "raster_grad_tpu.py:338"),
+    "texture_fwd": ("csrc/texture_fwd.cu", "texture_tpu.py:407"),
     "mip_sample": ("csrc/texture_mip.cu", "texture_mip_tpu.py:163"),
     "mip_sample_bwd": ("csrc/texture_mip.cu", "texture_mip_tpu.py:246"),
+    "fused_raster_aa": ("csrc/fused_raster.cu", "rasterize_tpu.py:1514"),
     "bin_place": ("csrc/bin_place.cu", "rasterize_tpu.py:350"),
 }
+SINGLE_VIEW_ONLY = ("texture_fwd", "fused_raster_aa")   # K7, K10
 
 
 def main() -> int:
@@ -660,6 +1002,7 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.profile_forward import (device_kernels,
                                                         forward_stages,
                                                         step_stages)
@@ -703,8 +1046,11 @@ def main() -> int:
                                  384, ph, label)
         if grid == 5 and int(bins.n_global[0]) == 0:
             fail("the large-triangle check scene left the global list empty")
+        check_aa_fused(bins, wl["params"]["tex"].detach(), 2 * ph, pw, 256,
+                       384, ph, k1, label)
         # random cotangents, u/v/z ones included, exercise every slot
         g_aa = torch.randn(k1[4].shape, device=dev, generator=gen)
+        check_texture(k1, wl["params"]["tex"].detach(), g_aa, gen, label)
         gtuv = torch.randn((3, 2 * ph, pw), device=dev, generator=gen)
         check_backward(k1, bins, wl["params"]["tex"], g_aa, gtuv, 256, 384,
                        ph, 2 * wl["faces"].shape[0], label)
@@ -724,8 +1070,10 @@ def main() -> int:
                 "texture_bwd": tc.texture_planes_bwd,
                 "pixel_grad": gc.pixel_grad,
                 "fold_entries": gc.fold_entries,
+                "texture_fwd": tc.texture_planes,
                 "mip_sample": tmc.mip_sample,
                 "mip_sample_bwd": tmc.mip_sample_bwd,
+                "fused_raster_aa": rc.fused_raster_aa,
                 "bin_place": bp.place_pairs}
     for f in counters.values():
         f.launches = 0
@@ -801,7 +1149,8 @@ def main() -> int:
     for name, p in params.items():
         if not bool(torch.isfinite(p).all()):
             fail(f"non-finite parameter {name} after the steps")
-    want = {k: 0 if k.startswith("mip") else n_steps for k in counters}
+    want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY else n_steps
+            for k in counters}
     if launches != want:
         fail(f"kernel launches {launches} != {want}")
     record.update(step_ms=step_ms, mpix_per_s=mpix, step_losses=losses,
@@ -894,7 +1243,8 @@ def main() -> int:
     for name, p in pm.items():
         if not bool(torch.isfinite(p).all()):
             fail(f"mip: non-finite parameter {name} after the steps")
-    want = {k: 0 if k == "texture_bwd" else n_steps for k in counters}
+    want = {k: 0 if k == "texture_bwd" or k in SINGLE_VIEW_ONLY else n_steps
+            for k in counters}
     if mip_launches != want:
         fail(f"mip: kernel launches {mip_launches} != {want}")
     with torch.no_grad():
@@ -942,7 +1292,8 @@ def main() -> int:
                               np.clip(written, 0, 140)[:, :, ::-1, :]):
             fail("the take's frames loaded back differ from those written, "
                  "clipped to 140 and flipped")
-        want = {k: 0 if k.startswith("mip") else n_fit for k in counters}
+        want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY
+                else n_fit for k in counters}
         if fit_launches != want or fstate.step != n_fit:
             fail(f"fit_take ran {fstate.step} steps with launches "
                  f"{fit_launches} != {want}")
@@ -988,7 +1339,8 @@ def main() -> int:
                                                       max_iter=n_fit + 5))
         torch.cuda.synchronize()
         resumed = {k: f.launches for k, f in counters.items()}
-        want = {k: 0 if k.startswith("mip") else 5 for k in counters}
+        want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY else 5
+                for k in counters}
         if rstate.step != n_fit + 5 or resumed != want:
             fail(f"the resumed fit_take ended at step {rstate.step} with "
                  f"launches {resumed} != {want}")
@@ -998,6 +1350,11 @@ def main() -> int:
             fail("the resumed fit_take left no step-25 checkpoint")
         print(f"fit_take resumed from step {n_fit} to {rstate.step}; "
               f"launches {resumed}", flush=True)
+
+        # ---- 5d. the single view at full width, and the result renderers
+        # over the fitted take ----
+        record["single_view"], sv_clip = single_view(
+            wl, counters, gen, (fcfg, paths, written, tmp))
     record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
                   fit_take_launches=fit_launches, fit_take_losses=losses,
                   fit_take_pair_cap=cap, fit_take_live_pairs=live0)
@@ -1059,6 +1416,43 @@ def main() -> int:
                                        mg),
             lambda: tmc.mip_sample_bwd_plain(pyr, sizes, mpay[3], mpay[4],
                                              lam, mg))
+        # K7 and K10 at the single view's shapes (camera 0 of phase 5d)
+        _, _, bins1 = bin_stacked(sv_clip[None], scene.faces, scene.uv,
+                                  scene.uv_idx, scene.face_neighbors, (H, W))
+        k1s = rc.fused_raster(bins1, tex, ph, pw)
+        _, e10 = check_aa_fused(bins1, tex, ph, pw, H, W, ph, k1s,
+                                "single view")
+        _, e7 = check_texture(k1s, tex, torch.randn(
+            k1s[4].shape, device=dev, generator=gen), gen, "single view")
+        tu1, tv1 = k1s[2][3], k1s[2][4]
+        t["texture_fwd"] = (
+            lambda: tc.texture_planes(tex, tu1, tv1, "wrap"),
+            lambda: tc.texture_planes_plain(tex, tu1, tv1, "wrap"))
+        t["fused_raster_aa"] = (
+            lambda: rc.fused_raster_aa(bins1, tex, ph, pw, H, W, ph),
+            lambda: rc.fused_raster_aa_plain(bins1, tex, ph, pw, H, W, ph))
+        # K7's clamp mode and its library call, grid_sample with border
+        # padding (the same forward); K1 and K2 at the single view
+        tex_nchw = tex.permute(2, 0, 1)[None].contiguous()
+        grid = torch.stack([tu1 * 2.0 - 1.0, tv1 * 2.0 - 1.0], -1)[None]
+
+        def grid_sample():
+            return torch.nn.functional.grid_sample(
+                tex_nchw, grid, mode="bilinear", padding_mode="border",
+                align_corners=False)
+
+        single = {
+            "texture_fwd_clamp_ms": cuda_ms(
+                lambda: tc.texture_planes(tex, tu1, tv1, "clamp"), 20),
+            "grid_sample_ms": cuda_ms(grid_sample, 20),
+            "grid_sample_vs_clamp_max_abs": max_err(
+                grid_sample()[0], tc.texture_planes(tex, tu1, tv1, "clamp")),
+            "fused_raster_ms": cuda_ms(
+                lambda: rc.fused_raster(bins1, tex, ph, pw), 20),
+            "antialias_ms": cuda_ms(lambda: ac.antialias_planes(
+                k1s[0], k1s[2], k1s[4], H, W, ph), 20)}
+        record["single_view_kernels"] = single
+        print(f"single view kernels (CUDA events, ms): {single}", flush=True)
         # K11 on the step's batch: exact at three caps, timed at the
         # autotuned one
         tile_ids, n_tiles, Ps, live11 = check_place(
@@ -1143,13 +1537,20 @@ def main() -> int:
         "mip_sample": k8_bound_ms(lam, C, pyr, len(sizes)),
         "mip_sample_bwd": k9_bound_ms(lam, mg, pyr, len(sizes)),
         "bin_place": k11_bound_ms(tile_ids, n_tiles, P),
+        "texture_fwd": k7_bound_ms(tex, tu1, tv1, "wrap"),
+        "fused_raster_aa": k10_bound_ms(bins1, ph, pw, C, tex, k1s[0], H, W,
+                                        ph),
     }
     # K11 equals its plain version exactly (check_place fails otherwise)
     errs = {"fused_raster": k1_err, "antialias": k2_err, **babs, **mabs,
-            "bin_place": 0.0}
-    library = {"fold_entries": fold_lib, "bin_place": place_lib}
+            "bin_place": 0.0, "texture_fwd": e7, "fused_raster_aa": e10}
+    library = {"fold_entries": fold_lib, "bin_place": place_lib,
+               "texture_fwd": single["grid_sample_ms"]}
+    sv_launches = record["single_view"]["launches"]
     launches = {**launches, "mip_sample": mip_launches["mip_sample"],
-                "mip_sample_bwd": mip_launches["mip_sample_bwd"]}
+                "mip_sample_bwd": mip_launches["mip_sample_bwd"],
+                "texture_fwd": sv_launches["separate"]["texture_fwd"],
+                "fused_raster_aa": sv_launches["aa_fused"]["fused_raster_aa"]}
     kernels = []
     for name, (src_file, tpu) in KERNELS.items():
         ms, plain = times[name]

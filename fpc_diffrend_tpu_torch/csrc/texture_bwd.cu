@@ -1,10 +1,12 @@
-// K4: backward of the bilinear wrap texture sample over the stacked image.
+// K4: backward of the bilinear texture sample (K1's tail, K7), wrap or
+// clamp.
 //
 // Replaces fpc_diffrend_tpu/ops/pallas/texture_tpu.py _bwd_kernel
-// (launched by texture_planes_bwd_impl). What it computes is the
-// autodiff of the XLA sampler fpc_diffrend_tpu/ops/texture.py _bilinear in
-// wrap mode, written out (plain version: texture_planes_bwd_plain in
-// ops/cuda/texture_cuda.py, operand for operand):
+// (launched by texture_planes_bwd_impl and _texture_vjp_bwd). What it
+// computes is the autodiff of the XLA sampler
+// fpc_diffrend_tpu/ops/texture.py _bilinear, written out (plain version:
+// texture_planes_bwd_plain in ops/cuda/texture_cuda.py, operand for
+// operand), the four texel indices wrapped or clamped as the forward's:
 //   top = c00 (1 - fs) + c01 fs, bot = c10 (1 - fs) + c11 fs,
 //   out = top (1 - ft) + bot ft, with s = u * TW - 0.5, fs = s - floor(s)
 //   gtex[t0, s0] += g (1 - ft) (1 - fs), ... (the 4 texel shares)
@@ -12,8 +14,10 @@
 //   gt = sum_c g (bot - top),                              gtv = gt * TH
 // The TPU kernel reads the texture from a VMEM-resident patch and zeroes
 // the coordinate gradient where its 256-column patch or SUB_H-row band
-// clamps (s_in/t_in); that is a layout artefact, and this kernel follows
-// the XLA reference instead.
+// clamps (s_in/t_in), and in clamp mode gates it past the clipped
+// coordinate; these are layout artefacts, and this kernel follows the XLA
+// reference instead (in clamp mode the two taps of an edge texel coincide,
+// so the coordinate gradient there is 0 by the formula).
 //
 // Design: one thread per pixel. A pixel whose cotangent is 0 in every
 // channel writes gtu = gtv = 0 and stops. Every other pixel adds its 4 * C
@@ -40,6 +44,16 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return m < 0 ? m + n : m;
 }
 
+__device__ __forceinline__ int clamp_idx(int i, int n) {
+  return min(max(i, 0), n - 1);
+}
+
+template <bool CLAMP>
+__device__ __forceinline__ int tex_index(int i, int n) {
+  return CLAMP ? clamp_idx(i, n) : wrap(i, n);
+}
+
+template <bool CLAMP>
 __global__ void __launch_bounds__(THREADS)
 texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
                    const float* __restrict__ tv,
@@ -68,10 +82,14 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
   const float ft = t - t0f;
   const int s0 = (int)s0f;
   const int t0 = (int)t0f;
-  const int64_t i00 = (int64_t)wrap(t0, th) * tw + wrap(s0, tw);
-  const int64_t i01 = (int64_t)wrap(t0, th) * tw + wrap(s0 + 1, tw);
-  const int64_t i10 = (int64_t)wrap(t0 + 1, th) * tw + wrap(s0, tw);
-  const int64_t i11 = (int64_t)wrap(t0 + 1, th) * tw + wrap(s0 + 1, tw);
+  const int64_t r0 = (int64_t)tex_index<CLAMP>(t0, th) * tw;
+  const int64_t r1 = (int64_t)tex_index<CLAMP>(t0 + 1, th) * tw;
+  const int q0 = tex_index<CLAMP>(s0, tw);
+  const int q1 = tex_index<CLAMP>(s0 + 1, tw);
+  const int64_t i00 = r0 + q0;
+  const int64_t i01 = r0 + q1;
+  const int64_t i10 = r1 + q0;
+  const int64_t i11 = r1 + q1;
   float gs = 0.f, gt = 0.f;
 #pragma unroll
   for (int c = 0; c < MAX_C; ++c) {
@@ -99,17 +117,21 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
 
 extern "C" int texture_bwd_launch(const float* tex, const float* tu,
                                   const float* tv, const float* gcolour,
-                                  int rows, int pw, int th, int tw, int nchan,
-                                  float* gtex, float* gtu, float* gtv,
-                                  void* stream) {
+                                  int64_t n_px, int th, int tw, int nchan,
+                                  int clamp, float* gtex, float* gtu,
+                                  float* gtv, void* stream) {
   if (nchan < 1 || nchan > MAX_C) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(
       gtex, 0, (size_t)th * tw * nchan * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)rows * pw;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  texture_bwd_kernel<<<blocks, THREADS, 0, st>>>(
-      tex, tu, tv, gcolour, n, th, tw, nchan, gtex, gtu, gtv);
+  if (n_px == 0) return 0;
+  const unsigned blocks = (unsigned)((n_px + THREADS - 1) / THREADS);
+  if (clamp)
+    texture_bwd_kernel<true><<<blocks, THREADS, 0, st>>>(
+        tex, tu, tv, gcolour, n_px, th, tw, nchan, gtex, gtu, gtv);
+  else
+    texture_bwd_kernel<false><<<blocks, THREADS, 0, st>>>(
+        tex, tu, tv, gcolour, n_px, th, tw, nchan, gtex, gtu, gtv);
   return (int)cudaGetLastError();
 }

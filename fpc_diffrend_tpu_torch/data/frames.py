@@ -87,6 +87,30 @@ def load_take(imdir: str, cams: list[str], clip_max: int = 140,
     return out
 
 
+def load_tiff(path: str) -> np.ndarray:
+    """One grayscale TIFF as it is on disk: (H, W) uint8, neither clipped
+    nor flipped (a reference frame beside a re-render). Decoded by the
+    native runtime; PIL, where it is installed, reads a file it rejects.
+
+    :raises RuntimeError: the native decoder rejects the file and PIL is
+        not installed to read it.
+    """
+    reason = native.unavailable_reason()
+    if not reason:
+        probe = native.tiff_probe(path)
+        if probe is not None:
+            w, h = probe
+            return native.load_tiffs([path], w, h, clip_max=255,
+                                     flip=False)[0]
+        reason = f"{path} is not an uncompressed grayscale TIFF"
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"cannot decode {path} natively ({reason}) and "
+                           "PIL is not installed") from e
+    return np.array(Image.open(path))
+
+
 def synthetic_take(render_fn, n_cams: int, n_frames: int) -> np.ndarray:
     """A synthetic take: ``render_fn(cam, frame)`` gives an (H, W) image in
     [0, 1]; :return: (n_cams, n_frames, H, W) uint8."""

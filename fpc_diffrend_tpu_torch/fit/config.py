@@ -2,8 +2,10 @@
 
 Field names and defaults are the JAX package's, so one config means the
 same thing in both packages. ``raster_impl`` and ``aa_max_pairs`` are kept
-for that reason; the port's render path is always the stacked-batch
-kernel path with the exact antialias.
+for that reason: the fit step always renders through the stacked-batch
+kernel path with the exact antialias. The single view
+(``ops.pipeline.render``, which the result renderers call) is the same
+path at a batch of one.
 """
 
 from __future__ import annotations

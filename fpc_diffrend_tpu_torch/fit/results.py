@@ -6,7 +6,8 @@ The reference-format ``result/`` directory (reference fit.py:235-286):
 ``texture.png`` (flipped vertically, 8-bit), ``pose.json`` with per-frame
 translations (F, 3) and rotation quaternions (F, 4); beside it
 ``config.txt``. The meshes are recomputed for every frame from the final
-parameters.
+parameters. ``load_pose`` and ``load_result_mesh`` read a result back for
+the result renderers (``tools/render_result.py``).
 """
 
 from __future__ import annotations
@@ -80,3 +81,17 @@ def load_pose(result_dir: str):
         d = json.load(f)
     return (np.asarray(d["translation"], np.float32),
             np.asarray(d["rotation"], np.float32))
+
+
+def load_result_mesh(result_dir: str, i: int) -> np.ndarray:
+    """(3V,) float32 vertices of a saved ``{i}.obj``: its ``v`` lines up to
+    the first ``vt`` line (``fpc_diffrend_tpu.tools.render_result``'s
+    reader, reference render_result.py:117-122)."""
+    verts = []
+    with open(os.path.join(result_dir, f"{i}.obj")) as f:
+        for line in f:
+            if line.startswith("v "):
+                verts.append(line[2:])
+            elif line.startswith("vt "):
+                break
+    return np.array(" ".join(verts).split(), dtype=np.float32)

@@ -8,9 +8,10 @@ and the stream go in as ``c_void_p``, and every entry point returns
 seconds; ``torch.utils.cpp_extension.load`` takes minutes per file.
 
 Libraries go to ``fpc_diffrend_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is reused. All sources that need a
-build are compiled by concurrent ``nvcc`` processes.
+``.gitignore``), named by a hash of the source, the headers of ``csrc/``
+and the flags, so a changed source or header is rebuilt and an unchanged
+one is reused. All sources that need a build are compiled by concurrent
+``nvcc`` processes.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ SOURCES = {
     "fused_raster": "fused_raster.cu",
     "antialias": "antialias.cu",
     "antialias_bwd": "antialias_bwd.cu",
+    "texture_fwd": "texture_fwd.cu",
     "texture_bwd": "texture_bwd.cu",
     "raster_grad": "raster_grad.cu",
     "texture_mip": "texture_mip.cu",
@@ -65,7 +67,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -22,8 +22,13 @@ One deliberate difference: a triangle too large for the binning window
 the global list on every tile row the block spans, so a triangle of one
 sample that reaches past its image could cover pixels of the next sample.
 
-``fused_raster`` runs the kernel for CUDA tensors and its plain PyTorch
-version ``fused_raster_plain`` for CPU tensors.
+K10, the same pass with the antialias (K2) in its tail, is the CUDA kernel
+``csrc/fused_raster.cu`` ``fused_raster_aa_launch``: the port of the TPU
+kernel's ``aa=True`` mode (``_aa_tile``, ``_aa_empty_tile``,
+``_fold_aa_sides``).
+
+``fused_raster`` and ``fused_raster_aa`` run their kernels for CUDA tensors
+and their plain PyTorch versions (``*_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -477,20 +482,9 @@ def fused_raster_plain(bins: Bins, tex: Tensor | None, rows: int, pw: int):
             _planes(torch.stack(extra), rows, pw), colour)
 
 
-def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
-    """K1: rasterize, interpolate and texture the stacked image in one pass.
-
-    :param bins: from :func:`bin_scene_stacked`.
-    :param tex: (TH, TW, C) float32 texture, sampled bilinearly with wrap;
-        None skips the texture tail (C = 0: the mip path samples the
-        payload's uv itself).
-    :param rows, pw: stacked image size, whole 8x128 tiles.
-    :return: (idbuf (rows, pw) int32 winning triangle id, -1 = none;
-        entry (rows, pw) int32 winning bin entry, -1 = none;
-        payload (14, rows, pw) [u v z tu tv x0 y0 x1 y1 x2 y2 n0 n1 n2];
-        extra (8, rows, pw) [D iw0 iw1 iw2 du02 du12 dv02 dv12];
-        colour (C, rows, pw)). A pixel no triangle covers samples uv (0, 0).
-    """
+def _check_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
+    """Raise unless the bins and texture fit K1/K10; :return: (device,
+    th, tw, C, n_tiles)."""
     dev = bins.sorted_rec.device
     if rows % TILE_H or pw % TILE_W:
         raise ValueError(f"stacked image {rows}x{pw} is not whole tiles")
@@ -508,30 +502,108 @@ def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
           dev)
     check(bins.global_bbox, "global_bbox", torch.int32, (MAX_GLOBAL, 4), dev)
     check(bins.n_global, "n_global", torch.int32, (1,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev, th, tw, C, n_tiles
+
+
+def _raster_outputs(dev, rows: int, pw: int, C: int):
+    """Empty (idbuf, entry, payload, extra, colour) for the kernels."""
+    return (torch.empty((rows, pw), dtype=torch.int32, device=dev),
+            torch.empty((rows, pw), dtype=torch.int32, device=dev),
+            torch.empty((N_PAYLOAD, rows, pw), device=dev),
+            torch.empty((N_EXTRA, rows, pw), device=dev),
+            torch.empty((C, rows, pw), device=dev))
+
+
+def _bins_args(bins: Bins):
+    ptr = build.ptr
+    return (ptr(bins.sorted_rec), ptr(bins.global_rec), ptr(bins.global_bbox),
+            ptr(bins.n_global), ptr(bins.bin_start))
+
+
+def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
+    """K1: rasterize, interpolate and texture the stacked image in one pass.
+
+    :param bins: from :func:`bin_scene_stacked`.
+    :param tex: (TH, TW, C) float32 texture, sampled bilinearly with wrap;
+        None skips the texture tail (C = 0: the mip path and the separate
+        sampler K7 sample the payload's uv themselves).
+    :param rows, pw: stacked image size, whole 8x128 tiles.
+    :return: (idbuf (rows, pw) int32 winning triangle id, -1 = none;
+        entry (rows, pw) int32 winning bin entry, -1 = none;
+        payload (14, rows, pw) [u v z tu tv x0 y0 x1 y1 x2 y2 n0 n1 n2];
+        extra (8, rows, pw) [D iw0 iw1 iw2 du02 du12 dv02 dv12];
+        colour (C, rows, pw)). A pixel no triangle covers samples uv (0, 0).
+    """
+    dev, th, tw, C, n_tiles = _check_raster(bins, tex, rows, pw)
     if dev.type == "cpu":
         return fused_raster_plain(bins, tex, rows, pw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_raster: unsupported device {dev}")
-    idbuf = torch.empty((rows, pw), dtype=torch.int32, device=dev)
-    entry = torch.empty((rows, pw), dtype=torch.int32, device=dev)
-    payload = torch.empty((N_PAYLOAD, rows, pw), device=dev)
-    extra = torch.empty((N_EXTRA, rows, pw), device=dev)
-    colour = torch.empty((C, rows, pw), device=dev)
-    lib = build.load("fused_raster")
-    fn = lib.fused_raster_launch
+    out = _raster_outputs(dev, rows, pw, C)
+    fn = build.load("fused_raster").fused_raster_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 6)
     fused_raster.launches += 1
     ptr = build.ptr
-    status = fn(ptr(bins.sorted_rec), ptr(bins.global_rec),
-                ptr(bins.global_bbox), ptr(bins.n_global),
-                ptr(bins.bin_start), None if tex is None else ptr(tex),
+    status = fn(*_bins_args(bins), None if tex is None else ptr(tex),
                 th, tw, C, n_tiles, pw // TILE_W, bins.gbase, rows,
-                ptr(idbuf), ptr(entry),
-                ptr(payload), ptr(extra), ptr(colour), build.stream(dev))
+                *(ptr(t) for t in out), build.stream(dev))
     build.check(status, "fused_raster")
-    return idbuf, entry, payload, extra, colour
+    return out
 
 
 fused_raster.launches = 0
+
+
+def fused_raster_aa_plain(bins: Bins, tex: Tensor, rows: int, pw: int,
+                          height: int, width: int, sample_ph: int):
+    """Plain PyTorch version of K10 (same arguments and outputs as
+    :func:`fused_raster_aa`): K2's plain version over K1's."""
+    # imported here: antialias_cuda imports this module
+    from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
+        antialias_planes_plain)
+
+    k1 = fused_raster_plain(bins, tex, rows, pw)
+    return (*k1, antialias_planes_plain(k1[0], k1[2], k1[4], height, width,
+                                        sample_ph))
+
+
+def fused_raster_aa(bins: Bins, tex: Tensor, rows: int, pw: int,
+                    height: int, width: int, sample_ph: int):
+    """K10: K1 with the silhouette antialias (K2) in the same pass.
+
+    :param bins, tex, rows, pw: as for :func:`fused_raster`; C <= 4.
+    :param height, width: one sample's real size (the antialias's pair
+        masks).
+    :param sample_ph: row pitch of the stacked samples.
+    :return: K1's five outputs, then aa (C, rows, pw), the antialiased
+        colour before the background composite (K2's output on K1's).
+    """
+    if tex is None:
+        raise ValueError("fused_raster_aa needs a texture")
+    dev, th, tw, C, n_tiles = _check_raster(bins, tex, rows, pw)
+    if not 1 <= C <= 4:
+        raise ValueError(f"fused_raster_aa takes 1 to 4 channels, not {C}")
+    if rows % sample_ph or height > sample_ph or width > pw:
+        raise ValueError(f"{rows}x{pw} planes do not hold samples of "
+                         f"{height}x{width} at pitch {sample_ph}")
+    if dev.type == "cpu":
+        return fused_raster_aa_plain(bins, tex, rows, pw, height, width,
+                                     sample_ph)
+    out = _raster_outputs(dev, rows, pw, C)
+    aa = torch.empty((C, rows, pw), device=dev)
+    fn = build.load("fused_raster").fused_raster_aa_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 7)
+    fused_raster_aa.launches += 1
+    ptr = build.ptr
+    status = fn(*_bins_args(bins), ptr(tex), th, tw, C, n_tiles, pw // TILE_W,
+                bins.gbase, rows, height, width, sample_ph,
+                *(ptr(t) for t in out), ptr(aa), build.stream(dev))
+    build.check(status, "fused_raster_aa")
+    return (*out, aa)
+
+
+fused_raster_aa.launches = 0

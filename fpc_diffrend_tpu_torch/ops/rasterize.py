@@ -10,6 +10,20 @@ entry -> triangle), under one ``torch.autograd.Function``; the y-shift and
 the triangle setup chain back to clip positions through ordinary autograd,
 as the JAX package leaves them to autodiff.
 
+The single view (``ops.pipeline.render``) is the same pass at B = 1, and
+picks one of three routes that compute the same image and gradients
+(``route``; the JAX package picks them by environment variables,
+``ops/pipeline.py:149-193`` there):
+
+* ``"sepaa"``: K1 with its texture tail, then K2 (the JAX default, and
+  the stacked batch's only route);
+* ``"aa_fused"``: K10, K1 with the antialias in the same pass
+  (``FPC_AA_FUSE=1``, JAX's ``rasterize_texture_aa_fused``);
+* ``"separate"``: K1 without its texture tail, the standalone sampler K7,
+  then K2 (``FPC_FUSE_TEX=0``).
+
+All three share the backward K3 -> K4 -> K5 -> K6.
+
 The mip path (``enable_mip``) is the same Function with another sampler:
 K1 without its texture tail, the finite-difference LOD, K8 (trilinear mip
 sample), K2; backward K3 -> K9 -> K5 -> K6. The JAX package renders it per
@@ -27,8 +41,10 @@ from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
 from fpc_diffrend_tpu_torch.ops.cuda.raster_grad_cuda import (
     fold_entries, pixel_grad)
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    aux_records, bin_scene_stacked, fused_raster, pad_resolution)
-from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import texture_planes_bwd
+    aux_records, bin_scene_stacked, fused_raster, fused_raster_aa,
+    pad_resolution)
+from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
+    texture_planes, texture_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
     mip_sample, mip_sample_bwd)
 from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
@@ -36,12 +52,16 @@ from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
 Tensor = torch.Tensor
 
 
-def _raster(ctx, data_s, bins, tex, sample_ph, height, width):
-    """K1 over the stacked image (``tex`` None: no texture tail)."""
+def _raster(ctx, data_s, bins, tex, sample_ph, height, width, aa=False):
+    """K1 over the stacked image (``tex`` None: no texture tail); with
+    ``aa``, K10 (K1's outputs and the antialiased colour)."""
     B, T = data_s.shape[:2]
     _, pw = pad_resolution(height, width)
     ctx.bins = bins
     ctx.dims = (B, T, sample_ph, height, width)
+    if aa:
+        return fused_raster_aa(bins, tex, B * sample_ph, pw, height, width,
+                               sample_ph)
     return fused_raster(bins, tex, B * sample_ph, pw)
 
 
@@ -106,6 +126,41 @@ class RasterizeTexturedSepaaStacked(torch.autograd.Function):
                 gtex, None, None, None, None)
 
 
+class RasterizeTexturedAaFused(RasterizeTexturedSepaaStacked):
+    """K10 forward (K1 and K2 in one pass), the same backward K3 -> K4 ->
+    K5 -> K6 (JAX's ``_rasterize_texture_aa_fused_bwd``, which runs the
+    antialias backward over the planes K10 also writes). Arguments and
+    results as :class:`RasterizeTexturedSepaaStacked`."""
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+        idbuf, entry, payload, extra, colour, aa = _raster(
+            ctx, data_s, bins, tex, sample_ph, height, width, aa=True)
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
+        ctx.mark_non_differentiable(idbuf)
+        return idbuf, aa
+
+
+class RasterizeSeparateTexture(RasterizeTexturedSepaaStacked):
+    """K1 without its texture tail -> K7 (the standalone bilinear wrap
+    sampler) -> K2 forward, the same backward K3 -> K4 -> K5 -> K6 (JAX's
+    ``texture_planes_pallas`` route). Arguments and results as
+    :class:`RasterizeTexturedSepaaStacked`."""
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+        idbuf, entry, payload, extra, _ = _raster(
+            ctx, data_s, bins, None, sample_ph, height, width)
+        colour = texture_planes(tex, payload[3], payload[4], "wrap")
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
+        return idbuf, _antialias(ctx, idbuf, payload, colour)
+
+
+ROUTES = {"sepaa": RasterizeTexturedSepaaStacked,
+          "aa_fused": RasterizeTexturedAaFused,
+          "separate": RasterizeSeparateTexture}
+
+
 class RasterizeMipSepaaStacked(torch.autograd.Function):
     """K1 (no texture) -> LOD -> K8 -> K2 forward, K3 -> K9 -> K5 -> K6
     backward.
@@ -162,7 +217,8 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
                                      face_neighbors: Tensor, resolution,
                                      enable_mip: bool = False,
                                      max_mip_level: int = 0,
-                                     pair_cap: int = 0):
+                                     pair_cap: int = 0,
+                                     route: str = "sepaa"):
     """Render B samples through one pass of each kernel.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
@@ -172,10 +228,15 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
         bilinearly (K1's tail, K4).
     :param pair_cap: per-sample bin-entry cap (``FitConfig.pair_cap``;
         0: uncapped).
+    :param route: the bilinear path's kernels, a key of :data:`ROUTES`
+        ("sepaa": K1 -> K2; "aa_fused": K10; "separate": K1 -> K7 -> K2);
+        the mip path has one route.
     :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
         before the background composite), differentiable with respect to
         ``pos_clip_b`` and ``tex``.
     """
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {list(ROUTES)}")
     height, width = resolution
     ph, _ = pad_resolution(height, width)
     data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
@@ -184,5 +245,4 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
         pyramid, sizes = mip_pyramid(tex, max_mip_level)
         return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid, sizes,
                                               bins, ph, height, width)
-    return RasterizeTexturedSepaaStacked.apply(data_s, aux_s, tex, bins, ph,
-                                               height, width)
+    return ROUTES[route].apply(data_s, aux_s, tex, bins, ph, height, width)

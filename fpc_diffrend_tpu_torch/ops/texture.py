@@ -2,8 +2,11 @@
 ``fpc_diffrend_tpu.ops.texture``).
 
 ``bilinear`` is the plain version of the fused raster kernel's texture
-tail: a direct four-texel gather with wrap (or clamp) indices and no
-footprint limit. ``build_mip_pyramid`` is the box-filtered mip chain the
+tail and of the standalone sampler K7: a direct four-texel gather with wrap
+(or clamp) indices and no footprint limit. ``texture`` with
+``filter_mode="linear"`` runs K7 forward and K4 backward
+(``ops.cuda.texture_cuda.TextureBilinear``; their plain versions on the
+CPU). ``build_mip_pyramid`` is the box-filtered mip chain the
 mip path samples, differentiable through autograd, and ``texture`` with
 ``filter_mode="linear-mipmap-linear"`` is the XLA trilinear sampler, kept
 as the reference of the mip kernels' plain versions. uv follows
@@ -18,7 +21,7 @@ import torch
 Tensor = torch.Tensor
 
 
-def _wrap_idx(idx: Tensor, size: int, mode: str) -> Tensor:
+def wrap_idx(idx: Tensor, size: int, mode: str) -> Tensor:
     if mode == "wrap":
         return torch.remainder(idx, size)
     if mode == "clamp":
@@ -41,10 +44,10 @@ def bilinear(tex: Tensor, u: Tensor, v: Tensor,
     ft = (t - t0)[..., None]
     s0 = s0.to(torch.int64)
     t0 = t0.to(torch.int64)
-    s1 = _wrap_idx(s0 + 1, tw, boundary_mode)
-    t1 = _wrap_idx(t0 + 1, th, boundary_mode)
-    s0 = _wrap_idx(s0, tw, boundary_mode)
-    t0 = _wrap_idx(t0, th, boundary_mode)
+    s1 = wrap_idx(s0 + 1, tw, boundary_mode)
+    t1 = wrap_idx(t0 + 1, th, boundary_mode)
+    s0 = wrap_idx(s0, tw, boundary_mode)
+    t0 = wrap_idx(t0, th, boundary_mode)
     c00 = tex[t0, s0]
     c01 = tex[t0, s1]
     c10 = tex[t1, s0]
@@ -77,7 +80,14 @@ def texture(tex: Tensor, uv: Tensor, boundary_mode: str = "wrap",
         dv/dx, dv/dy); required for mipmap filtering.
     """
     if filter_mode == "linear":
-        return bilinear(tex, uv[..., 0], uv[..., 1], boundary_mode)
+        # imported here: texture_cuda takes its plain version from this module
+        from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
+            TextureBilinear)
+
+        planes = TextureBilinear.apply(tex.contiguous(),
+                                       uv[..., 0].contiguous(),
+                                       uv[..., 1].contiguous(), boundary_mode)
+        return planes.movedim(0, -1)
     if filter_mode != "linear-mipmap-linear":
         raise NotImplementedError(f"filter_mode {filter_mode!r}")
     if uv_da is None:

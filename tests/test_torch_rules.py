@@ -4,13 +4,17 @@
   package (checked in a fresh interpreter; the name prefix
   ``fpc_diffrend_tpu_torch`` is not the JAX package).
 * Entry points run on CUDA unless the caller asks for the CPU, and raise
-  without a card: nothing falls back to the CPU on its own.
+  without a card: nothing falls back to the CPU on its own. The render
+  and the result renderers are entry points too.
+* No module of the port reads an ``FPC_*`` environment variable: the JAX
+  package's tuning and route switches are explicit arguments there.
 * On the card, each kernel equals its plain version on the same inputs,
   and a gradient through K1 and K2 runs (marked ``cuda``: skipped without
   a card; the chip runs them).
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -59,6 +63,45 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         state_mod.params_from_numpy({k: np.zeros(1, np.float32)
                                      for k in state_mod.PARAM_NAMES})
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+_FPC_ENV = re.compile(r"""(environ|getenv)\W[^\n]*['"]FPC_""")
+
+
+def test_port_reads_no_fpc_environment_variable():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "fpc_diffrend_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    readers = [f for f in files if _FPC_ENV.search(open(f).read())]
+    assert not readers, readers
+    assert _FPC_ENV.search('os.environ.get("FPC_AA_FUSE", "0")')
+
+
+def test_render_and_tools_raise_without_cuda(monkeypatch, tmp_path):
+    from fpc_diffrend_tpu_torch.ops.pipeline import render
+    from fpc_diffrend_tpu_torch.tools.render_result import render_result
+    from fpc_diffrend_tpu_torch.tools.simple_render import simple_render
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pos = np.array([[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [0.0, 0.5, 0.0]],
+                   np.float32)
+    faces = np.array([[0, 1, 2]], np.int32)
+    args = (np.eye(4, dtype=np.float32), pos, faces, pos[:, :2] + 0.5,
+            faces, np.full((4, 4, 1), 0.5, np.float32), (8, 8),
+            np.full((1, 3), -1, np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render(*args)
+    img = render(*args, device="cpu")
+    assert img.shape == (8, 8, 1) and float(img.max()) == 0.5
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simple_render(missing, "cam", missing)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render_result(missing, missing, missing, ["cam"], 1)
+    with pytest.raises(FileNotFoundError):              # past the device
+        simple_render(missing, "cam", missing, device="cpu")
 
 
 def test_init_params_matches_jax():
@@ -225,3 +268,36 @@ def test_mip_kernels_match_plain_versions_on_the_card(card):
     assert max(v for k, v in errs.items() if "K8" in k) <= chip_smoke.K8_ATOL
     assert max(v for k, v in errs.items()
                if "rel" in k) <= chip_smoke.ATOMIC_RTOL
+
+
+@pytest.mark.cuda
+def test_k7_and_k10_match_plain_versions_on_the_card(card):
+    """K7 (wrap and clamp) equals its plain version and K1's colour planes
+    exactly, K4's clamp mode its plain version, and K10 equals K1 and K2,
+    with chip_smoke's checks, on the binned dome and the global list."""
+    import chip_smoke
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+    from fpc_diffrend_tpu_torch.fit import loop
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    for grid in (20, 4):     # binned triangles; the global list
+        wl = build_workload(96, 200, grid=grid, batch=2, tex_size=64,
+                            device=card)
+        s, p, b = wl["scene"], wl["params"], wl["batch"]
+        pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
+                                           b.frame_idx)
+        _, _, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
+                                 s.face_neighbors, (96, 200))
+        ph, pw = rc.pad_resolution(96, 200)
+        tex = p["tex"].detach()
+        k1 = rc.fused_raster(bins, tex, 2 * ph, pw)
+        before = rc.fused_raster_aa.launches
+        _, err = chip_smoke.check_aa_fused(bins, tex, 2 * ph, pw, 96, 200,
+                                           ph, k1, f"grid {grid}")
+        assert err <= chip_smoke.K1_ATOL
+        assert rc.fused_raster_aa.launches == before + 1
+        g = torch.randn(k1[4].shape, device=card, generator=gen)
+        _, e7 = chip_smoke.check_texture(k1, tex, g, gen, f"grid {grid}")
+        assert e7 == 0.0

@@ -10,7 +10,8 @@ Left out of the port, and why: the face-order flip and the banded-fold
 checks (they serve only the TPU's banded gradient fold; the port's atomic
 fold K6 needs neither), the binning-window rebind (an XLA-sort tuning of
 the TPU) and ``FPC_CAP_MULT`` (the cap is 1.25 x the measured entries).
-``mp4_interval`` needs a video encoder and raises ``NotImplementedError``.
+``mp4_interval`` writes progress frames as the JAX package does: an mp4
+where imageio has an encoder, else PNGs (``utils.video``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ from fpc_diffrend_tpu_torch.fit.config import FitConfig
 from fpc_diffrend_tpu_torch.fit.scene import build_scene, load_calibration
 from fpc_diffrend_tpu_torch.models import blendshape
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import raster_stats
+from fpc_diffrend_tpu_torch.ops.pipeline import check_impl
 from fpc_diffrend_tpu_torch.utils.image import (display_image, load_image,
                                                 make_img)
+from fpc_diffrend_tpu_torch.utils.video import ProgressVideo, progress_callback
 
 CAP_MULT = 1.25          # cap headroom: pose and expression move triangles
 HEALTH_KEYS = ("n_valid_pairs", "n_global", "global_overflow", "wy_max",
@@ -163,12 +166,11 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
 
     :param device: default CUDA; ``"cpu"`` runs the plain versions.
     :return: the final TrainState.
+    :raises NotImplementedError, ValueError: ``config.raster_impl`` names
+        no ported path (:func:`ops.pipeline.check_impl`).
     """
     config.validate()
-    if config.mp4_interval:
-        raise NotImplementedError(
-            "mp4_interval: the port writes no progress video (it needs a "
-            "video encoder); use display_interval for preview.png")
+    check_impl(config.raster_impl)
     os.makedirs(config.out_dir, exist_ok=True)
     scene, frames_u8, n_frames, _ = setup_from_config(config, device)
     tex_init = load_texture(config.texpath, config.texshape, config.seed)
@@ -209,6 +211,11 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
     if config.checkpoint_dir and config.checkpoint_interval:
         callbacks.append(ckpt_mod.checkpoint_callback(
             config.checkpoint_dir, config.checkpoint_interval))
+    video = None
+    if config.mp4_interval:
+        video = ProgressVideo(config.out_dir)
+        callbacks.append(progress_callback(video, config, scene,
+                                           config.mp4_interval, frames_u8))
     if config.display_interval:
         callbacks.append(_display_callback(config, scene, frames_u8))
 
@@ -236,6 +243,8 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
         metrics_file.close()
+        if video is not None:
+            video.close()
         if config.checkpoint_dir:
             try:
                 ckpt_mod.save_checkpoint(config.checkpoint_dir, state)

@@ -1,11 +1,13 @@
 """Fit configuration: the port's own copy of ``fpc_diffrend_tpu.fit.config``.
 
 Field names and defaults are the JAX package's, so one config means the
-same thing in both packages. ``raster_impl`` and ``aa_max_pairs`` are kept
-for that reason: the fit step always renders through the stacked-batch
-kernel path with the exact antialias. The single view
-(``ops.pipeline.render``, which the result renderers call) is the same
-path at a batch of one.
+same thing in both packages. ``raster_impl`` names the kernel path
+("auto" or "pallas"): ``run_fit``, ``evaluate`` and ``fit_take`` raise
+for "scan", JAX's reference rasterizer, which is not ported, and for any
+other value (``ops.pipeline.check_impl``). ``aa_max_pairs`` is JAX's pair
+cap of its scan-path antialias; the kernels' antialias is exact and does
+not read it. The single view (``ops.pipeline.render``, which the result
+renderers call) is the same path at a batch of one.
 """
 
 from __future__ import annotations

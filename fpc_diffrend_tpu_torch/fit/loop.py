@@ -28,7 +28,8 @@ from fpc_diffrend_tpu_torch.fit.scene import Scene
 from fpc_diffrend_tpu_torch.models import blendshape, pose
 from fpc_diffrend_tpu_torch.models.camera import transform_clip
 from fpc_diffrend_tpu_torch.ops import mesh_ops
-from fpc_diffrend_tpu_torch.ops.pipeline import render_batch_stacked
+from fpc_diffrend_tpu_torch.ops.pipeline import (check_impl,
+                                                 render_batch_stacked)
 
 Tensor = torch.Tensor
 
@@ -66,7 +67,8 @@ def sample_clip_positions(config: FitConfig, scene: Scene, params: dict,
 
 def render_batch(config: FitConfig, scene: Scene, params: dict,
                  cam_idx: Tensor, frame_idx: Tensor):
-    """Render a (B,) batch through the stacked-batch kernel pipeline.
+    """Render a (B,) batch through the stacked-batch kernel pipeline (the
+    entry points check ``config.raster_impl`` once, not each step).
 
     With ``config.enable_mip`` the texture is sampled trilinearly across
     its mip chain (K8, K9 in place of K1's tail and K4). The JAX package
@@ -156,6 +158,7 @@ def evaluate(config: FitConfig, scene: Scene, params: dict,
     :return: metric name -> (n_batches,) tensor on the scene's device.
     """
     config.validate()
+    check_impl(config.raster_impl)
     dev = scene.device
     sampler = sample_batches(config, frames_u8.shape[1], generator)
     rows = []
@@ -231,8 +234,11 @@ def run_fit(config: FitConfig, scene: Scene, frames_u8: Tensor,
     :param state: the TrainState to continue; default a fresh one, its
         texture drawn from ``config.seed``.
     :return: the final TrainState.
+    :raises NotImplementedError, ValueError: ``config.raster_impl`` names
+        no ported path (:func:`ops.pipeline.check_impl`).
     """
     config.validate()
+    check_impl(config.raster_impl)
     if state is None:
         tex_init = np.random.default_rng(config.seed).uniform(
             size=config.texshape).astype(np.float32)

@@ -4,8 +4,10 @@ what their wrappers pass in.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, which is loaded with ``ctypes``: pointers
 and the stream go in as ``c_void_p``, and every entry point returns
-``cudaGetLastError()``. A source that includes no PyTorch header builds in
-seconds; ``torch.utils.cpp_extension.load`` takes minutes per file.
+``cudaGetLastError()``. :func:`entry` binds an entry point's argument types
+once and caches it, so a launch costs the host one dict lookup and one
+foreign call. A source that includes no PyTorch header builds in seconds;
+``torch.utils.cpp_extension.load`` takes minutes per file.
 
 Libraries go to ``fpc_diffrend_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source, the headers of ``csrc/``
@@ -52,6 +54,12 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
+
+# the argument types of the entry points
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+INT64 = ctypes.c_int64
 
 
 def nvcc_path() -> str:
@@ -120,6 +128,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes):
+    """The entry point ``symbol`` of library ``name``, loaded (and built)
+    at first use with its ``argtypes`` and an int ``restype`` bound once;
+    later calls return the same function object at the cost of a dict
+    lookup, so a wrapper asks for it at every launch."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _entries[(name, symbol)] = fn
+    return fn
+
+
 def check(status: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if status != 0:
@@ -128,7 +150,11 @@ def check(status: int, what: str) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` has the device, dtype and shape a kernel expects
-    and is contiguous (the kernels index raw row-major memory)."""
+    and is contiguous (the kernels index raw row-major memory). The usual
+    case costs one test (a wrapper runs it at every launch)."""
+    if (t.dtype == dtype and t.device == device and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -140,10 +166,19 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, as a ``PTR`` argument of an entry point
+    takes it (ctypes converts the int through the bound ``argtypes``)."""
+    return t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    """The current CUDA stream of ``device``, as a kernel launch takes it."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as a kernel launch takes it:
+    the handle ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    read without building a ``Stream`` object (as PyTorch's generated
+    kernels read it), which would take most of a small kernel's host
+    issue."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

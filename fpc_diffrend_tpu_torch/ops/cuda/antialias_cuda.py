@@ -22,8 +22,6 @@ tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
@@ -31,6 +29,9 @@ from fpc_diffrend_tpu_torch.ops.antialias import pair_delta, pair_grad
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import N_PAYLOAD
 
 Tensor = torch.Tensor
+_PTR, _INT = build.PTR, build.INT
+_AA_ARGS = [_PTR] * 3 + [_INT] * 6 + [_PTR] * 2
+_AA_BWD_ARGS = [_PTR] * 4 + [_INT] * 6 + [_PTR] * 3
 
 
 def pack_planes(idbuf: Tensor, payload: Tensor, colour: Tensor) -> Tensor:
@@ -105,11 +106,7 @@ def antialias_planes(idbuf: Tensor, payload: Tensor, colour: Tensor,
                                       sample_ph)
 
     out = torch.empty((C, rows, pw), device=dev)
-    lib = build.load("antialias")
-    fn = lib.antialias_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 2)
+    fn = build.entry("antialias", "antialias_launch", _AA_ARGS)
     antialias_planes.launches += 1
     ptr = build.ptr
     status = fn(ptr(idbuf), ptr(payload), ptr(colour), rows, pw, C, height,
@@ -179,11 +176,7 @@ def antialias_planes_bwd(idbuf: Tensor, payload: Tensor, colour: Tensor,
 
     gcolour = torch.empty((C, rows, pw), device=dev)
     gverts = torch.empty((6, rows, pw), device=dev)
-    lib = build.load("antialias_bwd")
-    fn = lib.antialias_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 3)
+    fn = build.entry("antialias_bwd", "antialias_bwd_launch", _AA_BWD_ARGS)
     antialias_planes_bwd.launches += 1
     ptr = build.ptr
     status = fn(ptr(idbuf), ptr(payload), ptr(colour), ptr(gout), rows, pw,

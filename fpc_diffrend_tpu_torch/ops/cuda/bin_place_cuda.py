@@ -16,9 +16,6 @@ CPU tensors. Its launches sit in a ``record_function`` range named
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
@@ -27,6 +24,9 @@ Tensor = torch.Tensor
 
 INT32_LIMIT = 1 << 31
 PROFILE_LABEL = "K11 bin_place"
+_PTR, _INT, _INT64 = build.PTR, build.INT, build.INT64
+_COUNT_ARGS = [_PTR, _INT64, _INT, _PTR, _INT, _PTR]
+_PLACE_ARGS = [_PTR, _INT64, _INT, _INT] + [_PTR] * 3 + [_INT] * 2 + [_PTR] * 2
 
 
 def _check_args(tile_ids: Tensor, n_tiles: int, P: int) -> None:
@@ -62,21 +62,6 @@ def place_pairs_plain(tile_ids: Tensor, n_tiles: int, P: int):
     return bin_start, sorted_tri
 
 
-@functools.cache
-def _entry_points():
-    """(bin_count_launch, bin_place_launch), built and loaded at first use,
-    their signatures bound once."""
-    lib = build.load("bin_place")
-    count, place = lib.bin_count_launch, lib.bin_place_launch
-    count.restype = place.restype = ctypes.c_int
-    count.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    place.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int] + [ctypes.c_void_p] * 3
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
-    return count, place
-
-
 def count_pairs(tile_ids: Tensor, n_tiles: int,
                 in_device_memory: bool = False) -> Tensor:
     """K11's count step: the live pair slots of each tile, (n_tiles,) int32.
@@ -93,9 +78,10 @@ def count_pairs(tile_ids: Tensor, n_tiles: int,
     if dev.type != "cuda":
         raise ValueError(f"count_pairs: unsupported device {dev}")
     counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-    build.check(_entry_points()[0](
-        build.ptr(tile_ids), tile_ids.numel(), n_tiles, build.ptr(counts),
-        int(in_device_memory), build.stream(dev)), "bin_count")
+    count = build.entry("bin_place", "bin_count_launch", _COUNT_ARGS)
+    build.check(count(build.ptr(tile_ids), tile_ids.numel(), n_tiles,
+                      build.ptr(counts), int(in_device_memory),
+                      build.stream(dev)), "bin_count")
     return counts
 
 
@@ -130,10 +116,10 @@ def place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
         cursor = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
         scratch = torch.empty((np_slots,), dtype=torch.int32, device=dev)
         sorted_tri = torch.empty((P,), dtype=torch.int32, device=dev)
-        build.check(_entry_points()[1](
-            ptr(tile_ids), np_slots, K, n_tiles, ptr(bin_start_full),
-            ptr(cursor), ptr(scratch), P, B * T, ptr(sorted_tri), stream),
-            "bin_place")
+        place = build.entry("bin_place", "bin_place_launch", _PLACE_ARGS)
+        build.check(place(ptr(tile_ids), np_slots, K, n_tiles,
+                          ptr(bin_start_full), ptr(cursor), ptr(scratch), P,
+                          B * T, ptr(sorted_tri), stream), "bin_place")
         return torch.clamp(bin_start_full, max=P), sorted_tri
 
 

@@ -20,8 +20,6 @@ version (``*_plain``) for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
@@ -34,6 +32,9 @@ N_GPL = 11        # cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]
 # record slots that carry gradient: all but the id (12) and pad (28-31)
 LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
 _AREA_EPS = 1e-12
+_PTR, _INT = build.PTR, build.INT
+_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 4 + [_PTR] * 2 + [_INT, _PTR]
+_FOLD_ARGS = [_PTR] * 6 + [_INT] * 2 + [_PTR] * 2
 
 
 def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
@@ -117,11 +118,7 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
 
     grad_entries = torch.empty((bins.gbase, REC), device=dev)
     grad_global = torch.empty((MAX_GLOBAL, REC), device=dev)
-    lib = build.load("raster_grad")
-    fn = lib.pixel_grad_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn = build.entry("raster_grad", "pixel_grad_launch", _PIXEL_GRAD_ARGS)
     pixel_grad.launches += 1
     ptr = build.ptr
     status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gpl),
@@ -179,11 +176,7 @@ def fold_entries(grad_entries: Tensor, grad_global: Tensor, bins: Bins,
         raise ValueError(f"fold_entries: unsupported device {dev}")
 
     out = torch.empty((n_tris, REC), device=dev)
-    lib = build.load("raster_grad")
-    fn = lib.fold_entries_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p] * 2
+    fn = build.entry("raster_grad", "fold_entries_launch", _FOLD_ARGS)
     fold_entries.launches += 1
     ptr = build.ptr
     n_live = bins.bin_start[-1:]           # a view: read on the device

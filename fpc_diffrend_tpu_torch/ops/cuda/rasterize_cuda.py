@@ -33,7 +33,6 @@ and their plain PyTorch versions (``*_plain``) for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -57,6 +56,9 @@ N_EXTRA = 8               # D iw0 iw1 iw2 du02 du12 dv02 dv12
 BIG = 3.0e38              # depth of a pixel no triangle covers
 _AREA_EPS = 1e-12
 _W_EPS = 1e-9
+_PTR, _INT = build.PTR, build.INT
+_RASTER_ARGS = [_PTR] * 6 + [_INT] * 7 + [_PTR] * 6
+_RASTER_AA_ARGS = [_PTR] * 6 + [_INT] * 10 + [_PTR] * 7
 
 
 def pad_resolution(height: int, width: int):
@@ -540,10 +542,7 @@ def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     if dev.type == "cpu":
         return fused_raster_plain(bins, tex, rows, pw)
     out = _raster_outputs(dev, rows, pw, C)
-    fn = build.load("fused_raster").fused_raster_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 6)
+    fn = build.entry("fused_raster", "fused_raster_launch", _RASTER_ARGS)
     fused_raster.launches += 1
     ptr = build.ptr
     status = fn(*_bins_args(bins), None if tex is None else ptr(tex),
@@ -593,10 +592,8 @@ def fused_raster_aa(bins: Bins, tex: Tensor, rows: int, pw: int,
                                      sample_ph)
     out = _raster_outputs(dev, rows, pw, C)
     aa = torch.empty((C, rows, pw), device=dev)
-    fn = build.load("fused_raster").fused_raster_aa_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p] * 7)
+    fn = build.entry("fused_raster", "fused_raster_aa_launch",
+                     _RASTER_AA_ARGS)
     fused_raster_aa.launches += 1
     ptr = build.ptr
     status = fn(*_bins_args(bins), ptr(tex), th, tw, C, n_tiles, pw // TILE_W,

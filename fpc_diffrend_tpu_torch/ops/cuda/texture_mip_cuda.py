@@ -30,6 +30,10 @@ Tensor = torch.Tensor
 
 MAX_LEVELS = 16           # levels the kernels take as arguments
 MAX_C = 4                 # channels the kernels take
+_PTR, _INT = build.PTR, build.INT
+_MIP_FWD_ARGS = [_PTR] * 4 + [_INT] * 3 + [_PTR] * 3 + [_INT] + [_PTR] * 2
+_MIP_BWD_ARGS = ([_PTR] * 5 + [_INT] * 3 + [_PTR] * 3 + [_INT] * 2
+                 + [_PTR] * 4)
 
 
 def level_offsets(sizes) -> list[int]:
@@ -179,12 +183,7 @@ def mip_sample(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,
         return mip_sample_plain(pyramid, sizes, tu, tv, lam)
     _kernel_ok("mip_sample", dev, sizes, pyramid.shape[0], C)
     out = torch.empty((C, rows, pw), device=dev)
-    lib = build.load("texture_mip")
-    fn = lib.mip_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
+    fn = build.entry("texture_mip", "mip_fwd_launch", _MIP_FWD_ARGS)
     mip_sample.launches += 1
     ptr = build.ptr
     status = fn(ptr(pyramid), ptr(tu), ptr(tv), ptr(lam), rows, pw,
@@ -211,12 +210,7 @@ def mip_sample_bwd(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,
     gpyr = torch.empty((n, C), device=dev)
     gtu = torch.empty((rows, pw), device=dev)
     gtv = torch.empty((rows, pw), device=dev)
-    lib = build.load("texture_mip")
-    fn = lib.mip_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4)
+    fn = build.entry("texture_mip", "mip_bwd_launch", _MIP_BWD_ARGS)
     mip_sample_bwd.launches += 1
     ptr = build.ptr
     status = fn(ptr(pyramid), ptr(tu), ptr(tv), ptr(lam), ptr(gcolour), rows,

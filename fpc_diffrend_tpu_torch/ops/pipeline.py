@@ -26,6 +26,23 @@ Tensor = torch.Tensor
 BACKGROUND = 45.0 / 255.0
 
 
+def check_impl(impl: str) -> None:
+    """Raise unless ``impl`` (``render``'s argument and
+    ``FitConfig.raster_impl``) names the kernel path: "auto" or "pallas"
+    (the JAX name of the binned kernel path). "scan", JAX's O(T·H·W)
+    reference rasterizer, is not ported.
+
+    :raises NotImplementedError: for "scan".
+    :raises ValueError: for any other value.
+    """
+    if impl == "scan":
+        raise NotImplementedError(
+            "impl='scan' (the O(T*H*W) reference rasterizer) is not ported; "
+            "use impl='auto'")
+    if impl not in ("auto", "pallas"):
+        raise ValueError(f"unknown impl {impl!r}")
+
+
 def composite_stacked(idbuf: Tensor, aa: Tensor, batch: int,
                       resolution: Tuple[int, int],
                       background: float = BACKGROUND) -> Tensor:
@@ -126,12 +143,7 @@ def render_from_clip(pos_clip: Tensor, pos_idx: Tensor, uv: Tensor,
     """:func:`render` from clip positions (V, 4), on the device they lie
     on: one view binned as a batch of one, through the stacked pipeline.
     A 2-D texture is taken as one channel."""
-    if impl == "scan":
-        raise NotImplementedError(
-            "impl='scan' (the O(T*H*W) reference rasterizer) is not ported; "
-            "use impl='auto'")
-    if impl not in ("auto", "pallas"):
-        raise ValueError(f"unknown impl {impl!r}")
+    check_impl(impl)
     tex3 = tex[..., None] if tex.ndim == 2 else tex
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip[None], pos_idx, uv, uv_idx, tex3, face_neighbors,

@@ -14,6 +14,11 @@
   resumable checkpoint, global-list overflow aborting autotune, the
   pair-cap warning, a cap overflow surfaced in the fit, bit-exact
   checkpoint restore.
+* ``mp4_interval``: without an mp4 encoder both packages write the same
+  ``progress_{n:05d}.png`` frames, pixels within 1/255 of each other (the
+  two fits sample different batches at a tiny learning rate).
+* ``raster_impl``: ``fit_take``, ``run_fit`` and ``evaluate`` raise for
+  "scan" (not ported) and for an unknown value, and run for "pallas".
 """
 
 import dataclasses
@@ -89,7 +94,7 @@ def take_dirs(tmp_path):
     return tmp_path
 
 
-def _config(take_dirs, tmp_path, **kw):
+def _config(take_dirs, tmp_path, config_class=FitConfig, **kw):
     base = dict(lr_base=1e-4, lr_t=1e-4, lr_q=1e-5,
                 basemeshpath=str(take_dirs / "basemesh.obj"),
                 localblpath=str(take_dirs / "blendshapes"),
@@ -98,7 +103,7 @@ def _config(take_dirs, tmp_path, **kw):
                 resolution=RES, texshape=(8, 8, 1), mode="prior",
                 cam_idxs=(0,), batch_size=2)
     base.update(kw)
-    return FitConfig(**base)
+    return config_class(**base)
 
 
 # ------------------------------------------------------------ loading ----
@@ -384,8 +389,8 @@ def test_fit_take_rejects_bad_mode(take_dirs, tmp_path):
     with pytest.raises(ValueError, match="bogus"):
         tapi.fit_take(_config(take_dirs, tmp_path, mode="bogus"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="mp4"):
-        tapi.fit_take(_config(take_dirs, tmp_path, mp4_interval=5),
+    with pytest.raises(NotImplementedError, match="scan"):
+        tapi.fit_take(_config(take_dirs, tmp_path, raster_impl="scan"),
                       device="cpu")
 
 
@@ -398,6 +403,70 @@ def test_fit_take_display_interval(take_dirs, tmp_path):
     assert preview.shape == (RES[0], 2 * RES[1], 1)
     assert np.all(preview[:, :RES[1]] == 90)          # the reference frame
     assert np.any(preview[:, RES[1]:] != 45)          # the quad is in view
+
+
+def _no_imageio(monkeypatch):
+    """Make ``import imageio`` fail, as on a machine without it."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_imageio(name, *a, **k):
+        if name == "imageio":
+            raise ImportError("gated for the test")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_imageio)
+
+
+def test_fit_take_mp4_interval_writes_jax_progress_frames(take_dirs,
+                                                          tmp_path,
+                                                          monkeypatch):
+    _no_imageio(monkeypatch)
+    # one texture file for both packages (their noise textures differ)
+    tex = np.random.default_rng(3).integers(0, 256, (8, 8), np.uint8)
+    Image.fromarray(tex).save(take_dirs / "tex.png")
+    kw = dict(max_iter=3, lr_base=1e-6, lr_t=1e-6, lr_q=1e-6,
+              mp4_interval=1, texpath=str(take_dirs / "tex.png"),
+              log_interval=0)
+    t_out, j_out = tmp_path / "t", tmp_path / "j"
+    tapi.fit_take(_config(take_dirs, tmp_path, out_dir=str(t_out), **kw),
+                  resume=False, device="cpu")
+    japi.fit_take(_config(take_dirs, tmp_path, JConfig, out_dir=str(j_out),
+                          **kw), resume=False)
+    names = sorted(p.name for p in t_out.glob("progress_*.png"))
+    assert names == [f"progress_{i:05d}.png" for i in range(3)]
+    assert names == sorted(p.name for p in j_out.glob("progress_*.png"))
+    for name in names:
+        got = timage.load_image(str(t_out / name)).astype(np.int16)
+        want = np.asarray(Image.open(j_out / name)).astype(np.int16)
+        assert got.shape == (RES[0], 2 * RES[1], 1)
+        np.testing.assert_array_less(np.abs(got[..., 0] - want), 2)
+        assert np.all(got[:, :RES[1], 0] == 90)      # the reference frame
+        assert np.any(got[:, RES[1]:] != 45)         # the quad is in view
+
+
+@pytest.mark.parametrize("impl, error", [("scan", NotImplementedError),
+                                         ("bogus", ValueError),
+                                         ("pallas", None)])
+def test_fit_entry_points_check_raster_impl(take_dirs, tmp_path, impl,
+                                            error):
+    from fpc_diffrend_tpu_torch.fit import loop as tloop
+
+    config = _config(take_dirs, tmp_path, max_iter=1, raster_impl=impl,
+                     out_dir=str(tmp_path / "out"), log_interval=0)
+    scene, frames, n_frames, _ = tapi.setup_from_config(config, "cpu")
+    calls = [lambda: tapi.fit_take(config, resume=False, device="cpu"),
+             lambda: tloop.run_fit(config, scene, frames, n_frames),
+             lambda: tloop.evaluate(config, scene, tloop.run_fit(
+                 dataclasses.replace(config, raster_impl="auto"), scene,
+                 frames, n_frames).params, frames, 1, torch.Generator())]
+    for call in calls:
+        if error is None:
+            call()
+        else:
+            with pytest.raises(error, match=impl):
+                call()
 
 
 def test_fit_take_crash_leaves_resumable_checkpoint(take_dirs, tmp_path,

@@ -8,6 +8,9 @@
   and the result renderers are entry points too.
 * No module of the port reads an ``FPC_*`` environment variable: the JAX
   package's tuning and route switches are explicit arguments there.
+* One launch path: every kernel wrapper takes its entry point from
+  ``kernels.build.entry``, which binds ``argtypes`` and ``restype`` once;
+  no function in ``ops/cuda`` assigns them (read from the source).
 * On the card, each kernel equals its plain version on the same inputs,
   and a gradient through K1 and K2 runs (marked ``cuda``: skipped without
   a card; the chip runs them).
@@ -77,6 +80,55 @@ def test_port_reads_no_fpc_environment_variable():
     readers = [f for f in files if _FPC_ENV.search(open(f).read())]
     assert not readers, readers
     assert _FPC_ENV.search('os.environ.get("FPC_AA_FUSE", "0")')
+
+
+def _signature_assignments(path):
+    """(function, line) of each assignment to ``.argtypes`` or ``.restype``
+    inside a function of the module at ``path``, and the number of
+    ``build.entry`` calls in it."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    found, entries = [], 0
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for node in ast.walk(fn):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target] if isinstance(
+                           node, (ast.AugAssign, ast.AnnAssign)) else [])
+            for t in targets:
+                for sub in ast.walk(t):
+                    if (isinstance(sub, ast.Attribute)
+                            and sub.attr in ("argtypes", "restype")):
+                        found.append((fn.name, node.lineno))
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "entry"
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "build"):
+                entries += 1
+    return found, entries
+
+
+def test_kernel_wrappers_bind_signatures_once(tmp_path):
+    cuda_dir = os.path.join(REPO, "fpc_diffrend_tpu_torch", "ops", "cuda")
+    names = sorted(n for n in os.listdir(cuda_dir)
+                   if n.endswith(".py") and n != "__init__.py")
+    assert len(names) == 6, names
+    total = 0
+    for name in names:
+        found, entries = _signature_assignments(os.path.join(cuda_dir, name))
+        assert not found, (name, found)
+        total += entries
+    assert total == 12           # every launch of K1-K11's 12 entry points
+    # the check sees an assignment in a launching function (the old form)
+    bad = tmp_path / "wrapper.py"
+    bad.write_text("def launch(lib):\n    fn = lib.k_launch\n"
+                   "    fn.restype = ctypes.c_int\n"
+                   "    fn.argtypes = [ctypes.c_void_p]\n    return fn()\n")
+    assert _signature_assignments(str(bad)) == ([("launch", 3),
+                                                 ("launch", 4)], 0)
 
 
 def test_render_and_tools_raise_without_cuda(monkeypatch, tmp_path):

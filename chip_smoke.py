@@ -28,7 +28,11 @@ Phases, each fatal on failure:
    another order, each element within 1e-5 of the sum of the magnitudes
    it adds up; and K11 (bin placement) equal to its plain version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
-   at a cap of half the live entries, which drops entries;
+   at a cap of half the live entries, which drops entries; then K2 and K4
+   where the bench's shapes do not take them (``check_k2_edges``,
+   ``check_k4_edges``: ragged tiles, padding rows between samples, three
+   channels; for K4 every pixel at uv (0, 0), the wrap edge, random and
+   minified uv, part warps, a zero cotangent);
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0, the entry cap autotuned with no K11 launch) through
@@ -76,8 +80,9 @@ Phases, each fatal on failure:
    ``tools.simple_render`` of one camera, whose PNGs must parse;
 6. each kernel at the main path's shapes (K7, K10: the single view's; K8,
    K9: the mip path's; K11 the step's batch at the autotuned cap, checked
-   also uncapped and at half the live entries) against its plain version,
-   with its time, the plain version's time, the library call's time where
+   also uncapped and at half the live entries) against its plain version
+   (K2, K3, K4 and K7 on the inputs of ``kernel_pairs``, which
+   ``chip_turns.py`` times too), with its time, the plain version's time, the library call's time where
    one computes the same function, and its bound, printed as one
    ``{"kernels": [...]}`` line of all eleven; beside it the record
    gather's time capped and uncapped, K11's count step by its
@@ -86,7 +91,13 @@ Phases, each fatal on failure:
    the single view K7 (wrap and clamp) beside ``grid_sample`` and K4's
    clamp mode beside ``grid_sampler_2d_backward`` (the same functions),
    each by CUDA events and by the profiler's device time, the host issue
-   of K7 and ``grid_sample``, and K1 and K2;
+   of K7 and ``grid_sample``, and K1 and K2; K2's device time and the
+   bytes its design moves; K4's diagnosis at the bench batch (its live
+   pixels, those at uv (0, 0), the distinct texels they touch, the
+   reductions its design issues, its time again with the cotangent at uv
+   (0, 0) zeroed) and K4 on the missed pixels' hot spot (a cotangent on
+   every missed pixel of the single view, wrap and clamp, checked and
+   timed);
 7. one bench step's forward and backward three times from the same state
    on the same batch: every parameter gradient must spread by at most
    ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order;
@@ -463,6 +474,102 @@ def check_texture(k1, tex, g, gen, label):
     return errs, e7
 
 
+def check_k2_edges(dev, gen):
+    """K2 where the bench's shapes do not take it, against its plain
+    version: two samples of 40 x 70 at a pitch of 45 rows (padding rows
+    between them) in 90 x 75 planes (rows no multiple of K2's 8-row tiles,
+    width no multiple of its 32 columns), three colour channels, ids in
+    3 x 3 blocks and corners scattered about each pixel, so that many
+    pairs blend. :return: K2's max abs error."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+
+    H, W, sph, pw, C = 40, 70, 45, 75, 3
+    rows = 2 * sph
+    ids = torch.randint(-1, 6, (rows // 3, pw // 3 + 1), device=dev,
+                        generator=gen)
+    idbuf = ids.repeat_interleave(3, 0).repeat_interleave(3, 1)[:, :pw]
+    idbuf = idbuf.to(torch.int32).contiguous()
+    y = torch.arange(rows, device=dev)[:, None] + 0.5
+    x = torch.arange(pw, device=dev)[None] + 0.5
+    payload = torch.rand((14, rows, pw), device=dev, generator=gen)
+    noise = torch.randn((6, rows, pw), device=dev, generator=gen) * 2.0
+    for k in range(3):
+        payload[5 + 2 * k] = x + noise[2 * k]
+        payload[6 + 2 * k] = y + noise[2 * k + 1]
+    payload[11:14] = torch.randint(-1, 6, (3, rows, pw), device=dev,
+                                   generator=gen).float()
+    colour = torch.rand((C, rows, pw), device=dev, generator=gen)
+    got = ac.antialias_planes(idbuf, payload, colour, H, W, sph)
+    torch.cuda.synchronize()
+    want = ac.antialias_planes_plain(idbuf, payload, colour, H, W, sph)
+    err = max_err(got, want)
+    blended = int((want != colour).any(dim=0).sum())
+    if not (err <= K2_ATOL and blended > 100):
+        fail(f"K2 edge case: {err} from its plain version ({blended} "
+             "pixels blended)")
+    print(f"check K2 edges: {rows}x{pw}, H {H} at pitch {sph}, C {C}: max "
+          f"abs err {err} ({'bit-equal' if err == 0 else 'not bit-equal'}; "
+          f"{blended} pixels blended)", flush=True)
+    return err
+
+
+def check_k4_edges(dev, gen):
+    """K4 (wrap and clamp) where the bench does not take it, against its
+    plain version, on uv planes of 36 x 84 and 37 x 83 (part warps at the
+    end) and textures of one channel (64 x 48: the remainder wrap) and
+    three (32 x 64: the mask wrap): every pixel at uv (0, 0), the missed
+    pixels' hot spot; uv across the wrap edge; random uv (no coherence
+    between neighbours); uv minified to ~12 texels a pixel; and an
+    all-zero cotangent (all outputs exactly 0). :return: name -> error
+    (gtu/gtv: max abs; gtex: over the summed magnitudes)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    errs = {}
+    for rows, pw in ((36, 84), (37, 83)):
+        ys = torch.linspace(0, 1, rows, device=dev)[:, None].expand(rows, pw)
+        xs = torch.linspace(0, 1, pw, device=dev)[None].expand(rows, pw)
+        zero = torch.zeros((rows, pw), device=dev)
+        rnd = (torch.rand((2, rows, pw), device=dev, generator=gen) * 1.5
+               - 0.25)
+        uvs = {"one uv": (zero, zero),
+               "wrap edge": (xs * 0.1 - 0.05, ys * 0.1 - 0.05),
+               "random": (rnd[0], rnd[1]),
+               "minified": (xs * 20.0, ys * 20.0 + 0.3)}
+        for tex_shape in ((64, 48, 1), (32, 64, 3)):
+            tex = torch.rand(tex_shape, device=dev, generator=gen)
+            C = tex_shape[2]
+            for name, (u, v) in uvs.items():
+                u, v = u.contiguous(), v.contiguous()
+                g = torch.randn((C, rows, pw), device=dev, generator=gen)
+                for mode in ("wrap", "clamp"):
+                    got = tc.texture_planes_bwd(tex, u, v, g, mode)
+                    torch.cuda.synchronize()
+                    want = tc.texture_planes_bwd_plain(tex, u, v, g, mode)
+                    mag = tc.texture_planes_bwd_plain(tex, u, v, g.abs(),
+                                                      mode)[0]
+                    key = f"{name}, {rows}x{pw}, C {C}, {mode}"
+                    errs[f"gtuv {key}"] = max(max_err(got[1], want[1]),
+                                              max_err(got[2], want[2]))
+                    errs[f"gtex rel {key}"] = atomic_err(got[0], want[0], mag)
+                zeros = tc.texture_planes_bwd(tex, u, v, torch.zeros_like(g))
+                if not all(bool((z == 0).all()) for z in zeros):
+                    fail(f"K4 edge case {name}, {rows}x{pw}, C {C}: a zero "
+                         "cotangent gave non-zero outputs")
+    bad = {k: e for k, e in errs.items()
+           if not e <= (ATOMIC_RTOL if "rel" in k else K4_ATOL)}
+    if bad:
+        fail(f"K4 edge cases differ from the plain version: {bad}")
+    print(f"check K4 edges: 36x84 and 37x83 uv, wrap and clamp, C 1 and 3, "
+          f"zero cotangent exact; max err gtu/gtv "
+          f"{max(e for k, e in errs.items() if 'rel' not in k)}, gtex rel "
+          f"{max(e for k, e in errs.items() if 'rel' in k)}", flush=True)
+    return errs
+
+
 def check_aa_fused(bins, tex, rows, pw, height, width, sample_ph, k1,
                    label):
     """K10 against K1 and K2 on the same bins, and against its plain
@@ -690,13 +797,12 @@ def single_view(wl, counters, gen, take):
 
     :param take: (the fit's FitConfig, the take's paths, the frames
         written (C, F, H, W) uint8, a scratch directory).
-    :return: (the phase's record, camera 0's pos_clip, for phase 6).
+    :return: the phase's record.
     """
     import numpy as np
     import torch
 
     from fpc_diffrend_tpu_torch.fit import loop
-    from fpc_diffrend_tpu_torch.models.camera import transform_clip
     from fpc_diffrend_tpu_torch.ops.pipeline import render
     from fpc_diffrend_tpu_torch.profile_forward import device_kernels
     from fpc_diffrend_tpu_torch.tools.render_result import render_result
@@ -869,8 +975,100 @@ def single_view(wl, counters, gen, take):
           f"s per frame {per_frame} (grid of {N_VIEWS} cameras; "
           f"side by side with TIFF references), PNGs parse; simple_render "
           f"{simple_s:.2f} s, {covered:.3f} of the view covered", flush=True)
-    mvp, pos = views[0]
-    return rec, transform_clip(mvp, pos)
+    return rec
+
+
+def view_bins(wl):
+    """The bins of the single view that phase 6 and ``chip_turns.py`` time
+    kernels on: camera 0, frame 0 of the bench workload at full width (the
+    first view of phase 5d)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.models.camera import transform_clip
+    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
+
+    scene, params = wl["scene"], wl["params"]
+    idx = torch.tensor([0, 0], device=params["tex"].device)
+    with torch.no_grad():
+        mvp = loop.build_mvp(scene, params, idx[:1], idx[1:])[0]
+        verts3 = loop.sample_clip_positions(wl["config"], scene, params,
+                                            idx[:1], idx[1:])[1][0]
+        return bin_stacked(transform_clip(mvp, verts3)[None], scene.faces,
+                           scene.uv, scene.uv_idx, scene.face_neighbors,
+                           (wl["H"], wl["W"]))[2]
+
+
+def kernel_pairs(tex, k1, g_aa, k1s, height, width, sample_ph):
+    """The kernels that phase 6 and ``chip_turns.py`` both time, on one
+    state's inputs. At the bench batch (K1's planes ``k1``, the composite's
+    cotangent ``g_aa``): K2, K3, and K4 wrap on K3's colour cotangent. At the
+    single view (K1's planes ``k1s``): K4 clamp on a cotangent where the
+    view is covered (the composite passes none to the missed pixels, which
+    all sample uv (0, 0)) beside ``grid_sampler_2d_backward`` (border
+    padding: the same function); K4 wrap and clamp on a cotangent on every
+    missed pixel (the hot spot); K7 wrap and clamp beside ``grid_sample``
+    (border padding: the clamp mode's function). The cotangents come from a
+    generator seeded 0.
+
+    :return: ({name: (kernel call, its plain version, or None beside a
+        library call)}, {name: cotangent}).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    H, W, ph = height, width, sample_ph
+    idbuf, _, payload, _, colour = k1
+    gcolour = ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, H, W,
+                                      ph)[0]
+    tu_b, tv_b = payload[3], payload[4]
+    tu, tv = k1s[2][3], k1s[2][4]
+    gen = torch.Generator(device=tex.device)
+    gen.manual_seed(0)
+    noise = torch.randn(k1s[4].shape, device=tex.device, generator=gen)
+    cot = {"gcolour": gcolour, "g1": noise * (k1s[0] >= 0),
+           "g_hot": noise * (k1s[0] < 0)}
+    tex_nchw = tex.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([tu * 2.0 - 1.0, tv * 2.0 - 1.0], -1)[None]
+    pairs = {
+        "antialias": (
+            lambda: ac.antialias_planes(idbuf, payload, colour, H, W, ph),
+            lambda: ac.antialias_planes_plain(idbuf, payload, colour, H, W,
+                                              ph)),
+        "antialias_bwd": (
+            lambda: ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, H,
+                                            W, ph),
+            lambda: ac.antialias_planes_bwd_plain(idbuf, payload, colour,
+                                                  g_aa, H, W, ph)),
+        "texture_bwd": (
+            lambda: tc.texture_planes_bwd(tex, tu_b, tv_b, gcolour),
+            lambda: tc.texture_planes_bwd_plain(tex, tu_b, tv_b, gcolour)),
+        "texture_bwd_clamp": (
+            lambda: tc.texture_planes_bwd(tex, tu, tv, cot["g1"], "clamp"),
+            lambda: tc.texture_planes_bwd_plain(tex, tu, tv, cot["g1"],
+                                                "clamp")),
+        "grid_sampler_2d_backward": (
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot["g1"][None], tex_nchw, grid, 0, 1, False, [True, True]),
+            None),
+        "grid_sample": (
+            lambda: torch.nn.functional.grid_sample(
+                tex_nchw, grid, mode="bilinear", padding_mode="border",
+                align_corners=False),
+            None)}
+    for mode in ("wrap", "clamp"):
+        pairs[f"texture_bwd_hot_{mode}"] = (
+            lambda mode=mode: tc.texture_planes_bwd(tex, tu, tv, cot["g_hot"],
+                                                    mode),
+            lambda mode=mode: tc.texture_planes_bwd_plain(
+                tex, tu, tv, cot["g_hot"], mode))
+        name = "texture_fwd" + ("" if mode == "wrap" else "_clamp")
+        pairs[name] = (
+            lambda mode=mode: tc.texture_planes(tex, tu, tv, mode),
+            lambda mode=mode: tc.texture_planes_plain(tex, tu, tv, mode))
+    return pairs, cot
 
 
 def grad_spread(wl, n_runs: int = 3):
@@ -959,44 +1157,46 @@ def k7_bound_ms(tex, tu, tv, boundary_mode):
     import torch
 
     th, tw, C = tex.shape
+    texels = int(torch.unique(texel_taps(tu, tv, th, tw,
+                                         boundary_mode)[0]).numel())
+    px = tu.numel()
+    return _bound(px * 4 * (2 + C) + texels * 4 * C, px * (7 * C + 12))
+
+
+def texel_taps(tu, tv, th, tw, boundary_mode):
+    """(4, ...) texel index of each sample's taps 00, 01, 10, 11, wrapped
+    or clamped as K4 and K7 take them; the unwrapped (t0, s0) beside."""
+    import torch
+
     s0 = torch.floor(tu * tw - 0.5).long()
     t0 = torch.floor(tv * th - 0.5).long()
     taps = []
-    for ds in (0, 1):
-        for dt in (0, 1):
+    for dt in (0, 1):
+        for ds in (0, 1):
             if boundary_mode == "wrap":
                 si, ti = torch.remainder(s0 + ds, tw), torch.remainder(
                     t0 + dt, th)
             else:
                 si, ti = (torch.clamp(s0 + ds, 0, tw - 1),
                           torch.clamp(t0 + dt, 0, th - 1))
-            taps.append((ti * tw + si).reshape(-1))
-    texels = int(torch.unique(torch.cat(taps)).numel())
-    px = tu.numel()
-    return _bound(px * 4 * (2 + C) + texels * 4 * C, px * (7 * C + 12))
+            taps.append(ti * tw + si)
+    return torch.stack(taps), t0, s0
 
 
-def k2_bound_ms(idbuf, C, height, width, sample_ph):
-    """Least time for K2: 11 + C planes read and C written per pixel
-    (bytes), against ~60 flops per pixel pair whose ids differ and 2 per
-    other pair (operations)."""
-    rows, pw = idbuf.shape
-    px = rows * pw
-    import torch
-
-    h_pairs = int((idbuf[:, :width - 1] != idbuf[:, 1:width]).sum())
-    vmask = (torch.arange(rows - 1, device=idbuf.device) % sample_ph
-             < height - 1)
-    v_pairs = int(((idbuf[:-1] != idbuf[1:]) & vmask[:, None]).sum())
-    nbytes = px * 4 * (11 + 2 * C)
-    ops = 60 * (h_pairs + v_pairs) + 2 * 2 * px
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+def k2_bound_ms(idbuf, payload, C, height, width, sample_ph):
+    """Least time for K2: id and C colour planes read and C written for
+    every pixel, and the pair blend's geometry (:func:`pair_geometry_bytes`)
+    (bytes); ~60 flops per pair whose ids differ and 2 per other pair
+    (operations)."""
+    px = idbuf.numel()
+    pairs, _ = _diff_pairs(idbuf, height, width, sample_ph)
+    geom = pair_geometry_bytes(idbuf, payload, height, width, sample_ph)
+    return _bound(px * 4 * (1 + 2 * C) + geom, 60 * pairs + 2 * 2 * px)
 
 
 def _diff_pairs(idbuf, height, width, sample_ph):
-    """(pairs whose ids differ, pixels in at least one such pair), within
-    the pair masks of K2/K3."""
+    """(pairs whose ids differ, mask of the pixels in at least one such
+    pair), within the pair masks of K2/K3."""
     import torch
 
     rows, pw = idbuf.shape
@@ -1010,25 +1210,38 @@ def _diff_pairs(idbuf, height, width, sample_ph):
     px[:, 1:] |= h[:, :-1]
     px |= v
     px[1:] |= v[:-1]
-    return int(h.sum() + v.sum()), int(px.sum())
+    return int(h.sum() + v.sum()), px
 
 
-def k3_bound_ms(idbuf, C, height, width, sample_ph):
+def pair_geometry_bytes(idbuf, payload, height, width, sample_ph):
+    """The geometry K2 and K3 must read for the pair blend: z of each
+    covered pixel in a pair whose ids differ (a missed pixel's depth is
+    infinite without a read), and the 9 corner and neighbour planes of each
+    such pair's occluder (:func:`occluder_sectors`, pixel by pixel), which
+    are all that ``pair_delta`` reads."""
+    _, in_pair = _diff_pairs(idbuf, height, width, sample_ph)
+    occluders, _ = occluder_sectors(idbuf, payload, height, width, sample_ph)
+    return 4 * int((in_pair & (idbuf >= 0)).sum()) + 4 * 9 * occluders
+
+
+def k3_bound_ms(idbuf, payload, C, height, width, sample_ph):
     """K3: id, C colour and C gout read and C + 6 planes written for every
-    pixel; z, 6 corners and 3 neighbours read for the pixels in a pair
-    whose ids differ (bytes). ~150 flops per such pair for its forward
-    recompute and derivative (operations)."""
+    pixel, and the pair blend's geometry (:func:`pair_geometry_bytes`)
+    (bytes). ~150 flops per pair whose ids differ for its forward recompute
+    and derivative (operations)."""
     px = idbuf.numel()
-    pairs, diff_px = _diff_pairs(idbuf, height, width, sample_ph)
-    nbytes = px * 4 * (1 + 2 * C + C + 6) + diff_px * 4 * 10
-    return _bound(nbytes, 150 * pairs + 8 * px)
+    pairs, _ = _diff_pairs(idbuf, height, width, sample_ph)
+    geom = pair_geometry_bytes(idbuf, payload, height, width, sample_ph)
+    return _bound(px * 4 * (1 + 2 * C + C + 6) + geom, 150 * pairs + 8 * px)
 
 
-def k3_design_bytes(idbuf, payload, C, height, width, sample_ph):
-    """Bytes K3's design moves: id, z, C colour and C gout read and C + 6
-    planes written for every pixel, and the 9 corner and neighbour planes
-    of each differing pair's occluder read a 32-byte sector (8 pixels of
-    a row) at a time; also returns the occluders and their sectors."""
+def occluder_sectors(idbuf, payload, height, width, sample_ph):
+    """The pixels whose 9 corner and neighbour planes K2 and K3 read from
+    device memory: the occluder of each pair whose ids differ (as int and
+    as float) and whose occluder is covered, under the pair masks; and the
+    32-byte sectors (8 pixels of a row) they fall in.
+
+    :return: (occluder pixels, sectors a plane)."""
     import torch
 
     rows, pw = idbuf.shape
@@ -1051,7 +1264,27 @@ def k3_design_bytes(idbuf, payload, C, height, width, sample_ph):
         need[torch.where(a_occ, flat[sa], flat[sb])[live]] = True
     occluders = int(need.sum())
     sectors = int(torch.unique(torch.nonzero(need)[:, 0] // 8).numel())
-    nbytes = rows * pw * 4 * (2 + 2 * C + C + 6) + 9 * sectors * 32
+    return occluders, sectors
+
+
+def k2_design_bytes(idbuf, payload, C, height, width, sample_ph):
+    """Bytes K2's design moves: id, z and C colour read and C colour
+    written for every pixel, and the 9 corner and neighbour planes of each
+    differing pair's occluder read a sector at a time
+    (:func:`occluder_sectors`); also returns the occluders and sectors."""
+    occluders, sectors = occluder_sectors(idbuf, payload, height, width,
+                                          sample_ph)
+    nbytes = idbuf.numel() * 4 * (2 + 2 * C) + 9 * sectors * 32
+    return nbytes, occluders, sectors
+
+
+def k3_design_bytes(idbuf, payload, C, height, width, sample_ph):
+    """Bytes K3's design moves: id, z, C colour and C gout read and C + 6
+    planes written for every pixel, and the occluders' 9 planes by sector
+    (:func:`occluder_sectors`); also returns the occluders and sectors."""
+    occluders, sectors = occluder_sectors(idbuf, payload, height, width,
+                                          sample_ph)
+    nbytes = idbuf.numel() * 4 * (2 + 2 * C + C + 6) + 9 * sectors * 32
     return nbytes, occluders, sectors
 
 
@@ -1064,6 +1297,45 @@ def k4_bound_ms(gcolour, tex):
     live = int((gcolour != 0).any(dim=0).sum())
     nbytes = px * 4 * (C + 2) + live * 8 + 2 * tex.numel() * 4
     return _bound(nbytes, 40 * live * C)
+
+
+def k4_design_reductions(tex_shape, tu, tv, gcolour):
+    """The device-memory reductions K4's design issues
+    (``csrc/texture_bwd.cu``): each warp instruction takes 32 neighbouring
+    pixels of the flat plane (from pixel 0). Where all of its live pixels
+    (cotangent not 0 in some channel) sample one unwrapped texel (t0, s0) =
+    floor(uv * size - 0.5) it adds 4 taps. Otherwise, in each pair of
+    pixels (2m, 2m + 1), a live even pixel adds 4 taps and a live odd one
+    none where the even one is live and samples the same (t0, s0), 2 where
+    it samples (t0, s0 - 1), else 4. Each tap is C reductions.
+
+    :return: (reductions, 32-pixel groups summed across the warp).
+    """
+    import torch
+
+    th, tw, C = tex_shape
+    n = tu.numel()
+    m = -(-n // 32) * 32
+    live = torch.zeros(m, dtype=torch.bool, device=tu.device)
+    live[:n] = (gcolour.reshape(C, n) != 0).any(dim=0)
+    _, t0, s0 = texel_taps(tu.reshape(n), tv.reshape(n), th, tw, "wrap")
+    t0, s0 = (torch.nn.functional.pad(k, (0, m - n)) for k in (t0, s0))
+    big = 1 << 40
+    lg = live.reshape(-1, 32)
+    one = lg.any(dim=1)
+    for k in (t0, s0):
+        k = k.reshape(-1, 32)
+        one &= (torch.where(lg, k, big).amin(1)
+                == torch.where(lg, k, -big).amax(1))
+    le, lo = live.reshape(-1, 2).unbind(1)
+    te, to = t0.reshape(-1, 2).unbind(1)
+    se, so = s0.reshape(-1, 2).unbind(1)
+    row = le & (te == to)
+    odd = torch.where(row & (so == se), 0, torch.where(row & (so == se + 1),
+                                                       2, 4))
+    pair = 4 * le + torch.where(lo, odd, 0)
+    taps = torch.where(one, 4, pair.reshape(-1, 16).sum(dim=1))
+    return int(taps.sum()) * C, int(one.sum())
 
 
 def _hi_live(lam, n_levels):
@@ -1157,7 +1429,6 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.profile_forward import (device_kernels,
                                                         forward_stages,
                                                         step_stages)
@@ -1217,6 +1488,8 @@ def main() -> int:
         check_place(state["pc"], wl["scene"].faces, 256, 384,
                     wl["config"].pair_cap, label)
     check_place_synthetic(dev)
+    record["k2_edges_err"] = check_k2_edges(dev, gen)
+    record["k4_edges_err"] = check_k4_edges(dev, gen)
 
     # ---- 4. the forward at full width ----
     counters = {"fused_raster": rc.fused_raster,
@@ -1527,7 +1800,7 @@ def main() -> int:
 
         # ---- 5d. the single view at full width, and the result renderers
         # over the fitted take ----
-        record["single_view"], sv_clip = single_view(
+        record["single_view"] = single_view(
             wl, counters, gen, (fcfg, paths, written, tmp))
     record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
                   fit_take_launches=fit_launches, fit_take_losses=losses,
@@ -1547,26 +1820,18 @@ def main() -> int:
         gtuv = torch.zeros((3, rows, pw), device=dev)
         berr, babs, (k3, k4, k5, _, gpl) = check_backward(
             k1_out, bins, tex, g_aa, gtuv, H, W, ph, B * T, "bench batch")
-        gcolour = k3[0]
+        # the single view's planes (camera 0 of phase 5d), and the kernels
+        # chip_turns.py times too
+        bins1 = view_bins(wl)
+        k1s = rc.fused_raster(bins1, tex, ph, pw)
+        kp, cot = kernel_pairs(tex, k1_out, g_aa, k1s, H, W, ph)
+        gcolour = cot["gcolour"]
         t = {
             "fused_raster": (
                 lambda: rc.fused_raster(bins, tex, rows, pw),
                 lambda: rc.fused_raster_plain(bins, tex, rows, pw)),
-            "antialias": (
-                lambda: ac.antialias_planes(idbuf, payload, colour, H, W,
-                                            ph),
-                lambda: ac.antialias_planes_plain(idbuf, payload, colour, H,
-                                                  W, ph)),
-            "antialias_bwd": (
-                lambda: ac.antialias_planes_bwd(idbuf, payload, colour,
-                                                g_aa, H, W, ph),
-                lambda: ac.antialias_planes_bwd_plain(
-                    idbuf, payload, colour, g_aa, H, W, ph)),
-            "texture_bwd": (
-                lambda: tc.texture_planes_bwd(tex, payload[3], payload[4],
-                                              gcolour),
-                lambda: tc.texture_planes_bwd_plain(tex, payload[3],
-                                                    payload[4], gcolour)),
+            **{k: kp[k] for k in ("antialias", "antialias_bwd", "texture_bwd",
+                                  "texture_fwd")},
             "pixel_grad": (
                 lambda: gc.pixel_grad(bins, entry, payload[0], payload[1],
                                       extra, gpl),
@@ -1590,69 +1855,37 @@ def main() -> int:
                                        mg),
             lambda: tmc.mip_sample_bwd_plain(pyr, sizes, mpay[3], mpay[4],
                                              lam, mg))
-        # K7 and K10 at the single view's shapes (camera 0 of phase 5d)
-        _, _, bins1 = bin_stacked(sv_clip[None], scene.faces, scene.uv,
-                                  scene.uv_idx, scene.face_neighbors, (H, W))
-        k1s = rc.fused_raster(bins1, tex, ph, pw)
+        # K7 and K10 at the single view's shapes
         _, e10 = check_aa_fused(bins1, tex, ph, pw, H, W, ph, k1s,
                                 "single view")
         _, e7 = check_texture(k1s, tex, torch.randn(
             k1s[4].shape, device=dev, generator=gen), gen, "single view")
         tu1, tv1 = k1s[2][3], k1s[2][4]
-        t["texture_fwd"] = (
-            lambda: tc.texture_planes(tex, tu1, tv1, "wrap"),
-            lambda: tc.texture_planes_plain(tex, tu1, tv1, "wrap"))
         t["fused_raster_aa"] = (
             lambda: rc.fused_raster_aa(bins1, tex, ph, pw, H, W, ph),
             lambda: rc.fused_raster_aa_plain(bins1, tex, ph, pw, H, W, ph))
-        # K7's clamp mode and its library call, grid_sample with border
-        # padding (the same forward); K4's clamp mode and its library call,
-        # grid_sample's backward (texel and uv gradients of the same
-        # sample); K1 and K2 at the single view
-        tex_nchw = tex.permute(2, 0, 1)[None].contiguous()
-        grid = torch.stack([tu1 * 2.0 - 1.0, tv1 * 2.0 - 1.0], -1)[None]
-        # a cotangent where the view is covered: the composite passes none
-        # to the missed pixels, which all sample uv (0, 0)
-        g1 = torch.randn((C, ph, pw), device=dev, generator=gen) * (
-            k1s[0] >= 0)
-
-        def grid_sample():
-            return torch.nn.functional.grid_sample(
-                tex_nchw, grid, mode="bilinear", padding_mode="border",
-                align_corners=False)
-
-        def grid_sample_bwd():
-            return torch.ops.aten.grid_sampler_2d_backward(
-                g1[None], tex_nchw, grid, 0, 1, False, [True, True])
-
-        sv_fns = {
-            "texture_fwd": lambda: tc.texture_planes(tex, tu1, tv1, "wrap"),
-            "texture_fwd_clamp": lambda: tc.texture_planes(tex, tu1, tv1,
-                                                           "clamp"),
-            "grid_sample": grid_sample,
-            "texture_bwd_clamp": lambda: tc.texture_planes_bwd(
-                tex, tu1, tv1, g1, "clamp"),
-            "grid_sampler_2d_backward": grid_sample_bwd,
-            "fused_raster": lambda: rc.fused_raster(bins1, tex, ph, pw),
-            "antialias": lambda: ac.antialias_planes(k1s[0], k1s[2], k1s[4],
-                                                     H, W, ph)}
+        # K7's and K4's clamp modes beside their library calls; K1 and K2
+        # at the single view
+        lib = ("texture_fwd", "texture_fwd_clamp", "grid_sample",
+               "texture_bwd_clamp", "grid_sampler_2d_backward")
+        sv_fns = {**{k: kp[k][0] for k in lib},
+                  "fused_raster": lambda: rc.fused_raster(bins1, tex, ph, pw),
+                  "antialias": lambda: ac.antialias_planes(
+                      k1s[0], k1s[2], k1s[4], H, W, ph)}
         single = {f"{k}_ms": cuda_ms(f, 20) for k, f in sv_fns.items()}
         single.update({f"{k}_device_ms": device_ms(sv_fns[k], 20)
-                       for k in ("texture_fwd", "texture_fwd_clamp",
-                                 "grid_sample", "texture_bwd_clamp",
-                                 "grid_sampler_2d_backward")})
-        gs_bwd = grid_sample_bwd()
-        k4c = tc.texture_planes_bwd(tex, tu1, tv1, g1, "clamp")
+                       for k in lib})
         single.update(
             grid_sample_vs_clamp_max_abs=max_err(
-                grid_sample()[0], tc.texture_planes(tex, tu1, tv1, "clamp")),
+                sv_fns["grid_sample"]()[0], sv_fns["texture_fwd_clamp"]()),
             grid_sample_bwd_vs_k4_clamp_gtex_max_abs=max_err(
-                gs_bwd[0][0].permute(1, 2, 0), k4c[0]))
+                sv_fns["grid_sampler_2d_backward"]()[0][0].permute(1, 2, 0),
+                sv_fns["texture_bwd_clamp"]()[0]))
         # where K7's event time goes: the host's issue of one call, and of
         # its parts
         single["host_issue_us"] = {
             "texture_fwd": host_us(sv_fns["texture_fwd"], 200),
-            "grid_sample": host_us(grid_sample, 200),
+            "grid_sample": host_us(sv_fns["grid_sample"], 200),
             "torch.empty": host_us(lambda: torch.empty((C, ph, pw),
                                                        device=dev), 200),
             "current stream": host_us(lambda: build.stream(dev), 200)}
@@ -1684,6 +1917,65 @@ def main() -> int:
               f"({k3_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s): {k3_occ} occluder "
               f"pixels in {k3_sectors} sectors a plane", flush=True)
+        # K2 at the bench batch: device time and the bytes its design moves
+        k2_device = device_ms(t["antialias"][0], 20)
+        k2_bytes, k2_occ, k2_sectors = k2_design_bytes(idbuf, payload, C, H,
+                                                       W, ph)
+        # K4 at the bench batch: what its live pixels touch, the reductions
+        # its design issues, and its time again with the cotangent of the
+        # live pixels at uv (0, 0) zeroed (an input change: what the
+        # missed pixels' hot spot costs)
+        tu_b, tv_b = payload[3], payload[4]
+        live4 = (gcolour != 0).any(dim=0)
+        at0 = live4 & (tu_b == 0) & (tv_b == 0)
+        texels4 = int(torch.unique(texel_taps(
+            tu_b[live4], tv_b[live4], tex.shape[0], tex.shape[1],
+            "wrap")[0]).numel())
+        k4_reductions, k4_warps = k4_design_reductions(tex.shape, tu_b,
+                                                       tv_b, gcolour)
+        g_cold = gcolour * ~at0
+
+        def k4_cold():
+            return tc.texture_planes_bwd(tex, tu_b, tv_b, g_cold)
+
+        k4_diag = {
+            "live_px": int(live4.sum()), "live_px_at_uv_00": int(at0.sum()),
+            "texels_touched": texels4,
+            "design_reductions": k4_reductions,
+            "design_groups_summed": k4_warps,
+            "one_thread_a_pixel_reductions": 4 * C * int(live4.sum()),
+            "ms": times["texture_bwd"][0],
+            "device_ms": device_ms(t["texture_bwd"][0], 20),
+            "uv_00_zeroed_ms": cuda_ms(k4_cold, 20),
+            "uv_00_zeroed_device_ms": device_ms(k4_cold, 20)}
+        # the hot spot alone: a cotangent on every missed pixel of the
+        # single view (all at uv (0, 0)), wrap and clamp, checked too
+        g_hot = cot["g_hot"]
+        for mode in ("wrap", "clamp"):
+            k4_hot, k4_hot_plain = kp[f"texture_bwd_hot_{mode}"]
+            got, want = k4_hot(), k4_hot_plain()
+            mag = tc.texture_planes_bwd_plain(tex, tu1, tv1, g_hot.abs(),
+                                              mode)[0]
+            e_uv = max(max_err(got[1], want[1]), max_err(got[2], want[2]))
+            e_tex = atomic_err(got[0], want[0], mag)
+            if not (e_uv <= K4_ATOL and e_tex <= ATOMIC_RTOL):
+                fail(f"K4 {mode} on the missed pixels' hot spot differs "
+                     f"from its plain version: gtu/gtv {e_uv}, gtex {e_tex}")
+            k4_diag[f"hot_spot_{mode}"] = {
+                "px": int((g_hot != 0).any(dim=0).sum()),
+                "ms": cuda_ms(k4_hot, 20), "device_ms": device_ms(k4_hot, 20),
+                "gtuv_max_abs_err": e_uv, "gtex_rel_err": e_tex}
+        record.update(antialias_device_ms=k2_device,
+                      antialias_design_bytes=k2_bytes,
+                      antialias_occluders=k2_occ,
+                      antialias_occluder_sectors=k2_sectors,
+                      texture_bwd_diagnosis=k4_diag)
+        print(f"K2 at the bench batch: {times['antialias'][0]:.4f} ms (CUDA "
+              f"events), {k2_device:.4f} ms of device work; its design "
+              f"moves {k2_bytes / 1e6:.1f} MB "
+              f"({k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms): {k2_occ} "
+              f"occluder pixels in {k2_sectors} sectors a plane", flush=True)
+        print(f"K4 at the bench batch: {k4_diag}", flush=True)
         # K11's library yardstick: torch.sort and torch.searchsorted of the
         # same keys (the calls it replaces)
         n_tri = B * T
@@ -1751,8 +2043,8 @@ def main() -> int:
         fold_lib = cuda_ms(lambda: acc.index_add_(0, idx, src), 20)
     bounds = {
         "fused_raster": k1_bound_ms(bins, rows, pw, C, tex)[:2],
-        "antialias": k2_bound_ms(idbuf, C, H, W, ph),
-        "antialias_bwd": k3_bound_ms(idbuf, C, H, W, ph),
+        "antialias": k2_bound_ms(idbuf, payload, C, H, W, ph),
+        "antialias_bwd": k3_bound_ms(idbuf, payload, C, H, W, ph),
         "texture_bwd": k4_bound_ms(gcolour, tex),
         "pixel_grad": k5_bound_ms(entry, bins),
         "fold_entries": k6_bound_ms(bins, B * T),

@@ -7,18 +7,30 @@ Runs the trees in order and then in reverse (OLD, NEW, NEW, OLD for two
 trees and ``--turns 2``), each in a process of its own that
 imports ``fpc_diffrend_tpu_torch`` from that tree and builds its kernels
 there, and times on the same inputs (the bench workload as built from its
-seed; the single view of its camera 0):
+seed, after the step's stages have run once; the single view of its
+camera 0) the kernels of ``chip_smoke.kernel_pairs``, the set phase 6 of
+``chip_smoke.py`` times:
 
-* K3 (``antialias_planes_bwd``) at the bench batch, after the step's
-  stages have run once;
-* K7 (``texture_planes``, wrap and clamp) at the single view, with
+* K2 (``antialias``), K3 (``antialias_bwd``) and K4 in wrap mode
+  (``texture_bwd``, on K3's colour cotangent) at the bench batch;
+* K4 in clamp mode at the single view (``texture_bwd_clamp``, on a
+  cotangent where the view is covered), with
+  ``grid_sampler_2d_backward`` (border padding: the same function) beside
+  it; and on a cotangent on every missed pixel of the view (all at uv
+  (0, 0): ``texture_bwd_hot_wrap``, ``texture_bwd_hot_clamp``);
+* K7 (``texture_fwd``, ``texture_fwd_clamp``) at the single view, with
   ``grid_sample`` (border padding: the clamp mode's function) beside it;
 
-each by CUDA events over 20 back-to-back calls, by the profiler's device
-time of the kernels they ran, and (K7, ``grid_sample``) by the host's issue
-of one call. Each kernel is held against its plain version (max abs
-error). Prints one JSON line a run and ends with the card's name and power
-limit; the runs also go to ``chiprun_out/chip_turns.json``.
+each by CUDA events over back-to-back calls (20 at the bench batch, 200 at
+the single view) and by the profiler's device time of the kernels they
+ran, and K7 and ``grid_sample`` by the host's issue of one call. Each
+kernel is held against its plain version (max abs error over its outputs;
+K4's gtu and gtv only). Each run also records the ptxas
+register and spill lines of ``antialias``, ``antialias_bwd``,
+``texture_bwd`` and ``texture_fwd`` (a library reused from an earlier
+build of the tree prints none). Prints one JSON line a run and ends with
+the card's name and power limit; the runs also go to
+``chiprun_out/chip_turns.json``.
 """
 
 import argparse
@@ -28,6 +40,11 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# calls a window: the bench batch's kernels take 0.2-0.6 ms; the single
+# view's 7-90 us, so a window of theirs is longer to reach past the noise
+REPS = {"antialias": 20, "antialias_bwd": 20, "texture_bwd": 20}
+SINGLE_VIEW_REPS = 200
+HOST_TIMED = ("texture_fwd", "texture_fwd_clamp", "grid_sample")
 
 
 def measure(tree: str) -> dict:
@@ -38,81 +55,48 @@ def measure(tree: str) -> dict:
     import torch
 
     import fpc_diffrend_tpu_torch as pkg
-    from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.kernels import build
-    from fpc_diffrend_tpu_torch.models.camera import transform_clip
-    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-    from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.profile_forward import step_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(tree)):
         raise RuntimeError(f"imported {pkg.__file__}, not from {tree}")
     report = build.build()
-    dev = torch.device("cuda")
-    wl = build_workload(device=dev)
+    wl = build_workload(device=torch.device("cuda"))
     H, W, B = wl["H"], wl["W"], wl["B"]
     ph, pw = rc.pad_resolution(H, W)
     rec = {"tree": tree, "ptxas": {
         name: [ln.strip() for ln in report[name]["log"].splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("antialias_bwd", "texture_fwd")}}
-    # K3 at the bench batch: the step's first batch (its stages need
-    # autograd)
+        for name in ("antialias", "antialias_bwd", "texture_bwd",
+                     "texture_fwd")}}
+    # the step's first batch (its stages need autograd)
     sstate = {}
     for _, fn in step_stages(wl, sstate):
         fn()
     with torch.no_grad():
         tex = wl["params"]["tex"].detach()
-        idbuf, _, payload, _, colour = rc.fused_raster(sstate["bins"], tex,
-                                                       B * ph, pw)
-        g_aa = sstate["g_aa"]
-
-        def k3():
-            return ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, H,
-                                           W, ph)
-
-        got = k3()
-        want = ac.antialias_planes_bwd_plain(idbuf, payload, colour, g_aa,
-                                             H, W, ph)
-        rec["K3"] = {"max_abs_err": max(cs.max_err(a, b)
-                                        for a, b in zip(got, want)),
-                     "ms": cs.cuda_ms(k3, 20),
-                     "device_ms": cs.device_ms(k3, 20)}
-        del got, want
-        # K7 at the single view of camera 0
-        scene, params = wl["scene"], wl["params"]
-        idx = torch.tensor([0, 0], device=dev)
-        mvp = loop.build_mvp(scene, params, idx[:1], idx[1:])[0]
-        verts3 = loop.sample_clip_positions(wl["config"], scene, params,
-                                            idx[:1], idx[1:])[1][0]
-        _, _, bins1 = bin_stacked(transform_clip(mvp, verts3)[None],
-                                  scene.faces, scene.uv, scene.uv_idx,
-                                  scene.face_neighbors, (H, W))
-        k1 = rc.fused_raster(bins1, tex, ph, pw)
-        tu, tv = k1[2][3], k1[2][4]
-        tex_nchw = tex.permute(2, 0, 1)[None].contiguous()
-        grid = torch.stack([tu * 2.0 - 1.0, tv * 2.0 - 1.0], -1)[None]
-
-        def grid_sample():
-            return torch.nn.functional.grid_sample(
-                tex_nchw, grid, mode="bilinear", padding_mode="border",
-                align_corners=False)
-
-        for mode in ("wrap", "clamp"):
-            def k7(mode=mode):
-                return tc.texture_planes(tex, tu, tv, mode)
-
-            rec[f"K7 {mode}"] = {
-                "max_abs_err": cs.max_err(k7(), tc.texture_planes_plain(
-                    tex, tu, tv, mode)),
-                "ms": cs.cuda_ms(k7, 20), "device_ms": cs.device_ms(k7, 20),
-                "host_issue_us": cs.host_us(k7, 200)}
-        rec["grid_sample"] = {"ms": cs.cuda_ms(grid_sample, 20),
-                              "device_ms": cs.device_ms(grid_sample, 20),
-                              "host_issue_us": cs.host_us(grid_sample, 200)}
+        k1 = rc.fused_raster(sstate["bins"], tex, B * ph, pw)
+        k1s = rc.fused_raster(cs.view_bins(wl), tex, ph, pw)
+        pairs, _ = cs.kernel_pairs(tex, k1, sstate["g_aa"], k1s, H, W, ph)
+        for name, (fn, plain) in pairs.items():
+            reps = REPS.get(name, SINGLE_VIEW_REPS)
+            r = {"ms": cs.cuda_ms(fn, reps),
+                 "device_ms": cs.device_ms(fn, reps)}
+            if plain is not None:
+                got, want = fn(), plain()
+                got, want = ((got,), (want,)) if torch.is_tensor(got) else (
+                    got, want)
+                if name.startswith("texture_bwd"):
+                    # gtu, gtv only: gtex sums with atomics (chip_smoke.py
+                    # checks it)
+                    got, want = got[1:], want[1:]
+                r["max_abs_err"] = max(cs.max_err(a, b)
+                                       for a, b in zip(got, want))
+            if name in HOST_TIMED:
+                r["host_issue_us"] = cs.host_us(fn, 200)
+            rec[name] = r
     return rec
 
 

@@ -5,11 +5,13 @@
 // is _pair_delta in fpc_diffrend_tpu/ops/pallas/antialias_tpu.py and
 // pair_delta in ops/antialias.py, kept operand for operand (the sources
 // that include this header are built with -fmad=false, so every product
-// rounds as there). blend_pixel is K2's sum at one pixel,
+// rounds as there). blend_pixel is the sum at one pixel,
 // c + da_right + db_left + da_down + db_up, in that order, over planes that
-// a Planes accessor reads: device memory (GlobalPlanes, K2 and K10's seam
-// pass) or a block's shared memory (SharedPlanes, K10's in-block pass).
-// The same accessors give the same floats, so both write the same sums.
+// a Planes accessor reads: device memory (GlobalPlanes, K10's seam pass)
+// or a block's shared memory (SharedPlanes, K10's in-block pass). The
+// same accessors give the same floats, so both write the same sums. K2
+// calls pair_delta once a pair and adds each pixel's terms in
+// blend_pixel's order, so it writes the same sums too.
 
 #pragma once
 

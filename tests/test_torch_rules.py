@@ -353,3 +353,33 @@ def test_k7_and_k10_match_plain_versions_on_the_card(card):
         g = torch.randn(k1[4].shape, device=card, generator=gen)
         _, e7 = chip_smoke.check_texture(k1, tex, g, gen, f"grid {grid}")
         assert e7 == 0.0
+
+
+@pytest.mark.cuda
+def test_k2_edges_match_plain_version_on_the_card(card):
+    """K2 against its plain version within 1e-6 where the bench's shapes do
+    not take it: a width no multiple of 32, rows no multiple of 8, padding
+    rows between samples (sample_ph > H), three channels."""
+    import chip_smoke
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    assert chip_smoke.check_k2_edges(card, gen) <= chip_smoke.K2_ATOL
+
+
+@pytest.mark.cuda
+def test_k4_edges_match_plain_version_on_the_card(card):
+    """K4 against its plain version (gtu/gtv within 1e-6, gtex within
+    ATOMIC_RTOL of the summed magnitudes), wrap and clamp, one and three
+    channels, with part warps: every pixel at one uv, uv across the wrap
+    edge, random uv, minified uv; an all-zero cotangent gives zeros."""
+    import chip_smoke
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    errs = chip_smoke.check_k4_edges(card, gen)
+    assert len(errs) == 2 * 2 * 4 * 2 * 2
+    for name, err in errs.items():
+        limit = chip_smoke.ATOMIC_RTOL if "rel" in name else \
+            chip_smoke.K4_ATOL
+        assert err <= limit, name

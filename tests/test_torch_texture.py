@@ -13,6 +13,9 @@ Function against the JAX package.
 * ``ops.texture.texture`` (K7 forward, K4 backward on the CPU's plain
   versions) has the gradients of ``jax.vjp`` of the XLA sampler in both
   modes: texture within 1e-5, uv within 1e-4 of their largest magnitude.
+* K4's plain version on the missed pixels' hot spot (most pixels at uv
+  (0, 0) with a cotangent) has the gradients of ``jax.vjp`` of the XLA
+  sampler, within the same tolerances.
 * K4's wrap mode is the default and gives the TPU kernel's backward
   (``texture_planes_bwd_impl`` in interpret mode): the texture cotangent
   within 1e-5 of its largest magnitude, the uv cotangents within the JAX
@@ -109,6 +112,39 @@ def test_texture_function_gradients_match_vjp_of_xla(rng, mode):
     gtex, guv = vjp(jnp.asarray(g))
     close_to_max(t.grad.numpy(), gtex, 1e-5)
     close_to_max(q.grad.numpy(), guv, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["wrap", "clamp"])
+def test_k4_plain_on_the_missed_pixels_hot_spot_matches_vjp_of_xla(rng,
+                                                                    mode):
+    """Most pixels at uv (0, 0) with a cotangent, as the missed side of
+    every silhouette pair is on the step (K3 gives it one): their shares
+    pile onto the four wrap-corner texels (one in clamp mode). K4's plain
+    version, which the kernel is held to, gives ``jax.vjp`` of the XLA
+    sampler there: texture within 1e-5, uv within 1e-4 of the largest
+    magnitude."""
+    tex = rng.uniform(size=(32, 48, 1)).astype(np.float32)
+    uv = rng.uniform(0.2, 0.8, size=(40, 64, 2)).astype(np.float32)
+    missed = rng.uniform(size=(40, 64)) < 0.8
+    uv[missed] = 0.0
+    g = rng.normal(size=(40, 64, 1)).astype(np.float32)
+    gtex, gtu, gtv = ttc.texture_planes_bwd(
+        torch.as_tensor(tex), torch.as_tensor(uv[..., 0].copy()),
+        torch.as_tensor(uv[..., 1].copy()),
+        torch.as_tensor(np.moveaxis(g, -1, 0).copy()), mode)
+    assert ttc.texture_planes_bwd.launches == 0
+    _, vjp = jax.vjp(lambda a, b: jtexture(a, b, boundary_mode=mode),
+                     jnp.asarray(tex), jnp.asarray(uv))
+    jgtex, jguv = vjp(jnp.asarray(g))
+    close_to_max(gtex.numpy(), jgtex, 1e-5)
+    close_to_max(np.stack([gtu.numpy(), gtv.numpy()], -1), jguv, 1e-4)
+    # uv (0, 0) puts a quarter of each missed pixel's cotangent on each
+    # wrap-corner texel, all of it on texel (0, 0) in clamp mode
+    corners = ([(0, 0)] if mode == "clamp"
+               else [(0, 0), (0, 47), (31, 0), (31, 47)])
+    for c in corners:
+        np.testing.assert_allclose(float(gtex[c]), float(g[missed].sum())
+                                   / len(corners), rtol=1e-4)
 
 
 def test_k4_wrap_is_the_default_and_matches_the_tpu_kernel(rng):

@@ -23,16 +23,21 @@ Phases, each fatal on failure:
    order; it equals it bit for bit), K4
    (gtu/gtv within 1e-6, wrap and clamp), K8 and K9 on the 7-level pyramid
    with the real LOD and with a random LOD plane past both clamps (K8 and
-   K9's gtu/gtv within 1e-6: one thread per pixel, no atomics), and K4's
+   K9's gtu/gtv within 1e-6: each pixel's own sums, in the plain
+   version's order; only the gradient pyramid sums across pixels), and K4's
    gtex, K9's gradient pyramid, K5's and K6's rows, whose atomics sum in
    another order, each element within 1e-5 of the sum of the magnitudes
    it adds up; and K11 (bin placement) equal to its plain version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
-   at a cap of half the live entries, which drops entries; then K2 and K4
-   where the bench's shapes do not take them (``check_k2_edges``,
-   ``check_k4_edges``: ragged tiles, padding rows between samples, three
-   channels; for K4 every pixel at uv (0, 0), the wrap edge, random and
-   minified uv, part warps, a zero cotangent);
+   at a cap of half the live entries, which drops entries; then K2, K4, K8
+   and K9 where the bench's shapes do not take them (``check_k2_edges``,
+   ``check_k4_edges``, ``check_mip_edges``: ragged tiles, padding rows
+   between samples, three channels; for K4 every pixel at uv (0, 0), the
+   wrap edge, random and minified uv, part warps, a zero cotangent; for K8
+   and K9 three channels, a chain of no power-of-two sides, a one-level
+   chain, planes of a pixel count no multiple of 4 and unaligned ones,
+   every pixel at uv (0, 0), random and minified uv over a random LOD, a
+   zero cotangent);
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0, the entry cap autotuned with no K11 launch) through
@@ -97,7 +102,11 @@ Phases, each fatal on failure:
    reductions its design issues, its time again with the cotangent at uv
    (0, 0) zeroed) and K4 on the missed pixels' hot spot (a cotangent on
    every missed pixel of the single view, wrap and clamp, checked and
-   timed);
+   timed); K8's and K9's at the bench-mip batch (``mip_kernel_pairs``,
+   which ``chip_turns.py`` times too: the pixels of each level, those that
+   blend a second one, the live pixels and those at uv (0, 0), the
+   distinct texels of each level, the reductions K9's design issues, and
+   K9's time with its reductions left out);
 7. one bench step's forward and backward three times from the same state
    on the same batch: every parameter gradient must spread by at most
    ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order;
@@ -123,8 +132,8 @@ K1_ATOL = 1e-5                 # payload / extra / colour; ids exact
 K2_ATOL = 1e-6
 K3_ATOL = 1e-6                 # deterministic, the plain version's order
 K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
-K8_ATOL = 1e-6                 # one thread per pixel, no atomics
-K9_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
+K8_ATOL = 1e-6                 # each pixel in the plain version's order
+K9_ATOL = 1e-6                 # gtu, gtv: each pixel's own sums, in order
 ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5/K6 rows: atomics reorder sums
 K10_ATOL = 1e-6                # aa against K2 on the same planes
 MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
@@ -370,14 +379,10 @@ def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
     """
     import torch
 
-    from fpc_diffrend_tpu_torch.ops import texture_mip as tm
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 
-    idbuf, _, payload, _, _ = k1
-    tu, tv = payload[3], payload[4]
-    pyr, sizes = tm.mip_pyramid(tex, MAX_MIP_LEVEL)
-    lam = tm.lod_from_texc(tu, tv, idbuf, *sizes[0], height, width,
-                           sample_ph)
+    pyr, sizes, lam = mip_inputs(k1, tex, height, width, sample_ph)
+    tu, tv = k1[2][3], k1[2][4]
     errs, abs_errs = {}, {"mip_sample": 0.0, "mip_sample_bwd": 0.0}
     planes = {"LOD": lam}
     if lam_random is not None:
@@ -403,6 +408,42 @@ def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
                                          max_err(k9[0], p9[0]))
     print(f"check {label}: mip max err {errs}", flush=True)
     return errs, abs_errs, (pyr, sizes, lam)
+
+
+def mip_inputs(k1, tex, height, width, sample_ph):
+    """The mip path's pyramid of ``tex`` (7 levels), its sizes, and the LOD
+    plane of K1's uv planes ``k1``, as the step computes them."""
+    from fpc_diffrend_tpu_torch.ops import texture_mip as tm
+
+    idbuf, _, payload, _, _ = k1
+    pyr, sizes = tm.mip_pyramid(tex, MAX_MIP_LEVEL)
+    lam = tm.lod_from_texc(payload[3], payload[4], idbuf, *sizes[0], height,
+                           width, sample_ph)
+    return pyr, sizes, lam
+
+
+def mip_kernel_pairs(k1, tex, gcolour, height, width, sample_ph):
+    """K8 and K9 on one state's inputs, as phase 6 and ``chip_turns.py``
+    both time them: the bench-mip batch's uv planes (K1's ``k1``), the
+    pyramid of ``tex``, their LOD (:func:`mip_inputs`), and K3's colour
+    cotangent ``gcolour`` for K9.
+
+    :return: ({name: (kernel call, its plain version)}, (pyramid, sizes,
+        LOD)).
+    """
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+
+    pyr, sizes, lam = mip_inputs(k1, tex, height, width, sample_ph)
+    tu, tv = k1[2][3], k1[2][4]
+    pairs = {
+        "mip_sample": (
+            lambda: tmc.mip_sample(pyr, sizes, tu, tv, lam),
+            lambda: tmc.mip_sample_plain(pyr, sizes, tu, tv, lam)),
+        "mip_sample_bwd": (
+            lambda: tmc.mip_sample_bwd(pyr, sizes, tu, tv, lam, gcolour),
+            lambda: tmc.mip_sample_bwd_plain(pyr, sizes, tu, tv, lam,
+                                             gcolour))}
+    return pairs, (pyr, sizes, lam)
 
 
 def check_texture(k1, tex, g, gen, label):
@@ -566,6 +607,100 @@ def check_k4_edges(dev, gen):
     print(f"check K4 edges: 36x84 and 37x83 uv, wrap and clamp, C 1 and 3, "
           f"zero cotangent exact; max err gtu/gtv "
           f"{max(e for k, e in errs.items() if 'rel' not in k)}, gtex rel "
+          f"{max(e for k, e in errs.items() if 'rel' in k)}", flush=True)
+    return errs
+
+
+# check_mip_edges' level chains: level 0's (th, tw, C) and the most levels
+# after it (``ops.texture_mip.level_sizes`` halves the sides down to 1)
+MIP_EDGE_CHAINS = {
+    "64x64 C 1": ((64, 64, 1), 6),          # the mask wrap, 7 levels
+    "32x64 C 3": ((32, 64, 3), 5),          # three channels, 6 levels
+    "96x80 C 1": ((96, 80, 1), 6),          # the remainder wrap, 7 levels
+    "48x40 C 2, one level": ((48, 40, 2), 0),
+}
+
+
+def check_mip_edges(dev, gen):
+    """K8 and K9 where the bench-mip batch does not take them, against their
+    plain versions (K8 and K9's gtu/gtv within K8_ATOL and K9_ATOL, the
+    gradient pyramid within ATOMIC_RTOL of the summed magnitudes), on
+    random pyramids of the chains of ``MIP_EDGE_CHAINS`` (three channels; a
+    chain of no power-of-two sides, the remainder wrap; a one-level chain),
+    on planes of 36 x 84 and 37 x 83 (part warps; a pixel count no multiple
+    of 4, the scalar tail and, at C > 1, the one-pixel path) and on planes
+    that start 4 bytes past a 16-byte boundary (the one-pixel path): every
+    pixel at uv (0, 0), the missed pixels' hot spot; random uv past every
+    edge; uv minified to ~12 texels a pixel; each with a random LOD plane
+    over every level and past both clamps. An all-zero cotangent gives
+    all-zero outputs. :return: name -> error (K8 and gtu/gtv: max abs;
+    gpyr: over the summed magnitudes)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.ops.texture_mip import level_sizes
+
+    def plane(t, aligned):
+        if aligned:
+            return t.contiguous()
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    errs = {}
+    for rows, pw in ((36, 84), (37, 83)):
+        ys = torch.linspace(0, 1, rows, device=dev)[:, None].expand(rows, pw)
+        xs = torch.linspace(0, 1, pw, device=dev)[None].expand(rows, pw)
+        zero = torch.zeros((rows, pw), device=dev)
+        rnd = (torch.rand((2, rows, pw), device=dev, generator=gen) * 1.5
+               - 0.25)
+        uvs = {"one uv": (zero, zero), "random": (rnd[0], rnd[1]),
+               "minified": (xs * 20.0, ys * 20.0 + 0.3)}
+        for chain, ((th, tw, C), n_more) in MIP_EDGE_CHAINS.items():
+            sizes = level_sizes(th, tw, n_more)
+            n = sum(h * w for h, w in sizes)
+            pyr = torch.rand((n, C), device=dev, generator=gen)
+            lam = (torch.rand((rows, pw), device=dev, generator=gen)
+                   * (len(sizes) + 2) - 1.5)
+            for name, (u, v) in uvs.items():
+                g = torch.randn((C, rows, pw), device=dev, generator=gen)
+                for aligned in (True, False):
+                    a = (plane(u, aligned), plane(v, aligned),
+                         plane(lam, aligned))
+                    key = (f"{name}, {rows}x{pw}, {chain}"
+                           + ("" if aligned else ", unaligned"))
+                    got8 = tmc.mip_sample(pyr, sizes, *a)
+                    got9 = tmc.mip_sample_bwd(pyr, sizes, *a, g)
+                    torch.cuda.synchronize()
+                    want9 = tmc.mip_sample_bwd_plain(pyr, sizes, *a, g)
+                    mag = tmc.mip_sample_bwd_plain(pyr, sizes, *a,
+                                                   g.abs())[0]
+                    errs[f"K8 {key}"] = max_err(
+                        got8, tmc.mip_sample_plain(pyr, sizes, *a))
+                    errs[f"K9 gtuv {key}"] = max(
+                        max_err(got9[1], want9[1]),
+                        max_err(got9[2], want9[2]))
+                    errs[f"K9 gpyr rel {key}"] = atomic_err(got9[0],
+                                                            want9[0], mag)
+                zeros = tmc.mip_sample_bwd(pyr, sizes, u.contiguous(),
+                                           v.contiguous(), lam,
+                                           torch.zeros_like(g))
+                if not all(bool((z == 0).all()) for z in zeros):
+                    fail(f"K9 edge case {name}, {rows}x{pw}, {chain}: a "
+                         "zero cotangent gave non-zero outputs")
+
+    def limit(k):
+        return (ATOMIC_RTOL if "rel" in k else K8_ATOL if k.startswith("K8")
+                else K9_ATOL)
+
+    bad = {k: e for k, e in errs.items() if not e <= limit(k)}
+    if bad:
+        fail(f"K8/K9 edge cases differ from the plain versions: {bad}")
+    print(f"check K8/K9 edges: 36x84 and 37x83 planes, aligned and not, "
+          f"chains {list(MIP_EDGE_CHAINS)}, zero cotangent exact; max err "
+          f"K8 {max(e for k, e in errs.items() if k.startswith('K8'))}, "
+          f"gtu/gtv "
+          f"{max(e for k, e in errs.items() if 'gtuv' in k)}, gpyr rel "
           f"{max(e for k, e in errs.items() if 'rel' in k)}", flush=True)
     return errs
 
@@ -1315,35 +1450,154 @@ def k4_design_reductions(tex_shape, tu, tv, gcolour):
 
     th, tw, C = tex_shape
     n = tu.numel()
-    m = -(-n // 32) * 32
-    live = torch.zeros(m, dtype=torch.bool, device=tu.device)
-    live[:n] = (gcolour.reshape(C, n) != 0).any(dim=0)
+    live = (gcolour.reshape(C, n) != 0).any(dim=0)
     _, t0, s0 = texel_taps(tu.reshape(n), tv.reshape(n), th, tw, "wrap")
-    t0, s0 = (torch.nn.functional.pad(k, (0, m - n)) for k in (t0, s0))
+    taps, one = _warp_pair_taps(live, (t0,), s0)
+    return taps * C, one
+
+
+def _warp_pair_taps(live, row_keys, s0):
+    """The taps a design of K4's kind adds for 32 neighbouring pixels of a
+    flat plane at a time (from pixel 0): 4 where every live one shares its
+    row keys and s0; else pair by pair (2m, 2m + 1): 4 for a live even
+    pixel; for a live odd one none where the even one is live and shares
+    its row keys and s0, 2 where it shares the row keys and samples
+    s0 - 1, else 4.
+
+    :param live: (n,) bool; row_keys: (n,) int tensors a merge needs equal
+        (the texel row, and the level where there are several); s0: (n,)
+        the texel column.
+    :return: (taps, 32-pixel groups summed across the warp).
+    """
+    import torch
+
+    n = live.numel()
+    m = -(-n // 32) * 32
+    pad = torch.nn.functional.pad
+    live = pad(live, (0, m - n))
+    keys = [pad(k, (0, m - n)) for k in (*row_keys, s0)]
     big = 1 << 40
     lg = live.reshape(-1, 32)
     one = lg.any(dim=1)
-    for k in (t0, s0):
+    for k in keys:
         k = k.reshape(-1, 32)
         one &= (torch.where(lg, k, big).amin(1)
                 == torch.where(lg, k, -big).amax(1))
     le, lo = live.reshape(-1, 2).unbind(1)
-    te, to = t0.reshape(-1, 2).unbind(1)
-    se, so = s0.reshape(-1, 2).unbind(1)
-    row = le & (te == to)
+    row = le
+    for k in keys[:-1]:
+        ke, ko = k.reshape(-1, 2).unbind(1)
+        row = row & (ke == ko)
+    se, so = keys[-1].reshape(-1, 2).unbind(1)
     odd = torch.where(row & (so == se), 0, torch.where(row & (so == se + 1),
                                                        2, 4))
     pair = 4 * le + torch.where(lo, odd, 0)
     taps = torch.where(one, 4, pair.reshape(-1, 16).sum(dim=1))
-    return int(taps.sum()) * C, int(one.sum())
+    return int(taps.sum()), int(one.sum())
 
 
-def _hi_live(lam, n_levels):
-    """Pixels whose LOD blends a second level."""
+def _mip_levels(lam, n_levels):
+    """Each pixel's level lo = floor(lam clamped to [0, L - 1]), and
+    whether it blends level lo + 1 (K8's ``pick``)."""
     import torch
 
     lc = torch.clamp(lam, 0.0, float(n_levels - 1))
-    return (torch.floor(lc) + 1 < n_levels) & (lc != torch.floor(lc))
+    lof = torch.floor(lc)
+    return lof.long(), (lof + 1 < n_levels) & (lc != lof)
+
+
+def _mip_slot_taps(sizes, tu, tv, level):
+    """(t0, s0): the unwrapped texel of tap 00 of each pixel at its
+    ``level`` (int64 plane), as K8 and K9 compute it."""
+    import torch
+
+    dev = tu.device
+    th = torch.tensor([h for h, _ in sizes], device=dev)[level]
+    tw = torch.tensor([w for _, w in sizes], device=dev)[level]
+    s0 = torch.floor(tu * tw.to(torch.float32) - 0.5).long()
+    t0 = torch.floor(tv * th.to(torch.float32) - 0.5).long()
+    return t0, s0
+
+
+def mip_level_counts(sizes, tu, tv, lam, gcolour):
+    """What K8 and K9 sample at these inputs: the pixels, the live ones
+    (cotangent not 0 in some channel) and those of them at uv (0, 0); per
+    level, the pixels whose lo is that level (all and live), and the
+    distinct texels the live pixels' taps touch there (level lo, and
+    lo + 1 where they blend it); the pixels that blend a second level (all
+    and live).
+
+    :return: a dict of those counts (per level: lists, finest first).
+    """
+    import torch
+
+    C = gcolour.shape[0]
+    n = tu.numel()
+    tu, tv, lam = tu.reshape(n), tv.reshape(n), lam.reshape(n)
+    L = len(sizes)
+    live = (gcolour.reshape(C, n) != 0).any(dim=0)
+    lo, hi = _mip_levels(lam, L)
+    texels = []
+    for lvl, (th, tw) in enumerate(sizes):
+        sel = (live & (lo == lvl)) | (live & hi & (lo + 1 == lvl))
+        taps = texel_taps(tu[sel], tv[sel], th, tw, "wrap")[0]
+        texels.append(int(torch.unique(taps).numel()))
+    return {
+        "px": n, "live_px": int(live.sum()),
+        "live_px_at_uv_00": int((live & (tu == 0) & (tv == 0)).sum()),
+        "lo_px": torch.bincount(lo, minlength=L).tolist(),
+        "lo_live_px": torch.bincount(lo[live], minlength=L).tolist(),
+        "blend_px": int(hi.sum()), "blend_live_px": int((hi & live).sum()),
+        "texels_touched": texels,
+        "texels": [th * tw for th, tw in sizes]}
+
+
+def k9_design_reductions(sizes, tu, tv, lam, gcolour):
+    """The device-memory reductions K9's design issues
+    (``csrc/texture_mip.cu``): each live pixel (cotangent not 0 in some
+    channel) samples level lo and, where it blends it, lo + 1; each of the
+    two level slots is reduced as K4's design reduces its one
+    (:func:`_warp_pair_taps`), with the level among the keys a merge needs
+    equal. Each tap is C reductions.
+
+    :return: (reductions, 32-pixel groups summed across the warp, over
+        both slots).
+    """
+    C = gcolour.shape[0]
+    n = tu.numel()
+    tu, tv, lam = tu.reshape(n), tv.reshape(n), lam.reshape(n)
+    live = (gcolour.reshape(C, n) != 0).any(dim=0)
+    lo, hi = _mip_levels(lam, len(sizes))
+    taps = groups = 0
+    for k, lk in ((0, live), (1, live & hi)):
+        level = (lo + k).clamp(max=len(sizes) - 1)
+        t0, s0 = _mip_slot_taps(sizes, tu, tv, level)
+        t, g = _warp_pair_taps(lk, (level, t0), s0)
+        taps, groups = taps + t, groups + g
+    return taps * C, groups
+
+
+def k9_unreduced(pyr, sizes, tu, tv, lam, gcolour):
+    """K9 with its gradient-pyramid reductions left out (the library's
+    ``mip_bwd_unreduced_launch``, for timing only): gtu and gtv as K9
+    gives them, the gradient pyramid zero. Counts no launch."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.kernels import build
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+
+    rows, pw = tu.shape
+    n, C = pyr.shape
+    gpyr = torch.empty((n, C), device=tu.device)
+    gtu = torch.empty((rows, pw), device=tu.device)
+    gtv = torch.empty((rows, pw), device=tu.device)
+    fn = build.entry("texture_mip", "mip_bwd_unreduced_launch",
+                     tmc._MIP_BWD_ARGS)
+    ptr = build.ptr
+    build.check(fn(ptr(pyr), ptr(tu), ptr(tv), ptr(lam), ptr(gcolour), rows,
+                   pw, *tmc._level_args(sizes), C, n, ptr(gpyr), ptr(gtu),
+                   ptr(gtv), build.stream(tu.device)), "k9_unreduced")
+    return gpyr, gtu, gtv
 
 
 def k8_bound_ms(lam, C, pyr, n_levels):
@@ -1351,7 +1605,7 @@ def k8_bound_ms(lam, C, pyr, n_levels):
     read once (bytes); ~(12 C + 12) flops for each level a pixel samples,
     4 taps and 3 lerps a channel and the coordinates (operations)."""
     px = lam.numel()
-    levels = px + int(_hi_live(lam, n_levels).sum())
+    levels = px + int(_mip_levels(lam, n_levels)[1].sum())
     return _bound(px * 4 * (3 + C) + pyr.numel() * 4, levels * (12 * C + 12))
 
 
@@ -1363,7 +1617,8 @@ def k9_bound_ms(lam, gcolour, pyr, n_levels):
     C = gcolour.shape[0]
     px = lam.numel()
     live = (gcolour != 0).any(dim=0)
-    levels = int(live.sum()) + int((_hi_live(lam, n_levels) & live).sum())
+    blend = _mip_levels(lam, n_levels)[1]
+    levels = int(live.sum()) + int((blend & live).sum())
     nbytes = px * 4 * (C + 2) + int(live.sum()) * 12 + 2 * pyr.numel() * 4
     return _bound(nbytes, levels * (24 * C + 12))
 
@@ -1490,6 +1745,7 @@ def main() -> int:
     check_place_synthetic(dev)
     record["k2_edges_err"] = check_k2_edges(dev, gen)
     record["k4_edges_err"] = check_k4_edges(dev, gen)
+    record["mip_edges_err"] = check_mip_edges(dev, gen)
 
     # ---- 4. the forward at full width ----
     counters = {"fused_raster": rc.fused_raster,
@@ -1841,20 +2097,14 @@ def main() -> int:
                 lambda: gc.fold_entries(*k5, bins, B * T),
                 lambda: gc.fold_entries_plain(*k5, bins, B * T)),
         }
-        # K8 and K9 at the mip step's shapes
-        _, mabs, (pyr, sizes, lam) = check_mip(
-            mstage["k1"], pm["tex"].detach(), mstage["k3"][0], None, H, W,
-            ph, "bench batch, mip")
-        mpay = mstage["k1"][2]
+        # K8 and K9 at the mip step's shapes, on K3's colour cotangent (the
+        # inputs chip_turns.py times too)
         mg = mstage["k3"][0]
-        t["mip_sample"] = (
-            lambda: tmc.mip_sample(pyr, sizes, mpay[3], mpay[4], lam),
-            lambda: tmc.mip_sample_plain(pyr, sizes, mpay[3], mpay[4], lam))
-        t["mip_sample_bwd"] = (
-            lambda: tmc.mip_sample_bwd(pyr, sizes, mpay[3], mpay[4], lam,
-                                       mg),
-            lambda: tmc.mip_sample_bwd_plain(pyr, sizes, mpay[3], mpay[4],
-                                             lam, mg))
+        _, mabs, _ = check_mip(mstage["k1"], pm["tex"].detach(), mg, None, H,
+                               W, ph, "bench batch, mip")
+        mpairs, (pyr, sizes, lam) = mip_kernel_pairs(
+            mstage["k1"], pm["tex"].detach(), mg, H, W, ph)
+        t.update(mpairs)
         # K7 and K10 at the single view's shapes
         _, e10 = check_aa_fused(bins1, tex, ph, pw, H, W, ph, k1s,
                                 "single view")
@@ -1976,6 +2226,30 @@ def main() -> int:
               f"({k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms): {k2_occ} "
               f"occluder pixels in {k2_sectors} sectors a plane", flush=True)
         print(f"K4 at the bench batch: {k4_diag}", flush=True)
+        # K8 and K9 at the bench-mip batch: what they sample, the
+        # reductions K9's design issues, and K9 without its reductions
+        mtu, mtv = mstage["k1"][2][3], mstage["k1"][2][4]
+        k9_diag = mip_level_counts(sizes, mtu, mtv, lam, mg)
+        k9_red, k9_groups = k9_design_reductions(sizes, mtu, mtv, lam, mg)
+
+        def k9_bare():
+            return k9_unreduced(pyr, sizes, mtu, mtv, lam, mg)
+
+        if not all(torch.equal(a, b) for a, b in zip(
+                k9_bare()[1:], t["mip_sample_bwd"][0]()[1:])):
+            fail("K9 without its reductions gives other gtu/gtv than K9")
+        k9_diag.update(
+            design_reductions=k9_red, design_groups_summed=k9_groups,
+            one_thread_a_pixel_reductions=4 * mg.shape[0] * (
+                k9_diag["live_px"] + k9_diag["blend_live_px"]),
+            ms=times["mip_sample_bwd"][0],
+            device_ms=device_ms(t["mip_sample_bwd"][0], 20),
+            unreduced_ms=cuda_ms(k9_bare, 20),
+            unreduced_device_ms=device_ms(k9_bare, 20),
+            k8_ms=times["mip_sample"][0],
+            k8_device_ms=device_ms(t["mip_sample"][0], 20))
+        record["mip_sample_diagnosis"] = k9_diag
+        print(f"K8 and K9 at the bench-mip batch: {k9_diag}", flush=True)
         # K11's library yardstick: torch.sort and torch.searchsorted of the
         # same keys (the calls it replaces)
         n_tri = B * T

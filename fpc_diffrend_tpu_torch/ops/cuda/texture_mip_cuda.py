@@ -15,7 +15,16 @@ of the sampled uv planes. The TPU kernel's zeroed uv gradient where its
 VMEM patch clamps is a layout artefact and is not copied.
 
 ``mip_sample`` and ``mip_sample_bwd`` run their kernels for CUDA tensors
-and their plain PyTorch versions (``*_plain``) for CPU tensors.
+and their plain PyTorch versions (``*_plain``) for CPU tensors. K8 takes
+four neighbouring pixels a thread, with 16-byte loads of tu, tv and lam
+and 16-byte stores where the planes are 16-byte aligned (else one pixel a
+thread); K9 one pixel a thread, whose neighbouring lanes sum the texel
+shares they have in common before the reductions into the gradient
+pyramid. The launchers pick the instantiation from the shapes: the
+channel count, a chain of power-of-two levels (mask wrap) or not, and the
+planes' alignment. K8 equals its plain version bit for bit; K9's gtu and
+gtv keep its order too, and its gradient pyramid sums with atomics in
+another order from run to run.
 """
 
 from __future__ import annotations

@@ -13,8 +13,15 @@ and K4, against brute-force numpy counts on small synthetic planes.
   (one rotated), missed pixels at uv (0, 0) with a cotangent (whole warps
   of them, and scattered), a minified band, and channels whose cotangent
   is 0.
-* ``kernel_pairs``: the one set of inputs on which phase 6 and
-  ``chip_turns.py`` time K2, K3, K4 and K7 and their library calls.
+* ``mip_level_counts`` and ``k9_design_reductions``: what K8 and K9
+  sample level by level and the reductions K9's design issues (K4's rule
+  in each of its two level slots, the level among the keys), on uv planes
+  of two stacked samples with a minified band that reaches the coarse
+  levels, an LOD below 0 and past the last level, runs of missed pixels at
+  uv (0, 0) with a cotangent, and channels whose cotangent is 0.
+* ``kernel_pairs`` and ``mip_kernel_pairs``: the one set of inputs on
+  which phase 6 and ``chip_turns.py`` time K2, K3, K4, K7, K8 and K9 and
+  the library calls.
 """
 
 import numpy as np
@@ -22,6 +29,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from fpc_diffrend_tpu_torch.ops.texture_mip import level_sizes
 
 
 def _ids(rng, rows, pw, block):
@@ -239,3 +247,171 @@ def test_kernel_pairs_time_one_set_of_inputs():
         gtex = pairs["texture_bwd_clamp"][0]()[0]
         lib = pairs["grid_sampler_2d_backward"][0]()[0][0].permute(1, 2, 0)
         assert cs.max_err(lib, gtex) <= 1e-5 * float(gtex.abs().max())
+
+
+MIP_SIZES = level_sizes(64, 48, 6)     # 64 x 48 .. 2 x 1, 6 levels
+
+
+def _mip_scene(rng, C, rows=22, pw=70):
+    """K4's scene (two stacked samples, missed pixels at uv (0, 0) in whole
+    warps and scattered, a minified band, zero cotangents) with an LOD
+    plane: magnified (lam < 0) where the uv is smooth, a band of rows
+    minified over every level with fractions, a block past the last level,
+    the missed pixels at the finite-difference LOD's -33, and a run at uv
+    (0, 0) whose neighbours alternate between levels 0 and 1, where tap 00
+    is texel (-1, -1) at both (no merge across levels)."""
+    tu, tv, g = _k4_scene(rng, C, rows, pw)
+    lam = np.full((rows, pw), -1.9, np.float32)
+    lam[3:6, 40:] = rng.uniform(0.0, 5.5, size=(3, pw - 40))
+    lam[7:9, :20] = rng.uniform(-0.5, 3.0, size=(2, 20))
+    lam[12:14, 50:] = 7.25
+    lam[(tu == 0) & (tv == 0)] = -33.2
+    tu[10, :64] = tv[10, :64] = 0.0
+    lam[10, :64] = np.tile([0.0, 1.0], 32)
+    g[:, 10, :64] = 1.0
+    return tu, tv, lam.astype(np.float32), g
+
+
+def _mip_pick(lam, n_levels):
+    lc = np.clip(lam, 0, n_levels - 1)
+    lo = np.floor(lc).astype(np.int64)
+    return lo, (lo + 1 < n_levels) & (lc != lo)
+
+
+def _tap00(u, v, th, tw):
+    f32 = np.float32
+    s0 = int(np.floor(f32(u) * f32(tw) - f32(0.5)))
+    t0 = int(np.floor(f32(v) * f32(th) - f32(0.5)))
+    return t0, s0
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_mip_level_counts_match_brute_force(C):
+    rng = np.random.default_rng(4)
+    tu, tv, lam, g = _mip_scene(rng, C)
+    L = len(MIP_SIZES)
+    u, v, lm = tu.reshape(-1), tv.reshape(-1), lam.reshape(-1)
+    live = (g.reshape(C, -1) != 0).any(axis=0)
+    lo, hi = _mip_pick(lm, L)
+    texels = [set() for _ in range(L)]
+    for i in np.nonzero(live)[0]:
+        for lvl in [lo[i]] + ([lo[i] + 1] if hi[i] else []):
+            th, tw = MIP_SIZES[lvl]
+            t0, s0 = _tap00(u[i], v[i], th, tw)
+            texels[lvl].update((t0 + dt) % th * tw + (s0 + ds) % tw
+                               for dt in (0, 1) for ds in (0, 1))
+    got = cs.mip_level_counts(MIP_SIZES, torch.as_tensor(tu),
+                              torch.as_tensor(tv), torch.as_tensor(lam),
+                              torch.as_tensor(g))
+    assert got == {
+        "px": u.size, "live_px": int(live.sum()),
+        "live_px_at_uv_00": int((live & (u == 0) & (v == 0)).sum()),
+        "lo_px": np.bincount(lo, minlength=L).tolist(),
+        "lo_live_px": np.bincount(lo[live], minlength=L).tolist(),
+        "blend_px": int(hi.sum()), "blend_live_px": int((hi & live).sum()),
+        "texels_touched": [len(t) for t in texels],
+        "texels": [th * tw for th, tw in MIP_SIZES]}
+    # the scene reaches the coarse levels, past the last one and below 0
+    assert got["lo_live_px"][-1] > 0 and got["lo_live_px"][3] > 0
+    assert got["live_px_at_uv_00"] > 32 and 0 < got["blend_live_px"]
+
+
+def _k9_brute(sizes, tu, tv, lam, g):
+    """K9's reductions, slot by slot, 32 neighbouring pixels at a time,
+    pair by pair."""
+    C = g.shape[0]
+    u, v, lm = tu.reshape(-1), tv.reshape(-1), lam.reshape(-1)
+    n = u.size
+    live0 = (g.reshape(C, -1) != 0).any(axis=0)
+    lo, hi = _mip_pick(lm, len(sizes))
+    total = groups = 0
+    for k in (0, 1):
+        live = np.zeros(n + 1, bool)
+        live[:n] = live0 & (hi if k else True)
+        key = [None] * (n + 1)
+        for i in range(n):
+            if live[i]:
+                lvl = lo[i] + k
+                key[i] = (lvl,) + _tap00(u[i], v[i], *sizes[lvl])
+        for i0 in range(0, n, 32):
+            idx = [i for i in range(i0, min(i0 + 32, n)) if live[i]]
+            if len({key[i] for i in idx}) == 1:
+                total, groups = total + 4, groups + 1
+                continue
+            for e in range(i0, min(i0 + 32, n), 2):
+                total += 4 * live[e]
+                o = e + 1
+                if not live[o]:
+                    continue
+                if live[e] and key[e] == key[o]:
+                    pass
+                elif live[e] and key[e][:2] == key[o][:2] and (
+                        key[o][2] == key[e][2] + 1):
+                    total += 2
+                else:
+                    total += 4
+    return total * C, groups
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_k9_design_reductions_match_brute_force(C):
+    rng = np.random.default_rng(5)
+    tu, tv, lam, g = _mip_scene(rng, C)
+    want = _k9_brute(MIP_SIZES, tu, tv, lam, g)
+    got = cs.k9_design_reductions(MIP_SIZES, torch.as_tensor(tu),
+                                  torch.as_tensor(tv), torch.as_tensor(lam),
+                                  torch.as_tensor(g))
+    assert got == want
+    reductions, groups = got
+    assert groups > 0
+    # fewer than one thread a pixel's 4 C a live level of a live pixel
+    live = (g != 0).any(axis=0)
+    blend = _mip_pick(lam, len(MIP_SIZES))[1] & live
+    assert reductions < 4 * C * int(live.sum() + blend.sum())
+
+
+def test_k9_design_reductions_of_one_uv_and_no_cotangent():
+    """Every pixel at uv (0, 0) and level 0: each 32 neighbouring pixels
+    add 4 taps; blending level 1 too, 4 more; no cotangent: none."""
+    tu = torch.zeros((16, 64))
+    g = torch.ones((1, 16, 64))
+    sizes = level_sizes(32, 32, 6)
+    for lam, taps in ((-2.0, 4), (0.5, 8)):
+        lp = torch.full((16, 64), lam)
+        assert cs.k9_design_reductions(sizes, tu, tu, lp, g) == (
+            32 * taps, 32 * taps // 4)
+        assert cs.k9_design_reductions(sizes, tu, tu, lp, g * 0) == (0, 0)
+
+
+def test_mip_kernel_pairs_time_one_set_of_inputs():
+    """``mip_kernel_pairs`` on a small mip workload on the CPU: K8 and K9
+    on K1's uv, the step's pyramid and LOD (``mip_inputs``) and K3's colour
+    cotangent, each equal to its plain version there."""
+    from fpc_diffrend_tpu_torch.ops import texture_mip as tm
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.profile_forward import step_stages
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, mip=True,
+                        device="cpu")
+    H, W = wl["H"], wl["W"]
+    ph, _ = rc.pad_resolution(H, W)
+    state = {}
+    for _, fn in step_stages(wl, state):
+        fn()
+    with torch.no_grad():
+        tex = wl["params"]["tex"].detach()
+        pairs, (pyr, sizes, lam) = cs.mip_kernel_pairs(
+            state["k1"], tex, state["k3"][0], H, W, ph)
+        want_pyr, want_sizes = tm.mip_pyramid(tex, cs.MAX_MIP_LEVEL)
+        assert torch.equal(pyr, want_pyr) and sizes == want_sizes
+        assert len(sizes) == cs.MAX_MIP_LEVEL + 1
+        idbuf, _, payload, _, _ = state["k1"]
+        assert torch.equal(lam, tm.lod_from_texc(payload[3], payload[4],
+                                                 idbuf, *sizes[0], H, W, ph))
+        assert set(pairs) == {"mip_sample", "mip_sample_bwd"}
+        assert torch.equal(pairs["mip_sample"][0](), pairs["mip_sample"][1]())
+        got, want = pairs["mip_sample_bwd"][0](), pairs["mip_sample_bwd"][1]()
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+        assert bool(want[0].any())

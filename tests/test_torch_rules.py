@@ -383,3 +383,54 @@ def test_k4_edges_match_plain_version_on_the_card(card):
         limit = chip_smoke.ATOMIC_RTOL if "rel" in name else \
             chip_smoke.K4_ATOL
         assert err <= limit, name
+
+
+@pytest.mark.cuda
+def test_mip_edges_match_plain_versions_on_the_card(card):
+    """K8 and K9 against their plain versions where the bench-mip batch
+    does not take them (K8 and K9's gtu/gtv within 1e-6, the gradient
+    pyramid within ATOMIC_RTOL of the summed magnitudes): three channels,
+    a chain of no power-of-two sides, a one-level chain, planes of a pixel
+    count no multiple of 4 and unaligned ones, every pixel at uv (0, 0),
+    random and minified uv over a random LOD; an all-zero cotangent gives
+    zeros."""
+    import chip_smoke
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    errs = chip_smoke.check_mip_edges(card, gen)
+    assert len(errs) == 2 * len(chip_smoke.MIP_EDGE_CHAINS) * 3 * 2 * 3
+    for name, err in errs.items():
+        limit = (chip_smoke.ATOMIC_RTOL if "rel" in name else
+                 chip_smoke.K8_ATOL if name.startswith("K8") else
+                 chip_smoke.K9_ATOL)
+        assert err <= limit, name
+
+
+@pytest.mark.cuda
+def test_mip_kernels_on_rendered_uv_on_the_card(card):
+    """K8 and K9 on K1's uv of a small render, with its LOD and with a
+    random LOD past both clamps, each launched once a call."""
+    import chip_smoke
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+
+    wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
+    state = {}
+    for _, fn in forward_stages(wl, state)[:2]:      # prologue, binning
+        fn()
+    ph, pw = rc.pad_resolution(96, 200)
+    tex = wl["params"]["tex"].detach()
+    k1 = rc.fused_raster(state["bins"], tex, 2 * ph, pw)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    g = torch.randn(k1[4].shape, device=card, generator=gen)
+    lam = (torch.rand((2 * ph, pw), device=card, generator=gen)
+           * (chip_smoke.MAX_MIP_LEVEL + 3) - 1.5)
+    before = (tmc.mip_sample.launches, tmc.mip_sample_bwd.launches)
+    errs, _, _ = chip_smoke.check_mip(k1, tex, g, lam, 96, 200, ph,
+                                      "cuda test")
+    assert (tmc.mip_sample.launches - before[0],
+            tmc.mip_sample_bwd.launches - before[1]) == (2, 2)
+    assert len(errs) == 2 * 4

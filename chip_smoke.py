@@ -29,15 +29,20 @@ Phases, each fatal on failure:
    another order, each element within 1e-5 of the sum of the magnitudes
    it adds up; and K11 (bin placement) equal to its plain version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
-   at a cap of half the live entries, which drops entries; then K2, K4, K8
-   and K9 where the bench's shapes do not take them (``check_k2_edges``,
+   at a cap of half the live entries, which drops entries; then K11, K2,
+   K10, K4, K8 and K9 where the bench's shapes do not take them
+   (``check_place_edges``: P = 0, every slot dead, one live triangle, P
+   inside the first bin, P equal to the live entries, a 6,000-entry bin,
+   70,000 tiles; ``check_k2_edges``, ``check_k10_edges``,
    ``check_k4_edges``, ``check_mip_edges``: ragged tiles, padding rows
-   between samples, three channels; for K4 every pixel at uv (0, 0), the
-   wrap edge, random and minified uv, part warps, a zero cotangent; for K8
-   and K9 three channels, a chain of no power-of-two sides, a one-level
-   chain, planes of a pixel count no multiple of 4 and unaligned ones,
-   every pixel at uv (0, 0), random and minified uv over a random LOD, a
-   zero cotangent);
+   between samples, three channels; for K10 C = 1 to 4, a partial last
+   tile column, empty bins and silhouettes across tile rows and columns,
+   equal to K1 + K2 exactly; for K4 every pixel at uv (0, 0), the wrap
+   edge, random and minified uv, part warps, a zero cotangent; for K8 and
+   K9 three channels, a chain of no power-of-two sides, a one-level chain,
+   planes of a pixel count no multiple of 4 and unaligned ones, every
+   pixel at uv (0, 0), random and minified uv over a random LOD, a zero
+   cotangent);
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0, the entry cap autotuned with no K11 launch) through
@@ -89,9 +94,14 @@ Phases, each fatal on failure:
    (K2, K3, K4 and K7 on the inputs of ``kernel_pairs``, which
    ``chip_turns.py`` times too), with its time, the plain version's time, the library call's time where
    one computes the same function, and its bound, printed as one
-   ``{"kernels": [...]}`` line of all eleven; beside it the record
-   gather's time capped and uncapped, K11's count step by its
-   shared-memory histogram against device-memory atomics, in turns; K3's
+   ``{"kernels": [...]}`` line of all eleven; beside it K11's device time
+   by kernel, its host issue of one call, the slots, tiles and largest and
+   mean bin, and the traffic and launches of its design
+   (``k11_design_bytes``), the record gather's time capped and uncapped,
+   K11's count step by its shared-memory histogram against device-memory
+   atomics, in turns; at the single view K10's kernels' device time
+   beside the "sepaa" route's K1 and K2, and its design's traffic and
+   pair evaluations (``k10_design_bytes``); K3's
    device time (profiler), host issue and the bytes its design moves; at
    the single view K7 (wrap and clamp) beside ``grid_sample`` and K4's
    clamp mode beside ``grid_sampler_2d_backward`` (the same functions),
@@ -197,10 +207,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of fn() a call: the self time of every kernel and memset
-    it ran, by the profiler, over reps calls after one warm-up (the event
-    times of :func:`cuda_ms` read the host's issue where that is slower)."""
+def device_kernels_ms(fn, reps: int) -> dict:
+    """Device time of fn() a call by kernel: {kernel or memset name: the
+    self time it ran, by the profiler, over reps calls after one warm-up}."""
     import torch
 
     from fpc_diffrend_tpu_torch.profile_forward import device_kernels
@@ -212,7 +221,14 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ms for _, ms, _ in device_kernels(prof)) / reps
+    return {name: ms / reps for name, ms, _ in device_kernels(prof)}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() a call: the self time of every kernel and memset
+    it ran (:func:`device_kernels_ms`; the event times of :func:`cuda_ms`
+    read the host's issue where that is slower)."""
+    return sum(device_kernels_ms(fn, reps).values())
 
 
 def host_us(fn, reps: int) -> float:
@@ -556,6 +572,103 @@ def check_k2_edges(dev, gen):
     return err
 
 
+def check_k10_edges(dev, gen):
+    """K10 where the bench's shapes do not take it, against K1 + K2 on the
+    same bins, exactly (ids, entries, payload, extra, colour and aa): two
+    samples of 100 x 1600 at their pitch of 104 rows (padding rows between
+    them) in planes of 13 tile columns, the last partial; tiles with an
+    empty bin; the dome's silhouettes crossing tile rows 0/7 and columns
+    0/127; a binned dome and one whose large triangles fill the global
+    list; C = 1 to 4 channels. :return: the largest aa error (0 when
+    bit-equal)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    H, W = 100, 1600
+    ph, pw = rc.pad_resolution(H, W)
+    rows = 2 * ph
+    worst = 0.0
+    for grid in (20, 4):
+        wl = build_workload(H, W, grid=grid, batch=2, tex_size=64,
+                            device=dev)
+        state = {}
+        for _, fn in forward_stages(wl, state)[:2]:     # prologue, binning
+            fn()
+        bins = state["bins"]
+        sizes = bins.bin_start[1:] - bins.bin_start[:-1]
+        for C in (1, 2, 3, 4):
+            tex = torch.rand((64, 64, C), device=dev, generator=gen)
+            k1 = rc.fused_raster(bins, tex, rows, pw)
+            k2 = ac.antialias_planes(k1[0], k1[2], k1[4], H, W, ph)
+            k10 = rc.fused_raster_aa(bins, tex, rows, pw, H, W, ph)
+            torch.cuda.synchronize()
+            for n, a, b in zip(("idbuf", "entry", "payload", "extra",
+                                "colour", "aa"), k10, (*k1, k2)):
+                if not torch.equal(a, b):
+                    fail(f"K10 edge case (grid {grid}, C {C}): its {n} "
+                         f"differs from K1 + K2's by {max_err(a, b)}")
+            worst = max(worst, max_err(k10[5], k2))
+        ids = k1[0]
+        cross_rows = int((ids[7::8][:-1] != ids[8::8]).sum())
+        cross_cols = int((ids[:, 127::128][:, :-1] != ids[:, 128::128]).sum())
+        if not (cross_rows and cross_cols and int((sizes == 0).sum())):
+            fail(f"K10 edge scene (grid {grid}) lacks a case: {cross_rows} "
+                 f"differing pairs across tile rows, {cross_cols} across "
+                 f"tile columns, {int((sizes == 0).sum())} empty bins")
+        print(f"check K10 edges, grid {grid}: {rows}x{pw} ({pw // 128} tile "
+              f"columns, width {W}), H {H} at pitch {ph}, C 1-4, "
+              f"{int((sizes == 0).sum())} empty bins, n_global "
+              f"{int(bins.n_global[0])}, {cross_rows} + {cross_cols} "
+              f"differing pairs across tile rows + columns: equal to K1 + "
+              f"K2", flush=True)
+    return worst
+
+
+def check_place_edges(dev):
+    """K11's edge cases, exactly against its plain version, each launched
+    once: P = 0; every slot dead; one live triangle; P cut inside the first
+    bin; P equal to the live entries; then a 6,000-entry bin and 70,000
+    tiles (:func:`check_place_synthetic`)."""
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+
+    rng = np.random.default_rng(9)
+    n_tiles, T, K = 300, 900, 8
+    base = rng.integers(0, n_tiles - K, size=(2, T, 1))
+    live_tid = np.where(np.arange(K) < rng.integers(0, K + 1, (2, T, 1)),
+                        base + np.arange(K), n_tiles)
+    dead = np.full((2, T, K), n_tiles)
+    one = dead.copy()
+    one[1, 417, :5] = [3, 4, 40, 41, 299]
+    first = int(np.bincount(live_tid[live_tid < n_tiles],
+                            minlength=n_tiles)[np.min(live_tid)])
+    n_live = int((live_tid < n_tiles).sum())
+    cases = [("P = 0", live_tid, 0), ("all dead", dead, 2 * T * K),
+             ("all dead, P = 0", dead, 0),
+             ("one live triangle", one, 2 * T * K),
+             ("one live triangle, P = 3", one, 3),
+             ("P inside the first bin", live_tid, max(first // 2, 1)),
+             ("P = live", live_tid, n_live)]
+    for name, tid, P in cases:
+        tile_ids = torch.as_tensor(tid.astype(np.int32), device=dev)
+        before = bp.place_pairs.launches
+        got = bp.place_pairs(tile_ids, n_tiles, P)
+        torch.cuda.synchronize()
+        want = bp.place_pairs_plain(tile_ids, n_tiles, P)
+        if not (bp.place_pairs.launches == before + 1
+                and torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            fail(f"K11 edge case {name}: differs from its plain version")
+    print(f"check K11 edges: {[c[0] for c in cases]}: exact", flush=True)
+    check_place_synthetic(dev)
+
+
 def check_k4_edges(dev, gen):
     """K4 (wrap and clamp) where the bench does not take it, against its
     plain version, on uv planes of 36 x 84 and 37 x 83 (part warps at the
@@ -816,17 +929,83 @@ def check_place_synthetic(dev):
 def k11_bound_ms(tile_ids, n_tiles, P):
     """K11's function: the pair slots read once, bin_start and the P
     entries written (bytes); one comparison a slot (operations, at the fp32
-    rate). The two-pass design moves more (:func:`k11_design_bytes`)."""
+    rate). Its design moves more (:func:`k11_design_bytes`)."""
     n = tile_ids.numel()
     return _bound(n * 4 + (n_tiles + 1) * 4 + P * 4, n)
 
 
-def k11_design_bytes(tile_ids, n_tiles, P, live):
-    """Bytes K11's count-then-place design moves: the slots read twice, the
-    counts written and read thrice, the live entries through the scratch
-    and back, bin_start and the P entries written."""
+def k11_blocks(tile_ids, n_tiles):
+    """K11's design as plain PyTorch: the block of each slot
+    (``bin_place_cuda.place_blocks``), the exclusive prefix of each block
+    in each tile over the blocks before it, and each live slot's rank
+    among its block's slots of its tile in slot order.
+
+    :return: (G, live mask (np,), tile (np,), block (np,), prefix (np,) of
+        the slot's block in its tile, rank (np,), block sizes (G, n_tiles)).
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+
+    B, T, K = tile_ids.shape
+    G, run = bp.place_blocks(B * T, K)
+    t = tile_ids.reshape(-1).long().cpu()
+    live = (t >= 0) & (t < n_tiles)
+    slot = torch.arange(t.numel())
+    block = slot // max(run, 1)
+    key = torch.where(live, block * n_tiles + t, G * n_tiles)
+    sizes = torch.bincount(key, minlength=G * n_tiles + 1)[:-1].reshape(
+        G, n_tiles)
+    prefix = torch.cumsum(sizes, 0) - sizes
+    order = torch.sort(key, stable=True)[1]
+    first = torch.cumsum(torch.bincount(key, minlength=G * n_tiles + 1),
+                         0) - torch.bincount(key, minlength=G * n_tiles + 1)
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(key.numel()) - first[key[order]]
+    pre = prefix.reshape(-1)[torch.clamp(key, max=G * n_tiles - 1)]
+    return G, live, t, block, pre, rank, sizes
+
+
+def k11_model(tile_ids, n_tiles, P):
+    """K11's placement by :func:`k11_blocks`: each live slot's triangle at
+    its tile's bin offset + its block's prefix + its rank, cut at P, the
+    sentinel past the live entries. Equals ``place_pairs_plain``.
+
+    :return: (bin_start (n_tiles + 1,), sorted_tri (P,)) int32."""
+    import torch
+
+    B, T, K = tile_ids.shape
+    _, live, t, _, pre, rank, sizes = k11_blocks(tile_ids, n_tiles)
+    tot = sizes.sum(0)
+    start = torch.cumsum(tot, 0) - tot
+    pos = start[torch.clamp(t, max=n_tiles - 1)] + pre + rank
+    n_live = int(tot.sum())
+    sorted_tri = torch.full((P,), B * T, dtype=torch.int32)
+    keep = live & (pos < P)
+    sorted_tri[pos[keep]] = (torch.arange(t.numel())[keep] // K).int()
+    bin_start = torch.clamp(torch.cat([start, torch.tensor([n_live])]),
+                            max=P).int()
+    return bin_start, sorted_tri
+
+
+def k11_design_bytes(tile_ids, n_tiles, P):
+    """What K11's design moves in device memory a call (its shared-memory
+    path), from :func:`k11_blocks`: the slots read twice (count, place);
+    the (G, n_tiles) block counts written, read and written by the column
+    scan, read three times by the placement (its own row and the next, for
+    its counts, then its own again for its prefixes); the tiles' totals
+    written and read by every block; bin_start and the P entries written. The staging and the rank
+    stay in shared memory.
+
+    :return: {"bytes", "launches", "blocks", "matrix_bytes"}."""
+    _, _, _, _, _, _, sizes = k11_blocks(tile_ids, n_tiles)
+    G = sizes.shape[0]
     n = tile_ids.numel()
-    return 2 * n * 4 + 4 * (n_tiles + 1) * 4 + 2 * live * 4 + P * 4
+    matrix = 4 * G * n_tiles * (1 + 2 + 3)
+    nbytes = (4 * 2 * n + matrix + 4 * (n_tiles + G * n_tiles)
+              + 4 * (n_tiles + 1 + P))
+    return {"bytes": nbytes, "launches": 3, "blocks": G,
+            "matrix_bytes": matrix}
 
 
 def write_take(root, wl):
@@ -1206,6 +1385,50 @@ def kernel_pairs(tex, k1, g_aa, k1s, height, width, sample_ph):
     return pairs, cot
 
 
+def view_place_pairs(tex, bins1, height, width, sample_ph, tile_ids,
+                     n_tiles, P):
+    """K10 and K11 on one state's inputs, as phase 6 and ``chip_turns.py``
+    time them. At the single view (bins ``bins1``): K10
+    (``fused_raster_aa``), the "sepaa" route's K1 + K2 on the same bins
+    (``sepaa``) and K1 alone (``fused_raster_view``). At the bench step's
+    batch and the autotuned cap (``tile_ids``, P): K11 (``bin_place``).
+
+    :return: {name: (kernel call, its plain version, or None)}.
+    """
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+
+    H, W, ph = height, width, sample_ph
+    pw = rc.pad_resolution(H, W)[1]
+
+    def sepaa():
+        k1 = rc.fused_raster(bins1, tex, ph, pw)
+        return (*k1, ac.antialias_planes(k1[0], k1[2], k1[4], H, W, ph))
+
+    return {
+        "fused_raster_aa": (
+            lambda: rc.fused_raster_aa(bins1, tex, ph, pw, H, W, ph),
+            lambda: rc.fused_raster_aa_plain(bins1, tex, ph, pw, H, W, ph)),
+        "sepaa": (sepaa, None),
+        "fused_raster_view": (lambda: rc.fused_raster(bins1, tex, ph, pw),
+                              None),
+        "bin_place": (lambda: bp.place_pairs(tile_ids, n_tiles, P),
+                      lambda: bp.place_pairs_plain(tile_ids, n_tiles, P)),
+    }
+
+
+def bin_sizes(tile_ids, n_tiles):
+    """The live pair slots of each tile (uncapped): (largest bin, mean bin
+    over all tiles, live slots)."""
+    import torch
+
+    counts = torch.bincount(tile_ids.reshape(-1).long(),
+                            minlength=n_tiles + 1)[:n_tiles]
+    live = int(counts.sum())
+    return int(counts.max()) if n_tiles else 0, live / max(n_tiles, 1), live
+
+
 def grad_spread(wl, n_runs: int = 3):
     """Phase 7: one bench step's forward and backward, ``n_runs`` times from
     the same state on the same batch (no optimizer update between them).
@@ -1329,9 +1552,9 @@ def k2_bound_ms(idbuf, payload, C, height, width, sample_ph):
     return _bound(px * 4 * (1 + 2 * C) + geom, 60 * pairs + 2 * 2 * px)
 
 
-def _diff_pairs(idbuf, height, width, sample_ph):
-    """(pairs whose ids differ, mask of the pixels in at least one such
-    pair), within the pair masks of K2/K3."""
+def _diff_pair_masks(idbuf, height, width, sample_ph):
+    """(h, v): the pixels whose pair to the right (h) or below (v) has ids
+    that differ, within the pair masks of K2/K3."""
     import torch
 
     rows, pw = idbuf.shape
@@ -1341,11 +1564,52 @@ def _diff_pairs(idbuf, height, width, sample_ph):
              < height - 1)[:-1, None]
     v = torch.zeros_like(h)
     v[:-1] = (idbuf[:-1] != idbuf[1:]) & vmask
+    return h, v
+
+
+def _diff_pairs(idbuf, height, width, sample_ph):
+    """(pairs whose ids differ, mask of the pixels in at least one such
+    pair), within the pair masks of K2/K3."""
+    h, v = _diff_pair_masks(idbuf, height, width, sample_ph)
     px = h.clone()
     px[:, 1:] |= h[:, :-1]
     px |= v
     px[1:] |= v[:-1]
     return int(h.sum() + v.sum()), px
+
+
+def k2_pair_evaluations(idbuf, height, width, sample_ph):
+    """(pairs whose ids differ, K2's evaluations of them): each such pair
+    once by the 32 x 8 tile of its a-pixel, and once more by the tile of
+    its b-pixel where that tile's halo holds the a-pixel (a horizontal pair
+    across a tile column, a vertical one across a tile row)."""
+    import torch
+
+    h, v = _diff_pair_masks(idbuf, height, width, sample_ph)
+    rows, pw = idbuf.shape
+    dev = idbuf.device
+    h_cross = h & ((torch.arange(pw, device=dev) + 1) % 32 == 0)[None]
+    v_cross = v & ((torch.arange(rows, device=dev) + 1) % 8 == 0)[:, None]
+    pairs = int(h.sum() + v.sum())
+    return pairs, pairs + int(h_cross.sum() + v_cross.sum())
+
+
+def k10_design_bytes(bins, rows, pw, C, tex, idbuf, payload, height, width,
+                     sample_ph):
+    """What K10's design moves: K1's work (:func:`k1_work`: its inputs
+    read, its planes written), then K2's design traffic on those planes
+    (:func:`k2_design_bytes`), in two launches; and the differing pairs K2
+    evaluates (:func:`k2_pair_evaluations`).
+
+    :return: {"bytes", "k1_bytes", "k2_bytes", "launches",
+        "differing_pairs", "pair_evaluations"}."""
+    k1_bytes = k1_work(bins, rows, pw, C, tex)[0]
+    k2_bytes = k2_design_bytes(idbuf, payload, C, height, width,
+                               sample_ph)[0]
+    pairs, evals = k2_pair_evaluations(idbuf, height, width, sample_ph)
+    return {"bytes": k1_bytes + k2_bytes, "k1_bytes": k1_bytes,
+            "k2_bytes": k2_bytes, "launches": 2, "differing_pairs": pairs,
+            "pair_evaluations": evals}
 
 
 def pair_geometry_bytes(idbuf, payload, height, width, sample_ph):
@@ -1742,8 +2006,9 @@ def main() -> int:
                   384, ph, label)
         check_place(state["pc"], wl["scene"].faces, 256, 384,
                     wl["config"].pair_cap, label)
-    check_place_synthetic(dev)
+    check_place_edges(dev)
     record["k2_edges_err"] = check_k2_edges(dev, gen)
+    record["k10_edges_err"] = check_k10_edges(dev, gen)
     record["k4_edges_err"] = check_k4_edges(dev, gen)
     record["mip_edges_err"] = check_mip_edges(dev, gen)
 
@@ -2139,6 +2404,16 @@ def main() -> int:
             "torch.empty": host_us(lambda: torch.empty((C, ph, pw),
                                                        device=dev), 200),
             "current stream": host_us(lambda: build.stream(dev), 200)}
+        # K10 at the single view: its kernels' device time beside the
+        # "sepaa" route's K1 and K2, and its design's traffic
+        k10_fn = t["fused_raster_aa"][0]
+        single["fused_raster_aa_device_kernels_ms"] = device_kernels_ms(
+            k10_fn, 20)
+        single["sepaa_device_kernels_ms"] = device_kernels_ms(
+            view_place_pairs(tex, bins1, H, W, ph, None, 0, 0)["sepaa"][0],
+            20)
+        single["fused_raster_aa_design"] = k10_design_bytes(
+            bins1, ph, pw, C, tex, k1s[0], k1s[2], H, W, ph)
         record["single_view_kernels"] = single
         print(f"single view kernels (CUDA events, ms; device ms by the "
               f"profiler): {single}", flush=True)
@@ -2258,14 +2533,10 @@ def main() -> int:
         bounds_k = torch.arange(n_tiles + 1, device=dev) * n_tri
         place_lib = cuda_ms(lambda: torch.searchsorted(
             torch.sort(keys)[0][:P], bounds_k), 20)
-        # K11's device time alone: the host takes longer to launch its
-        # kernels and small ops than the card takes to run them
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                bp.place_pairs(tile_ids, n_tiles, P)
-            torch.cuda.synchronize()
-        k11_dev = {name: ms / 20 for name, ms, _ in device_kernels(prof)}
+        # K11's device time by kernel, and the host's issue of one call
+        k11_dev = device_kernels_ms(t["bin_place"][0], 20)
+        k11_host = host_us(t["bin_place"][0], 200)
+        largest, mean_bin, _ = bin_sizes(tile_ids, n_tiles)
         # the count step's two paths at this batch, in turns: the
         # shared-memory histogram K11 takes here, and one device-memory
         # atomic a slot, its path past the card's shared memory
@@ -2294,21 +2565,27 @@ def main() -> int:
             tri = bp.place_pairs(tile_ids, n_tiles, Ps[name])[1]
             idx = torch.clamp(tri, max=n_tri - 1).long()
             gather[name] = cuda_ms(lambda: rec[idx], 20)
+        k11_design = k11_design_bytes(tile_ids, n_tiles, P)
         print(f"K11 {times['bin_place'][0]:.4f} ms (plain "
               f"{times['bin_place'][1]:.4f}, torch.sort + searchsorted "
-              f"{place_lib:.4f}); its device work "
-              f"{sum(k11_dev.values()):.4f} ms a call: " + ", ".join(
-                  f"{k[:40]} {v:.4f}" for k, v in k11_dev.items())
-              + f"; record gather {gather['autotuned']:.4f} ms "
+              f"{place_lib:.4f}); {k11_host:.1f} us of host issue a call; "
+              f"its device work {sum(k11_dev.values()):.4f} ms a call: "
+              + ", ".join(f"{k[:40]} {v:.4f}" for k, v in k11_dev.items())
+              + f"; {tile_ids.numel()} slots, K {tile_ids.shape[2]}, "
+              f"{n_tiles} tiles, largest bin {largest}, mean {mean_bin:.2f}; "
+              f"its design {k11_design}; record gather "
+              f"{gather['autotuned']:.4f} ms "
               f"at P = {Ps['autotuned']} against {gather['uncapped']:.4f} ms "
               f"uncapped (P = {Ps['uncapped']}); {live11} live", flush=True)
         record.update(gather_ms=gather, place_P=Ps, place_live=live11,
                       bin_place_device_ms=k11_dev,
+                      bin_place_host_issue_us=k11_host,
+                      bin_place_bins={"largest": largest, "mean": mean_bin,
+                                      "n_tiles": n_tiles},
                       bin_count_event_ms={"shared": count_ev[False],
                                           "device": count_ev[True]},
                       bin_count_device_ms=count_dev,
-                      bin_place_design_bytes=k11_design_bytes(
-                          tile_ids, n_tiles, P, live11))
+                      bin_place_design=k11_design)
         # the library yardstick of K6: one index_add_ of the live rows
         live = int(bins.bin_start[-1])
         idx = bins.sorted_tri[:live].long()

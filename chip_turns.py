@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Checkouts of this repository's port timed in turns on one GPU.
 
-    python3 chip_turns.py TREE [TREE ...] [--turns 2] [--paths bench,mip]
+    python3 chip_turns.py TREE [TREE ...] [--turns 2]
+                          [--paths bench,mip,view,place]
 
 Runs the trees in order and then in reverse (OLD, NEW, NEW, OLD for two
 trees and ``--turns 2``), each in a process of its own that
@@ -21,6 +22,16 @@ after the step's stages have run once, and the single view of its camera
 * K7 (``texture_fwd``, ``texture_fwd_clamp``) at the single view, with
   ``grid_sample`` (border padding: the clamp mode's function) beside it.
 
+At the single view and the bench step's batch
+(``chip_smoke.view_place_pairs``; "view", "place"): K10
+(``fused_raster_aa``), the "sepaa" route's K1 + K2 (``sepaa``) and K1
+alone at the view (``fused_raster_view``), each with the device time of
+every kernel it runs, and K1 at the bench batch (``fused_raster``, which
+K10 shares its kernel with); K11 (``bin_place``) at the bench step's
+batch and the autotuned cap, with the device time of each of its kernels,
+its host issue of one call, and the slots, tiles and largest and mean
+bin.
+
 On the bench-mip workload, after its step's stages have run once
 (``chip_smoke.mip_kernel_pairs``; "mip"): K8 (``mip_sample``) and K9
 (``mip_sample_bwd``, on K3's colour cotangent) at the bench-mip batch.
@@ -31,8 +42,8 @@ time of the kernels they ran, and K7 and ``grid_sample`` by the host's
 issue of one call. Each kernel is held against its plain version (max abs
 error over its outputs; K4's and K9's gtu and gtv only). Each run also
 records the ptxas register and spill lines, each after its kernel's
-name, of ``antialias``,
-``antialias_bwd``, ``texture_bwd``, ``texture_fwd`` and ``texture_mip`` (a
+name, of ``antialias``, ``antialias_bwd``, ``texture_bwd``,
+``texture_fwd``, ``texture_mip``, ``fused_raster`` and ``bin_place`` (a
 library reused from an earlier build of the tree prints none). Prints one
 JSON line a run and ends with the card's name and power limit; the runs
 also go to ``chiprun_out/chip_turns.json``.
@@ -48,9 +59,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # calls a window: the bench batch's kernels take 0.2-0.6 ms; the single
 # view's 7-90 us, so a window of theirs is longer to reach past the noise
 REPS = {"antialias": 20, "antialias_bwd": 20, "texture_bwd": 20,
+        "fused_raster": 20,
         "mip_sample": 20, "mip_sample_bwd": 20}
 SINGLE_VIEW_REPS = 200
-HOST_TIMED = ("texture_fwd", "texture_fwd_clamp", "grid_sample")
+HOST_TIMED = ("texture_fwd", "texture_fwd_clamp", "grid_sample",
+              "bin_place")
+# the device time of each kernel and memset they run, by name
+PER_KERNEL = ("fused_raster_aa", "sepaa", "fused_raster_view", "bin_place")
 
 
 def measure(tree: str, paths) -> dict:
@@ -75,10 +90,11 @@ def measure(tree: str, paths) -> dict:
                if "registers" in ln or "spill" in ln
                or "Function properties" in ln]
         for name in ("antialias", "antialias_bwd", "texture_bwd",
-                     "texture_fwd", "texture_mip")}}
+                     "texture_fwd", "texture_mip", "fused_raster",
+                     "bin_place")}}
     pairs = {}
     dev = torch.device("cuda")
-    if "bench" in paths:
+    if {"bench", "view", "place"} & set(paths):
         wl = build_workload(device=dev)
         H, W, B = wl["H"], wl["W"], wl["B"]
         ph, pw = rc.pad_resolution(H, W)
@@ -88,10 +104,32 @@ def measure(tree: str, paths) -> dict:
             fn()
         with torch.no_grad():
             tex = wl["params"]["tex"].detach()
-            k1 = rc.fused_raster(sstate["bins"], tex, B * ph, pw)
-            k1s = rc.fused_raster(cs.view_bins(wl), tex, ph, pw)
-            pairs.update(cs.kernel_pairs(tex, k1, sstate["g_aa"], k1s, H, W,
-                                         ph)[0])
+            bins1 = cs.view_bins(wl)
+            k1s = rc.fused_raster(bins1, tex, ph, pw)
+            if "bench" in paths:
+                k1 = rc.fused_raster(sstate["bins"], tex, B * ph, pw)
+                pairs.update(cs.kernel_pairs(tex, k1, sstate["g_aa"], k1s, H,
+                                             W, ph)[0])
+            tile_ids, n_tiles = rc.pair_tile_ids(
+                sstate["pc"].detach(), wl["scene"].faces, H, W)
+            P = rc.entry_count(B, wl["faces"].shape[0],
+                               wl["config"].pair_cap)
+            vp = cs.view_place_pairs(tex, bins1, H, W, ph, tile_ids,
+                                     n_tiles, P)
+            if "view" in paths:
+                pairs.update({k: v for k, v in vp.items()
+                              if k != "bin_place"})
+                # K1 at the bench batch, beside K10 which shares its code
+                pairs["fused_raster"] = (
+                    lambda: rc.fused_raster(sstate["bins"], tex, B * ph, pw),
+                    None)
+            if "place" in paths:
+                pairs["bin_place"] = vp["bin_place"]
+                largest, mean, live = cs.bin_sizes(tile_ids, n_tiles)
+                rec["bin_place_shape"] = {
+                    "slots": tile_ids.numel(), "P": P, "live": live,
+                    "K": tile_ids.shape[2], "n_tiles": n_tiles,
+                    "largest_bin": largest, "mean_bin": mean}
     if "mip" in paths:
         # the mip step's first batch: K9 on K3's colour cotangent
         wlm = build_workload(mip=True, device=dev)
@@ -120,6 +158,8 @@ def measure(tree: str, paths) -> dict:
                                        for a, b in zip(got, want))
             if name in HOST_TIMED:
                 r["host_issue_us"] = cs.host_us(fn, 200)
+            if name in PER_KERNEL:
+                r["device_kernels_ms"] = cs.device_kernels_ms(fn, reps)
             rec[name] = r
     return rec
 
@@ -128,8 +168,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--paths", default="bench,mip",
-                    help="workloads whose kernels to time: bench, mip")
+    ap.add_argument("--paths", default="bench,mip,view,place",
+                    help="kernel sets to time: bench, mip, view, place")
     ap.add_argument("--one", help="measure this tree (internal)")
     args = ap.parse_args()
     import torch

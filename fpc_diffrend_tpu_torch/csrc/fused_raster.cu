@@ -34,36 +34,32 @@
 // (~0.5 ms at 3.35 TB/s) and ~10 GFLOP of tests. All stores are
 // coalesced: a warp writes 32 consecutive pixels of a row of each plane.
 //
-// K10: K1 with the antialias in the same pass (fused_raster_aa_launch).
-// Replaces the antialias tail of the same TPU kernel (aa=True:
-// rasterize_tpu.py _aa_tile, _aa_empty_tile, the side outputs folded by
-// _fold_aa_sides). It computes what K2 computes over K1's planes (csrc/
-// antialias.cu; plain version: antialias_planes_plain of
-// fused_raster_plain), and still writes K1's outputs, which the backward
-// (K3-K5) reads. The TPU kernel walks the tiles in order and carries each
-// tile's last row and column to its neighbour through VMEM; blocks on the
-// H100 run in no order, so the carries become a second launch:
-//   * one block per 8x128 tile (1024 threads): each pixel resolves as in
-//     K1 (the same code, so ids, entries, payload, extra and colour are
-//     K1's exactly), writes them, and stores its packed antialias planes
-//     [id, z, corners, neighbours, colour] in shared memory; after a
-//     barrier each pixel whose four neighbours lie in the tile writes K2's
-//     sum for itself from shared memory (antialias_pair.cuh blend_pixel);
-//   * the seam launch then writes the tile's 268 border pixels (rows 0
-//     and 7, columns 0 and 127), the same sum read from the planes the
-//     first launch wrote to device memory.
-// Every pixel's aa is K2's sum in K2's order from the same floats, so it
-// equals K2's output exactly.
+// K10: K1 with the antialias (fused_raster_aa_launch). Replaces the
+// antialias tail of the same TPU kernel (aa=True: rasterize_tpu.py
+// _aa_tile, _aa_empty_tile, the side outputs folded by _fold_aa_sides),
+// which blends each tile while its planes are in VMEM and carries the
+// tile's last row and column to its neighbour between grid steps that run
+// in order. On the H100 the blend of a pixel pair across two blocks needs
+// both blocks' planes, and blocks run in no order, so a fused kernel pays
+// for that dependency. Device time at the bench's single view on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_turns.py, PERF.md): one
+// 1024-thread block a tile with a seam launch for the border pixels,
+// 0.223 ms; K1's row blocks as a thread-block cluster a tile, blending
+// through distributed shared memory, with a seam, 0.212 (the cluster
+// launch 0.010, its barriers 0.024, the seam 0.028); K1's kernel then
+// K2's, 0.167. So K10 launches this file's K1 kernel and then K2's
+// kernel (antialias_fwd.cuh, which K2's library builds too) from one
+// entry point: its ids, entries, payload, extra and colour are K1's and
+// its aa is K2's, exactly, by construction.
 //
 // Bound on the H100: the bytes, K1's plus the C aa planes written (4 C
-// bytes a pixel); the seam re-reads the border pixels' planes (~26 % of
-// the image) from L2. The in-tile blend saves K2's read of 11 + C planes
-// for the other ~74 %.
+// bytes a pixel); K2's reads of the planes K1 wrote are the price of the
+// two launches (chip_smoke.py k10_design_bytes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "antialias_pair.cuh"
+#include "antialias_fwd.cuh"
 
 namespace {
 
@@ -77,8 +73,6 @@ constexpr int N_EXTRA = 8;
 constexpr float BIG = 3.0e38f;
 constexpr float W_EPS = 1e-9f;
 constexpr float AREA_EPS = 1e-12f;
-constexpr int AA_THREADS = TILE_H * TILE_W;
-constexpr int SEAM_PX = 2 * TILE_W + 2 * (TILE_H - 2);   // border pixels
 
 __device__ __forceinline__ float plane(float a, float b, float c, float x,
                                        float y) {
@@ -108,11 +102,9 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return m < 0 ? m + n : m;
 }
 
-// One block of ROWS pixel rows of a tile. K1: ROWS = 1, 8 blocks a tile,
-// 128 threads. K10 (AA): ROWS = 8, one block a tile, and the in-tile
-// antialias from the packed planes in dynamic shared memory.
-template <int ROWS, bool AA>
-__global__ void __launch_bounds__(ROWS * TILE_W, 8 / ROWS)
+// One block of 128 threads, one pixel each, a pixel row of a tile: 8
+// blocks a tile.
+__global__ void __launch_bounds__(TILE_W, 8)
 fused_raster_kernel(const float* __restrict__ rec,
                     const float* __restrict__ glob,
                     const int* __restrict__ gbox,
@@ -122,18 +114,16 @@ fused_raster_kernel(const float* __restrict__ rec,
                     int gx, int gbase, int pw, int64_t plane_stride,
                     int* __restrict__ id_out, int* __restrict__ entry_out,
                     float* __restrict__ payload, float* __restrict__ extra,
-                    float* __restrict__ colour, int height, int width,
-                    int sample_ph, float* __restrict__ aa_out) {
-  constexpr int SPLIT = TILE_H / ROWS;    // blocks per tile
-  constexpr int THREADS = ROWS * TILE_W;
+                    float* __restrict__ colour) {
+  constexpr int THREADS = TILE_W;
   __shared__ __align__(16) float s_rec[CHUNK * NCOEF];
   __shared__ int s_box[CHUNK * 4];
 
-  const int tile = blockIdx.x / SPLIT;
+  const int tile = blockIdx.x / TILE_H;
   const int ti = tile / gx;
   const int tj = tile - ti * gx;
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int row = ti * TILE_H + (blockIdx.x % SPLIT) * ROWS + threadIdx.y;
+  const int tid = threadIdx.x;
+  const int row = ti * TILE_H + blockIdx.x % TILE_H;
   const int col_x = tj * TILE_W + threadIdx.x;
   const float x = (float)col_x + 0.5f;
   const float y = (float)row + 0.5f;
@@ -239,9 +229,6 @@ fused_raster_kernel(const float* __restrict__ rec,
   const int t1w = wrap(t0 + 1, th);
   const int s0w = wrap(s0, tw);
   const int t0w = wrap(t0, th);
-  // K10 keeps the packed antialias planes of the tile in shared memory:
-  // (11 + nchan) planes of THREADS [id, z, corners, neighbours, colour]
-  extern __shared__ float s_pk[];
   for (int c = 0; c < nchan; ++c) {
     const float c00 = tex[((int64_t)t0w * tw + s0w) * nchan + c];
     const float c01 = tex[((int64_t)t0w * tw + s1w) * nchan + c];
@@ -249,66 +236,19 @@ fused_raster_kernel(const float* __restrict__ rec,
     const float c11 = tex[((int64_t)t1w * tw + s1w) * nchan + c];
     const float top = c00 * (1.f - fs) + c01 * fs;
     const float bot = c10 * (1.f - fs) + c11 * fs;
-    const float value = top * (1.f - ft) + bot * ft;
-    colour[c * plane_stride + p] = value;
-    if (AA) s_pk[(aa::N_GEOM + c) * THREADS + tid] = value;
+    colour[c * plane_stride + p] = top * (1.f - ft) + bot * ft;
   }
-  if (!AA) return;
-
-  // ---- K10: the rest of the packed planes, then K2's sum for every pixel
-  // whose four neighbours are in the tile ----
-  s_pk[tid] = __int_as_float(hit ? (int)f[12] : -1);
-  s_pk[THREADS + tid] = pay[2];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) s_pk[(2 + k) * THREADS + tid] = pay[5 + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) s_pk[(8 + k) * THREADS + tid] = pay[11 + k];
-  __syncthreads();
-  const int ly = row - ti * TILE_H;
-  if (threadIdx.x == 0 || threadIdx.x == TILE_W - 1 || ly == 0 ||
-      ly == TILE_H - 1)
-    return;                            // a border pixel: the seam's
-  const aa::SharedPlanes planes{s_pk, THREADS};
-  float acc[aa::MAX_C];
-  aa::blend_pixel(planes, tid, TILE_W, row, col_x, nchan, height, width,
-                  sample_ph, acc);
-#pragma unroll
-  for (int c = 0; c < aa::MAX_C; ++c)
-    if (c < nchan) aa_out[c * plane_stride + p] = acc[c];
 }
 
-// K10's seam pass: K2's sum for the border pixels of every tile (rows 0 and
-// TILE_H - 1, then columns 0 and TILE_W - 1 of the rows between), read
-// from the planes the raster pass wrote.
-__global__ void __launch_bounds__(256)
-aa_seam_kernel(const int* __restrict__ idbuf,
-               const float* __restrict__ payload,
-               const float* __restrict__ colour, int n_tiles, int gx, int pw,
-               int64_t plane, int nchan, int height, int width,
-               int sample_ph, float* __restrict__ aa_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)n_tiles * SEAM_PX) return;
-  const int tile = (int)(i / SEAM_PX);
-  const int k = (int)(i - (int64_t)tile * SEAM_PX);
-  int ly, lx;
-  if (k < 2 * TILE_W) {
-    ly = k < TILE_W ? 0 : TILE_H - 1;
-    lx = k % TILE_W;
-  } else {
-    ly = 1 + (k - 2 * TILE_W) / 2;
-    lx = (k & 1) ? TILE_W - 1 : 0;
-  }
-  const int ti = tile / gx;
-  const int r = ti * TILE_H + ly;
-  const int x = (tile - ti * gx) * TILE_W + lx;
-  const int64_t p = (int64_t)r * pw + x;
-  const aa::GlobalPlanes planes{idbuf, payload, colour, plane};
-  float acc[aa::MAX_C];
-  aa::blend_pixel(planes, p, (int64_t)pw, r, x, nchan, height, width,
-                  sample_ph, acc);
-#pragma unroll
-  for (int c = 0; c < aa::MAX_C; ++c)
-    if (c < nchan) aa_out[c * plane + p] = acc[c];
+void launch_k1(const float* rec, const float* glob, const int* gbox,
+               const int* n_global, const int* bin_start, const float* tex,
+               int th, int tw, int nchan, int n_tiles, int gx, int gbase,
+               int rows, int* id_out, int* entry_out, float* payload,
+               float* extra, float* colour, cudaStream_t st) {
+  const int pw = gx * TILE_W;
+  fused_raster_kernel<<<n_tiles * TILE_H, TILE_W, 0, st>>>(
+      rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, gx, gbase, pw,
+      (int64_t)rows * pw, id_out, entry_out, payload, extra, colour);
 }
 
 }  // namespace
@@ -318,40 +258,28 @@ extern "C" int fused_raster_launch(
     const int* bin_start, const float* tex, int th, int tw, int nchan,
     int n_tiles, int gx, int gbase, int rows, int* id_out, int* entry_out,
     float* payload, float* extra, float* colour, void* stream) {
-  const int pw = gx * TILE_W;
-  fused_raster_kernel<1, false><<<n_tiles * TILE_H, dim3(TILE_W, 1), 0,
-                                  (cudaStream_t)stream>>>(
-      rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, gx, gbase, pw,
-      (int64_t)rows * pw, id_out, entry_out, payload, extra, colour, 0, 0, 1,
-      nullptr);
+  launch_k1(rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, n_tiles,
+            gx, gbase, rows, id_out, entry_out, payload, extra, colour,
+            (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
+// K10: K1's kernel, then K2's on the planes it wrote.
 extern "C" int fused_raster_aa_launch(
     const float* rec, const float* glob, const int* gbox, const int* n_global,
     const int* bin_start, const float* tex, int th, int tw, int nchan,
     int n_tiles, int gx, int gbase, int rows, int height, int width,
     int sample_ph, int* id_out, int* entry_out, float* payload, float* extra,
     float* colour, float* aa_out, void* stream) {
-  if (nchan < 1 || nchan > aa::MAX_C) return (int)cudaErrorInvalidValue;
   const int pw = gx * TILE_W;
-  const int64_t plane = (int64_t)rows * pw;
+  if (!aa_fwd::valid(rows, pw, nchan, sample_ph))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)(aa::N_GEOM + nchan) * AA_THREADS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_raster_kernel<TILE_H, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  launch_k1(rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, n_tiles,
+            gx, gbase, rows, id_out, entry_out, payload, extra, colour, st);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fused_raster_kernel<TILE_H, true><<<n_tiles, dim3(TILE_W, TILE_H), smem,
-                                      st>>>(
-      rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, gx, gbase, pw,
-      plane, id_out, entry_out, payload, extra, colour, height, width,
-      sample_ph, aa_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n_seam = (int64_t)n_tiles * SEAM_PX;
-  aa_seam_kernel<<<(unsigned)((n_seam + 255) / 256), 256, 0, st>>>(
-      id_out, payload, colour, n_tiles, gx, pw, plane, nchan, height, width,
-      sample_ph, aa_out);
+  aa_fwd::launch(st, id_out, payload, colour, rows, pw, nchan, height, width,
+                 sample_ph, aa_out);
   return (int)cudaGetLastError();
 }

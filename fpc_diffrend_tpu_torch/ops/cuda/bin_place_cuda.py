@@ -1,13 +1,14 @@
-"""K11: the counting-rank bin placement of the stacked binning.
+"""K11: the stable bin placement of the stacked binning.
 
 Port of ``fpc_diffrend_tpu.ops.pallas.rasterize_tpu``'s ``_place_pallas``
 (its ``_count_kernel`` and ``_place_kernel``) as the CUDA kernels of
-``csrc/bin_place.cu``: count the live (tile, triangle) pair slots per tile,
-scan the counts, then place each slot's triangle in its bin, ascending by
-triangle inside each bin, keeping the first P entries. The result equals
-the kept prefix of one sort of the keys ``tile * B * T + b * T + t``
-(``_place_sort``'s, for B = 1), which :func:`place_pairs_plain` takes with
-``torch.sort`` and ``torch.searchsorted``.
+``csrc/bin_place.cu``: count the live (tile, triangle) pair slots per tile
+and per block of slots, scan the counts, then place each slot's triangle
+in its bin, ascending by triangle inside each bin, keeping the first P
+entries. The result equals the kept prefix of one sort of the keys
+``tile * B * T + b * T + t`` (``_place_sort``'s, for B = 1), which
+:func:`place_pairs_plain` takes with ``torch.sort`` and
+``torch.searchsorted``.
 
 ``place_pairs`` runs the kernels for CUDA tensors and the plain version for
 CPU tensors. Its launches sit in a ``record_function`` range named
@@ -26,7 +27,27 @@ INT32_LIMIT = 1 << 31
 PROFILE_LABEL = "K11 bin_place"
 _PTR, _INT, _INT64 = build.PTR, build.INT, build.INT64
 _COUNT_ARGS = [_PTR, _INT64, _INT, _PTR, _INT, _PTR]
-_PLACE_ARGS = [_PTR, _INT64, _INT, _INT] + [_PTR] * 3 + [_INT] * 2 + [_PTR] * 2
+_PLACE_ARGS = ([_PTR, _INT64, _INT, _INT, _INT, _INT64, _INT] + [_PTR] * 4
+               + [_INT] * 2 + [_PTR] * 3)
+# the placement's blocks: at most one a streaming multiprocessor of the
+# H100 while each runs ~8 K slots or more (whole triangles), more where a
+# run would pass 16 K slots (a block stages its run in shared memory)
+PLACE_BLOCKS = 132
+PLACE_MIN_SLOTS = 8192
+PLACE_MAX_SLOTS = 16384
+# tiles whose int array fits a block's shared memory on the H100 (232,448
+# bytes opted in); past it the per-tile arrays live in device memory
+SMEM_TILES = 56 * 1024
+
+
+def place_blocks(n_tri: int, K: int):
+    """(G blocks, run slots a block) of the placement of ``n_tri``
+    triangles' K slots each: whole triangles a block, no block empty."""
+    n = n_tri * K
+    G = max(min(PLACE_BLOCKS, -(-n // PLACE_MIN_SLOTS)),
+            -(-n // PLACE_MAX_SLOTS), 1)
+    per_block = -(-n_tri // G)
+    return (-(-n_tri // per_block), per_block * K) if n_tri else (1, 0)
 
 
 def _check_args(tile_ids: Tensor, n_tiles: int, P: int) -> None:
@@ -105,22 +126,28 @@ def place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
         raise ValueError(f"place_pairs: unsupported device {dev}")
     B, T, K = tile_ids.shape
     np_slots = B * T * K
-    ptr, stream = build.ptr, build.stream(dev)
+    G, run = place_blocks(B * T, K)
+    in_dev = n_tiles > SMEM_TILES
+    # outputs and scratch in one allocation: bin_start, sorted_tri, then the
+    # tiles' totals, the (G, n_tiles) prefixes, the cursors where they do
+    # not fit shared memory and the staging of the device-memory path,
+    # passed by address (no view of the scratch is made; it lives as long
+    # as the outputs, which are views of the allocation)
+    sizes = [n_tiles, G * n_tiles, G * n_tiles if in_dev else 0, np_slots]
+    n_out = n_tiles + 1 + P
     with torch.profiler.record_function(PROFILE_LABEL):
         place_pairs.launches += 1
-        counts = count_pairs(tile_ids, n_tiles)
-        # the exclusive scan between the two launches, on the device
-        bin_start_full = torch.zeros((n_tiles + 1,), dtype=torch.int32,
-                                     device=dev)
-        torch.cumsum(counts, 0, dtype=torch.int32, out=bin_start_full[1:])
-        cursor = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
-        scratch = torch.empty((np_slots,), dtype=torch.int32, device=dev)
-        sorted_tri = torch.empty((P,), dtype=torch.int32, device=dev)
+        buf = torch.empty((n_out + sum(sizes),), dtype=torch.int32,
+                          device=dev)
+        base = buf.data_ptr()
+        tot, rows, cur, stage = (base + 4 * (n_out + sum(sizes[:i]))
+                                 for i in range(4))
         place = build.entry("bin_place", "bin_place_launch", _PLACE_ARGS)
-        build.check(place(ptr(tile_ids), np_slots, K, n_tiles,
-                          ptr(bin_start_full), ptr(cursor), ptr(scratch), P,
-                          B * T, ptr(sorted_tri), stream), "bin_place")
-        return torch.clamp(bin_start_full, max=P), sorted_tri
+        build.check(place(build.ptr(tile_ids), np_slots, K, n_tiles, G, run,
+                          int(in_dev), rows, tot, cur, stage, P, B * T, base,
+                          base + 4 * (n_tiles + 1), build.stream(dev)),
+                    "bin_place")
+        return buf[:n_tiles + 1], buf[n_tiles + 1:n_out]
 
 
 place_pairs.launches = 0

@@ -22,10 +22,10 @@ One deliberate difference: a triangle too large for the binning window
 the global list on every tile row the block spans, so a triangle of one
 sample that reaches past its image could cover pixels of the next sample.
 
-K10, the same pass with the antialias (K2) in its tail, is the CUDA kernel
-``csrc/fused_raster.cu`` ``fused_raster_aa_launch``: the port of the TPU
-kernel's ``aa=True`` mode (``_aa_tile``, ``_aa_empty_tile``,
-``_fold_aa_sides``).
+K10, the same pass with the antialias (K2), is ``csrc/fused_raster.cu``
+``fused_raster_aa_launch``: the port of the TPU kernel's ``aa=True`` mode
+(``_aa_tile``, ``_aa_empty_tile``, ``_fold_aa_sides``), which launches
+K1's kernel and then K2's.
 
 ``fused_raster`` and ``fused_raster_aa`` run their kernels for CUDA tensors
 and their plain PyTorch versions (``*_plain``) for CPU tensors.
@@ -570,7 +570,9 @@ def fused_raster_aa_plain(bins: Bins, tex: Tensor, rows: int, pw: int,
 
 def fused_raster_aa(bins: Bins, tex: Tensor, rows: int, pw: int,
                     height: int, width: int, sample_ph: int):
-    """K10: K1 with the silhouette antialias (K2) in the same pass.
+    """K10: K1 with the silhouette antialias (K2), from one entry point
+    that launches K1's kernel and then K2's on the planes it wrote (a
+    fused kernel measured slower on the H100: ``csrc/fused_raster.cu``).
 
     :param bins, tex, rows, pw: as for :func:`fused_raster`; C <= 4.
     :param height, width: one sample's real size (the antialias's pair

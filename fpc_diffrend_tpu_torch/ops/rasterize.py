@@ -17,7 +17,7 @@ picks one of three routes that compute the same image and gradients
 
 * ``"sepaa"``: K1 with its texture tail, then K2 (the JAX default, and
   the stacked batch's only route);
-* ``"aa_fused"``: K10, K1 with the antialias in the same pass
+* ``"aa_fused"``: K10, K1 with the antialias from one entry point
   (``FPC_AA_FUSE=1``, JAX's ``rasterize_texture_aa_fused``);
 * ``"separate"``: K1 without its texture tail, the standalone sampler K7,
   then K2 (``FPC_FUSE_TEX=0``).
@@ -127,10 +127,10 @@ class RasterizeTexturedSepaaStacked(torch.autograd.Function):
 
 
 class RasterizeTexturedAaFused(RasterizeTexturedSepaaStacked):
-    """K10 forward (K1 and K2 in one pass), the same backward K3 -> K4 ->
-    K5 -> K6 (JAX's ``_rasterize_texture_aa_fused_bwd``, which runs the
-    antialias backward over the planes K10 also writes). Arguments and
-    results as :class:`RasterizeTexturedSepaaStacked`."""
+    """K10 forward (K1 and K2 from one entry point), the same backward
+    K3 -> K4 -> K5 -> K6 (JAX's ``_rasterize_texture_aa_fused_bwd``, which
+    runs the antialias backward over the planes K10 also writes).
+    Arguments and results as :class:`RasterizeTexturedSepaaStacked`."""
 
     @staticmethod
     def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):

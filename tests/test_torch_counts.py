@@ -1,5 +1,5 @@
-"""The counts behind ``chip_smoke.py``'s bounds and design numbers for K2
-and K4, against brute-force numpy counts on small synthetic planes.
+"""The counts behind ``chip_smoke.py``'s bounds and design numbers, against
+brute-force numpy counts on small synthetic planes.
 
 * ``k2_bound_ms`` and ``k3_bound_ms``: the planes every pixel reads and
   writes, z for the covered pixels of a pair whose ids differ and the 9
@@ -19,9 +19,15 @@ and K4, against brute-force numpy counts on small synthetic planes.
   of two stacked samples with a minified band that reaches the coarse
   levels, an LOD below 0 and past the last level, runs of missed pixels at
   uv (0, 0) with a cotangent, and channels whose cotangent is 0.
-* ``kernel_pairs`` and ``mip_kernel_pairs``: the one set of inputs on
-  which phase 6 and ``chip_turns.py`` time K2, K3, K4, K7, K8 and K9 and
-  the library calls.
+* ``kernel_pairs``, ``mip_kernel_pairs`` and ``view_place_pairs``: the
+  one set of inputs on which phase 6 and ``chip_turns.py`` time K2, K3,
+  K4, K7, K8, K9, K10 and K11 and the library calls.
+* ``k11_blocks``, ``k11_model`` and ``k11_design_bytes``: K11's blocks,
+  each slot's block prefix and in-block rank against a slot-by-slot
+  count, the placement they give against ``place_pairs_plain`` on the
+  synthetic hot bin and 70,000 tiles, and the design's traffic.
+* ``k10_design_bytes``: K1's planes and inputs, K2's design traffic and
+  its pair evaluations on a small view.
 """
 
 import numpy as np
@@ -415,3 +421,163 @@ def test_mip_kernel_pairs_time_one_set_of_inputs():
         for a, b in zip(got, want, strict=True):
             assert torch.equal(a, b)
         assert bool(want[0].any())
+
+
+def _k11_inputs(case):
+    """The synthetic K11 inputs of ``chip_smoke.check_place_synthetic``: a
+    6,000-entry bin, and 70,000 tiles."""
+    rng = np.random.default_rng(5)
+    K = 8
+    n_tiles, T, hot = {"hot bin": (600, 3000, True),
+                       "70k tiles": (70000, 20000, False)}[case]
+    base = rng.integers(8, n_tiles - K, size=(2, T, 1))
+    tid = base + np.arange(K)
+    n_live = rng.integers(0, K + 1, size=(2, T, 1))
+    tid = np.where(np.arange(K) < n_live, tid, n_tiles)
+    if hot:
+        tid[:, :, 0] = 7
+    return tid.astype(np.int32), n_tiles
+
+
+@pytest.mark.parametrize("cut", ["uncapped", "half live", "inside a bin",
+                                 "none"])
+@pytest.mark.parametrize("case", ["hot bin", "70k tiles"])
+def test_k11_model_places_as_the_plain_version(case, cut):
+    """K11's design as plain PyTorch (``k11_model``: each live slot at its
+    bin's offset + its block's prefix + its rank in its block) equals
+    ``place_pairs_plain`` on the synthetic inputs, at every cut."""
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+
+    tid, n_tiles = _k11_inputs(case)
+    live = int((tid < n_tiles).sum())
+    P = {"uncapped": tid.size, "half live": live // 2,
+         "inside a bin": int(np.bincount(tid[tid < n_tiles])[7]) // 2 + 3,
+         "none": 0}[cut]
+    tile_ids = torch.as_tensor(tid)
+    got = cs.k11_model(tile_ids, n_tiles, P)
+    want = bp.place_pairs_plain(tile_ids, n_tiles, P)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _k11_brute(tid, n_tiles):
+    """G, and each live slot's block prefix and in-block rank, slot by
+    slot: blocks of whole triangles, at most 132 while each runs 8,192
+    slots or more, more where a run would pass 16,384."""
+    B, T, K = tid.shape
+    n = tid.size
+    G = max(min(132, -(-n // 8192)), -(-n // 16384), 1)
+    per = -(-(B * T) // G)
+    G = -(-(B * T) // per)
+    flat = tid.reshape(-1)
+    seen_before = {}                 # tile -> entries in earlier blocks
+    prefix, rank = {}, {}
+    for j in range(G):
+        in_block = {}
+        for i in range(j * per * K, min((j + 1) * per * K, n)):
+            t = int(flat[i])
+            if t >= n_tiles:
+                continue
+            prefix[i] = seen_before.get(t, 0)
+            rank[i] = in_block.get(t, 0)
+            in_block[t] = rank[i] + 1
+        for t, c in in_block.items():
+            seen_before[t] = seen_before.get(t, 0) + c
+    return G, prefix, rank
+
+
+def test_k11_blocks_and_design_bytes_match_brute_force():
+    """``k11_blocks`` (the blocks, each slot's block prefix and in-block
+    rank) against a slot-by-slot count, and ``k11_design_bytes`` from its
+    parts: the slots twice, the (G, n_tiles) matrix six times, the totals
+    written and read by every block, the outputs."""
+    tid, n_tiles = _k11_inputs("hot bin")
+    tile_ids = torch.as_tensor(tid)
+    G, live, _, _, pre, rank, sizes = cs.k11_blocks(tile_ids, n_tiles)
+    G_b, prefix_b, rank_b = _k11_brute(tid, n_tiles)
+    assert G == G_b == sizes.shape[0]
+    idx = torch.nonzero(live).reshape(-1).tolist()
+    assert sorted(prefix_b) == idx
+    assert [int(pre[i]) for i in idx] == [prefix_b[i] for i in idx]
+    assert [int(rank[i]) for i in idx] == [rank_b[i] for i in idx]
+    P = 5000
+    n = tid.size
+    want = (4 * 2 * n + 4 * G * n_tiles * 6 + 4 * (n_tiles + G * n_tiles)
+            + 4 * (n_tiles + 1 + P))
+    got = cs.k11_design_bytes(tile_ids, n_tiles, P)
+    assert got == {"bytes": want, "launches": 3, "blocks": G,
+                   "matrix_bytes": 4 * G * n_tiles * 6}
+
+
+def test_k10_design_counts_match_brute_force():
+    """``k10_design_bytes`` on a small view on the CPU: K1's planes
+    written and its bins and texture read (counted from the tensors), K2's
+    design traffic (``k2_design_bytes``), and K2's pair evaluations pair by
+    pair: each differing pair once, and again where it crosses a 32 x 8
+    tile's left column or top row into the halo of the next tile."""
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, device="cpu")
+    H, W = wl["H"], wl["W"]
+    ph, pw = rc.pad_resolution(H, W)
+    tex = wl["params"]["tex"].detach()
+    bins = cs.view_bins(wl)
+    k1 = rc.fused_raster(bins, tex, ph, pw)
+    C = tex.shape[2]
+    live = int(bins.bin_start[-1])
+    k1_bytes = (sum(o.numel() * o.element_size() for o in k1)
+                + (live + int(bins.n_global[0])) * 32 * 4
+                + bins.bin_start.numel() * 4 + tex.numel() * 4)
+    idbuf = k1[0].numpy()
+    pairs = evals = 0
+    for a, b in _pairs(ph, pw, H, W, ph):
+        if idbuf[a] == idbuf[b]:
+            continue
+        pairs += 1
+        evals += 1
+        horiz = a[0] == b[0]
+        evals += (b[1] % 32 == 0) if horiz else (b[0] % 8 == 0)
+    got = cs.k10_design_bytes(bins, ph, pw, C, tex, k1[0], k1[2], H, W, ph)
+    k2_bytes = cs.k2_design_bytes(k1[0], k1[2], C, H, W, ph)[0]
+    assert pairs > 10 and evals > pairs
+    assert got == {"bytes": k1_bytes + k2_bytes, "k1_bytes": k1_bytes,
+                   "k2_bytes": k2_bytes, "launches": 2,
+                   "differing_pairs": pairs, "pair_evaluations": evals}
+
+
+def test_view_place_pairs_time_one_set_of_inputs():
+    """``view_place_pairs`` on a small workload on the CPU: K10 equals K1's
+    planes and K2 on them (the "sepaa" pair), K1 at the view is those
+    planes, and K11 at the step's batch and cap equals its plain version;
+    ``bin_sizes`` counts the live slots of each tile."""
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.profile_forward import step_stages
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, device="cpu")
+    H, W, B = wl["H"], wl["W"], wl["B"]
+    ph, _ = rc.pad_resolution(H, W)
+    state = {}
+    for _, fn in step_stages(wl, state):
+        fn()
+    with torch.no_grad():
+        tex = wl["params"]["tex"].detach()
+        tile_ids, n_tiles = rc.pair_tile_ids(state["pc"].detach(),
+                                             wl["scene"].faces, H, W)
+        P = rc.entry_count(B, wl["faces"].shape[0], wl["config"].pair_cap)
+        pairs = cs.view_place_pairs(tex, cs.view_bins(wl), H, W, ph,
+                                    tile_ids, n_tiles, P)
+        assert set(pairs) == {"fused_raster_aa", "sepaa",
+                              "fused_raster_view", "bin_place"}
+        k10 = pairs["fused_raster_aa"][0]()
+        for a, b in zip(k10, pairs["sepaa"][0](), strict=True):
+            assert torch.equal(a, b)
+        for a, b in zip(k10, pairs["fused_raster_view"][0](), strict=False):
+            assert torch.equal(a, b)
+        got, want = pairs["bin_place"][0](), pairs["bin_place"][1]()
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        largest, mean, live = cs.bin_sizes(tile_ids, n_tiles)
+        counts = np.bincount(tile_ids.numpy().reshape(-1),
+                             minlength=n_tiles + 1)[:n_tiles]
+        assert (largest, live) == (int(counts.max()), int(counts.sum()))
+        assert mean == pytest.approx(counts.sum() / n_tiles)

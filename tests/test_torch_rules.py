@@ -356,6 +356,29 @@ def test_k7_and_k10_match_plain_versions_on_the_card(card):
 
 
 @pytest.mark.cuda
+def test_bin_place_edges_match_plain_version_on_the_card(card):
+    """K11 equals its plain version exactly at P = 0, with every slot
+    dead, with one live triangle, with P inside the first bin and P equal
+    to the live entries, on a 6,000-entry bin and on 70,000 tiles
+    (``chip_smoke.check_place_edges``)."""
+    import chip_smoke
+
+    chip_smoke.check_place_edges(card)
+
+
+@pytest.mark.cuda
+def test_k10_edges_match_k1_and_k2_on_the_card(card):
+    """K10 equals K1 + K2 exactly with C = 1 to 4, a partial last tile
+    column, stacked samples at their pitch, empty bins and silhouettes
+    across tile rows and columns (``chip_smoke.check_k10_edges``)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    assert chip_smoke.check_k10_edges(card, gen) == 0.0
+
+
+@pytest.mark.cuda
 def test_k2_edges_match_plain_version_on_the_card(card):
     """K2 against its plain version within 1e-6 where the bench's shapes do
     not take it: a width no multiple of 32, rows no multiple of 8, padding

@@ -24,14 +24,19 @@ Phases, each fatal on failure:
    (gtu/gtv within 1e-6, wrap and clamp), K8 and K9 on the 7-level pyramid
    with the real LOD and with a random LOD plane past both clamps (K8 and
    K9's gtu/gtv within 1e-6: each pixel's own sums, in the plain
-   version's order; only the gradient pyramid sums across pixels), and K4's
-   gtex, K9's gradient pyramid, K5's and K6's rows, whose atomics sum in
+   version's order; only the gradient pyramid sums across pixels), K4's
+   gtex, K9's gradient pyramid and K5's rows, whose atomics sum in
    another order, each element within 1e-5 of the sum of the magnitudes
-   it adds up; and K11 (bin placement) equal to its plain version exactly
+   it adds up, K6 (the fold) equal to its plain version exactly and bit
+   for bit over two calls; and K11 (bin placement) equal to its plain
+   version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
-   at a cap of half the live entries, which drops entries; then K11, K2,
-   K10, K4, K8 and K9 where the bench's shapes do not take them
-   (``check_place_edges``: P = 0, every slot dead, one live triangle, P
+   at a cap of half the live entries, which drops entries; then K11, K6,
+   K2, K10, K4, K8 and K9 where the bench's shapes do not take them
+   (``check_fold_edges``: P = 0, a cap that cuts a bin, every slot dead,
+   a full global list, triangles naming fewer than K tiles, global rows,
+   B = 1, with NaN rows past the live prefix and past n_global;
+   ``check_place_edges``: P = 0, every slot dead, one live triangle, P
    inside the first bin, P equal to the live entries, a 6,000-entry bin,
    70,000 tiles; ``check_k2_edges``, ``check_k10_edges``,
    ``check_k4_edges``, ``check_mip_edges``: ragged tiles, padding rows
@@ -99,7 +104,11 @@ Phases, each fatal on failure:
    mean bin, and the traffic and launches of its design
    (``k11_design_bytes``), the record gather's time capped and uncapped,
    K11's count step by its shared-memory histogram against device-memory
-   atomics, in turns; at the single view K10's kernels' device time
+   atomics, in turns; K6's device time and the traffic, search probes and
+   found rows of its design (``k6_design_bytes``) beside the time of
+   ``index_add_`` of the live rows, and K5 then K6 at the single view
+   (B = 1), K6 exactly its plain version; at the single view K10's
+   kernels' device time
    beside the "sepaa" route's K1 and K2, and its design's traffic and
    pair evaluations (``k10_design_bytes``); K3's
    device time (profiler), host issue and the bytes its design moves; at
@@ -144,11 +153,11 @@ K3_ATOL = 1e-6                 # deterministic, the plain version's order
 K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 K8_ATOL = 1e-6                 # each pixel in the plain version's order
 K9_ATOL = 1e-6                 # gtu, gtv: each pixel's own sums, in order
-ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5/K6 rows: atomics reorder sums
+ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5 rows: atomics reorder sums
 K10_ATOL = 1e-6                # aa against K2 on the same planes
 MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
 # gradients from run to run (phases 5d and 7): the sums that atomics take
-# in another order each run (K4's texture, K5, K6, the setup chain's index
+# in another order each run (K4's texture, K5, the setup chain's index
 # backward) may spread by this much of a gradient's largest magnitude.
 # Screen-space terms cancel, so an element's rounding reaches 1e-3 to
 # 1.5e-3 of the largest in some runs on the H100 (a vertex gradient, the
@@ -366,14 +375,10 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
         "K5 entries rel": atomic_err(k5[0][:live], p5[0][:live],
                                      m5[0][:live]),
         "K5 global rel": atomic_err(k5[1], p5[1], m5[1])})
-    k6 = gc.fold_entries(*k5, bins, n_tris)
-    torch.cuda.synchronize()
-    p6 = gc.fold_entries_plain(*k5, bins, n_tris)
-    errs["K6 rel"] = atomic_err(k6, p6, gc.fold_entries_plain(
-        k5[0].abs(), k5[1].abs(), bins, n_tris))
-    if not max(errs["K5 entries rel"], errs["K5 global rel"],
-               errs["K6 rel"]) <= ATOMIC_RTOL:
-        fail(f"{label}: K5/K6 differ from the plain versions: {errs}")
+    if not max(errs["K5 entries rel"], errs["K5 global rel"]) <= ATOMIC_RTOL:
+        fail(f"{label}: K5 differs from the plain version: {errs}")
+    k6 = check_fold(k5, bins, n_tris, label)
+    errs["K6"] = 0.0                   # check_fold fails unless exact
     print(f"check {label}: backward max err {errs}", flush=True)
     abs_errs = {
         "antialias_bwd": max(errs["K3 gcolour"], errs["K3 gverts"]),
@@ -381,8 +386,123 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
                            max_err(k4[0], p4[0])),
         "pixel_grad": max(max_err(k5[0][:live], p5[0][:live]),
                           max_err(k5[1], p5[1])),
-        "fold_entries": max_err(k6, p6)}
+        "fold_entries": 0.0}
     return errs, abs_errs, (k3, k4, k5, k6, gpl)
+
+
+def check_fold(k5, bins, n_tris, label):
+    """K6 on K5's rows ``k5`` against its plain version: equal exactly, and
+    bit for bit over two calls on one input, each call one launch.
+
+    :return: K6's output.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+
+    before = gc.fold_entries.launches
+    k6 = gc.fold_entries(*k5, bins, n_tris)
+    again = gc.fold_entries(*k5, bins, n_tris)
+    torch.cuda.synchronize()
+    if gc.fold_entries.launches != before + 2:
+        fail(f"{label}: K6 launched {gc.fold_entries.launches - before} "
+             "times in two calls")
+    p6 = gc.fold_entries_plain(*k5, bins, n_tris)
+    if not torch.equal(k6, p6):
+        fail(f"{label}: K6 differs from its plain version by "
+             f"{max_err(k6, p6)}")
+    if not torch.equal(k6.view(torch.int32), again.view(torch.int32)):
+        fail(f"{label}: K6 differs from itself over two calls")
+    return k6
+
+
+# K6's edge cases (check_fold_edges, fold_case)
+FOLD_EDGE_CASES = ("uncapped", "P = 0", "cap cuts a bin", "all dead",
+                   "all dead, global list full", "global rows", "B = 1")
+
+
+def fold_case(name, dev, seed=11):
+    """K6's inputs in one edge case of :data:`FOLD_EDGE_CASES`, from a
+    seed: 2 samples (1 for "B = 1") of 901 triangles over 150 tiles each;
+    a live triangle names 1 to K tiles of its own sample, most fewer than
+    K; placed by K11's plain version at a cap P; the global list holds
+    triangles none of whose slots names a tile, ascending. The rows are
+    normal draws, NaN past the live prefix and past ``n_global``: no fold
+    may read them.
+
+    :return: (grad_entries, grad_global, Bins, n_tris).
+    """
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+
+    rng = np.random.default_rng(seed)
+    B, T, K, n_s = (1 if name == "B = 1" else 2), 901, gc.WINDOW, 150
+    n_tiles = B * n_s
+    base = rng.integers(0, n_s - K, size=(B, T, 1)) + (
+        np.arange(B) * n_s)[:, None, None]
+    n_slots = rng.integers(0, K + 1, size=(B, T, 1))
+    tid = np.where(np.arange(K) < n_slots, base + np.arange(K), n_tiles)
+    if name.startswith("all dead"):
+        tid[:] = n_tiles
+    tile_ids = torch.as_tensor(tid.astype(np.int32), device=dev)
+    P = tid.size
+    if name == "P = 0":
+        P = 0
+    elif name == "cap cuts a bin":
+        bs = bp.place_pairs_plain(tile_ids, n_tiles, P)[0].cpu().numpy()
+        mid = int(np.searchsorted(bs, bs[-1] // 2, side="right")) - 1
+        P = int(bs[mid] + (bs[mid + 1] - bs[mid]) // 2)
+        if not bs[mid] < P < bs[mid + 1]:
+            fail(f"K6 edge case {name}: bin {mid} is too small to cut")
+    bin_start, sorted_tri = bp.place_pairs_plain(tile_ids, n_tiles, P)
+    n_live = int(bin_start[-1])
+    none = np.flatnonzero((tid >= n_tiles).all(-1).reshape(-1))
+    n_global = {"all dead, global list full": gc.MAX_GLOBAL,
+                "global rows": len(none), "B = 1": 40}.get(name, 0)
+    gids = none[:n_global]
+    n_global = len(gids)
+    gbase = P + rc.CHUNK + (-P) % rc.CHUNK
+
+    def rows(n, live):
+        r = rng.standard_normal((n, rc.REC)).astype(np.float32)
+        r[live:] = np.nan
+        return torch.as_tensor(r, device=dev)
+
+    global_idx = np.full(gc.MAX_GLOBAL, B * T, np.int32)
+    global_idx[:n_global] = gids
+    bins = rc.Bins(
+        sorted_rec=torch.zeros((gbase, rc.REC), device=dev),
+        bin_start=bin_start, global_rec=torch.zeros((gc.MAX_GLOBAL, rc.REC),
+                                                    device=dev),
+        n_global=torch.tensor([n_global], dtype=torch.int32, device=dev),
+        sorted_tri=sorted_tri,
+        global_idx=torch.as_tensor(global_idx, device=dev),
+        global_bbox=torch.zeros((gc.MAX_GLOBAL, 4), dtype=torch.int32,
+                                device=dev),
+        tile_ids=tile_ids)
+    return rows(gbase, n_live), rows(gc.MAX_GLOBAL, n_global), bins, B * T
+
+
+def check_fold_edges(dev, names=FOLD_EDGE_CASES):
+    """K6's edge cases (:func:`fold_case`), each exactly its plain version,
+    bit-equal over two calls and finite (the NaN rows unread)."""
+    import torch
+
+    seen = []
+    for name in names:
+        ge, gg, bins, n_tris = fold_case(name, dev)
+        k6 = check_fold((ge, gg), bins, n_tris, f"K6 edge case {name}")
+        if not bool(torch.isfinite(k6).all()):
+            fail(f"K6 edge case {name}: the fold read a row it must not")
+        seen.append(f"{name} (P {bins.sorted_tri.numel()}, live "
+                    f"{int(bins.bin_start[-1])}, n_global "
+                    f"{int(bins.n_global[0])})")
+    print(f"check K6 edges: {seen}: exact, bit-equal over two calls",
+          flush=True)
 
 
 def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
@@ -1213,7 +1333,7 @@ def single_view(wl, counters, gen, take):
         rec["ms"][route] = {"forward": fwd, "forward_backward": both,
                             "forward_host": host, "forward_device": busy}
     # The routes' planes are equal bit for bit (phase 3), so their
-    # gradients differ only by the order of the atomic sums (K4, K5, K6,
+    # gradients differ only by the order of the atomic sums (K4, K5,
     # the index backward of the setup chain). The texture's sums have
     # terms of one size: within ATOMIC_RTOL of the largest magnitude. The
     # vertex gradient sums terms of screen-coordinate size that cancel:
@@ -1432,7 +1552,7 @@ def bin_sizes(tile_ids, n_tiles):
 def grad_spread(wl, n_runs: int = 3):
     """Phase 7: one bench step's forward and backward, ``n_runs`` times from
     the same state on the same batch (no optimizer update between them).
-    The sums taken with atomics (K4's texture, K5, K6, the setup chain's
+    The sums taken with atomics (K4's texture, K5, the setup chain's
     index backward) add in another order each run.
 
     :return: parameter name -> the largest |g_run - g_first| over the runs,
@@ -1905,6 +2025,65 @@ def k6_bound_ms(bins, n_tris):
     return _bound(rows * (27 * 4 + 4) + n_tris * 128, 27 * rows)
 
 
+def _search_probes(a, lo, hi, t):
+    """K6's binary search of each ``t`` in the ascending ``a[lo, hi)``, all
+    at once: (probes of ``a`` each search makes, found position or -1)."""
+    import torch
+
+    probes = torch.zeros_like(lo)
+    pos = torch.full_like(lo, -1)
+    active = lo < hi
+    while bool(active.any()):
+        mid = (lo + hi) // 2
+        v = a[torch.where(active, mid, 0)].long()
+        probes += active
+        hit = active & (v == t)
+        pos = torch.where(hit, mid, pos)
+        lo = torch.where(active & (v < t), mid + 1, lo)
+        hi = torch.where(active & (v > t), mid, hi)
+        active = active & ~hit & (lo < hi)
+    return probes, pos
+
+
+def k6_design_bytes(tile_ids, bins):
+    """The traffic of K6's gather design on ``bins`` (whose slots are
+    ``tile_ids``, (B, T, K)), counted slot by slot as the kernel searches:
+    the found rows, read whole (128 bytes each), the tile ids (4 bytes a
+    slot), the global rows taken and the (B*T, 32) rows written, in
+    device memory; beside them the searches' probes of ``sorted_tri`` and
+    of ``global_idx`` (4 bytes each, from the L2) and the bin bounds (8
+    bytes a live slot).
+
+    :return: dict of bytes by part, their "total", its "ms" at the HBM
+        rate, and the probe counts.
+    """
+    import torch
+
+    n_tiles = bins.bin_start.numel() - 1
+    tid = tile_ids.reshape(-1, tile_ids.shape[-1]).long()
+    n_tris = tid.shape[0]
+    tri = torch.arange(n_tris, device=tid.device)
+    bs = bins.bin_start.long()
+    live = tid < n_tiles
+    probes, pos = _search_probes(bins.sorted_tri, bs[tid[live]],
+                                 bs[tid[live] + 1],
+                                 tri[:, None].expand_as(tid)[live])
+    none = tri[~live.any(1)]
+    g_probes, g_pos = _search_probes(
+        bins.global_idx, torch.zeros_like(none),
+        bins.n_global.long().expand_as(none), none)
+    found, g_found = int((pos >= 0).sum()), int((g_pos >= 0).sum())
+    parts = {"rows": 128 * found, "tile_ids": 4 * tid.numel(),
+             "global_rows": 128 * g_found, "out": 128 * n_tris}
+    total = sum(parts.values())
+    return {**parts, "total": total, "ms": total / HBM_BYTES_PER_S * 1e3,
+            "found": found, "live_slots": int(live.sum()),
+            "probes": int(probes.sum()),
+            "max_probes": int(probes.max()) if probes.numel() else 0,
+            "global_found": g_found, "global_probes": int(g_probes.sum()),
+            "bin_bounds": 8 * int(live.sum())}
+
+
 KERNELS = {       # K1 .. K11
     "fused_raster": ("csrc/fused_raster.cu", "rasterize_tpu.py:1055"),
     "antialias": ("csrc/antialias.cu", "antialias_tpu.py:184"),
@@ -2007,6 +2186,7 @@ def main() -> int:
         check_place(state["pc"], wl["scene"].faces, 256, 384,
                     wl["config"].pair_cap, label)
     check_place_edges(dev)
+    check_fold_edges(dev)
     record["k2_edges_err"] = check_k2_edges(dev, gen)
     record["k10_edges_err"] = check_k10_edges(dev, gen)
     record["k4_edges_err"] = check_k4_edges(dev, gen)
@@ -2592,6 +2772,21 @@ def main() -> int:
         src = k5[0][:live][:, gc.LIVE_SLOTS].contiguous()
         acc = torch.zeros((B * T, len(gc.LIVE_SLOTS)), device=dev)
         fold_lib = cuda_ms(lambda: acc.index_add_(0, idx, src), 20)
+        # K6: its device time, its design's traffic beside index_add_'s
+        # time, and exact at the single view (B = 1) on a random cotangent
+        k6_design = k6_design_bytes(bins.tile_ids, bins)
+        k6_dev = device_kernels_ms(t["fold_entries"][0], 20)
+        gpl1 = torch.randn((gc.N_GPL, ph, pw), device=dev, generator=gen)
+        check_fold(gc.pixel_grad(bins1, k1s[1], k1s[2][0], k1s[2][1],
+                                 k1s[3], gpl1), bins1, T, "single view")
+        record.update(fold_entries_design=k6_design,
+                      fold_entries_device_ms=k6_dev,
+                      fold_entries_index_add_ms=fold_lib)
+        print(f"K6 at the bench batch: {times['fold_entries'][0]:.4f} ms "
+              f"(CUDA events), device {k6_dev}; its design moves "
+              f"{k6_design['total'] / 1e6:.1f} MB ({k6_design['ms']:.4f} ms "
+              f"at 3.35 TB/s): {k6_design}; index_add_ of the live rows "
+              f"{fold_lib:.4f} ms; exact at the single view", flush=True)
     bounds = {
         "fused_raster": k1_bound_ms(bins, rows, pw, C, tex)[:2],
         "antialias": k2_bound_ms(idbuf, payload, C, H, W, ph),

@@ -2,7 +2,7 @@
 """Checkouts of this repository's port timed in turns on one GPU.
 
     python3 chip_turns.py TREE [TREE ...] [--turns 2]
-                          [--paths bench,mip,view,place]
+                          [--paths bench,mip,view,place,grad]
 
 Runs the trees in order and then in reverse (OLD, NEW, NEW, OLD for two
 trees and ``--turns 2``), each in a process of its own that
@@ -32,6 +32,13 @@ batch and the autotuned cap, with the device time of each of its kernels,
 its host issue of one call, and the slots, tiles and largest and mean
 bin.
 
+At the bench batch, on the step's own cotangents (its K1 planes, K4's and
+K3's payload cotangents, K5's rows; "grad"): K5 (``pixel_grad``) and K6
+(``fold_entries``), each with the device time of every kernel and memset
+it runs and its host issue of one call, and the traffic, search probes
+and found rows of K6's gather design (``chip_smoke.k6_design_bytes``;
+the same count on either tree: it reads only the bins).
+
 On the bench-mip workload, after its step's stages have run once
 (``chip_smoke.mip_kernel_pairs``; "mip"): K8 (``mip_sample``) and K9
 (``mip_sample_bwd``, on K3's colour cotangent) at the bench-mip batch.
@@ -40,10 +47,11 @@ Each by CUDA events over back-to-back calls (20 at the bench and
 bench-mip batches, 200 at the single view) and by the profiler's device
 time of the kernels they ran, and K7 and ``grid_sample`` by the host's
 issue of one call. Each kernel is held against its plain version (max abs
-error over its outputs; K4's and K9's gtu and gtv only). Each run also
-records the ptxas register and spill lines, each after its kernel's
-name, of ``antialias``, ``antialias_bwd``, ``texture_bwd``,
-``texture_fwd``, ``texture_mip``, ``fused_raster`` and ``bin_place`` (a
+error over its outputs; K4's and K9's gtu and gtv only; K5's live rows
+only). Each run also records the ptxas register and spill lines, each
+after its kernel's name, of ``antialias``, ``antialias_bwd``,
+``texture_bwd``, ``texture_fwd``, ``texture_mip``, ``fused_raster``,
+``bin_place`` and ``raster_grad`` (a
 library reused from an earlier build of the tree prints none). Prints one
 JSON line a run and ends with the card's name and power limit; the runs
 also go to ``chiprun_out/chip_turns.json``.
@@ -59,18 +67,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # calls a window: the bench batch's kernels take 0.2-0.6 ms; the single
 # view's 7-90 us, so a window of theirs is longer to reach past the noise
 REPS = {"antialias": 20, "antialias_bwd": 20, "texture_bwd": 20,
-        "fused_raster": 20,
+        "fused_raster": 20, "pixel_grad": 20, "fold_entries": 20,
         "mip_sample": 20, "mip_sample_bwd": 20}
 SINGLE_VIEW_REPS = 200
 HOST_TIMED = ("texture_fwd", "texture_fwd_clamp", "grid_sample",
-              "bin_place")
+              "bin_place", "pixel_grad", "fold_entries")
 # the device time of each kernel and memset they run, by name
-PER_KERNEL = ("fused_raster_aa", "sepaa", "fused_raster_view", "bin_place")
+PER_KERNEL = ("fused_raster_aa", "sepaa", "fused_raster_view", "bin_place",
+              "pixel_grad", "fold_entries")
 
 
 def measure(tree: str, paths) -> dict:
     """One tree's numbers (run in a process of its own) on the workloads of
-    ``paths`` ("bench", "mip")."""
+    ``paths`` ("bench", "mip", "view", "place", "grad")."""
     import chip_smoke as cs          # this script's sibling: the helpers
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -91,10 +100,10 @@ def measure(tree: str, paths) -> dict:
                or "Function properties" in ln]
         for name in ("antialias", "antialias_bwd", "texture_bwd",
                      "texture_fwd", "texture_mip", "fused_raster",
-                     "bin_place")}}
+                     "bin_place", "raster_grad")}}
     pairs = {}
     dev = torch.device("cuda")
-    if {"bench", "view", "place"} & set(paths):
+    if {"bench", "view", "place", "grad"} & set(paths):
         wl = build_workload(device=dev)
         H, W, B = wl["H"], wl["W"], wl["B"]
         ph, pw = rc.pad_resolution(H, W)
@@ -130,6 +139,10 @@ def measure(tree: str, paths) -> dict:
                     "slots": tile_ids.numel(), "P": P, "live": live,
                     "K": tile_ids.shape[2], "n_tiles": n_tiles,
                     "largest_bin": largest, "mean_bin": mean}
+            if "grad" in paths:
+                pairs.update(grad_pairs(sstate, B * wl["faces"].shape[0]))
+                rec["fold_entries_design"] = cs.k6_design_bytes(
+                    tile_ids, sstate["bins"])
     if "mip" in paths:
         # the mip step's first batch: K9 on K3's colour cotangent
         wlm = build_workload(mip=True, device=dev)
@@ -154,6 +167,11 @@ def measure(tree: str, paths) -> dict:
                     # gtu, gtv only: gtex and gpyr sum with atomics
                     # (chip_smoke.py checks them)
                     got, want = got[1:], want[1:]
+                if name == "pixel_grad":
+                    # rows past the live prefix are unspecified
+                    live = int(sstate["bins"].bin_start[-1])
+                    got, want = ((got[0][:live], got[1]),
+                                 (want[0][:live], want[1]))
                 r["max_abs_err"] = max(cs.max_err(a, b)
                                        for a, b in zip(got, want))
             if name in HOST_TIMED:
@@ -164,12 +182,29 @@ def measure(tree: str, paths) -> dict:
     return rec
 
 
+def grad_pairs(sstate, n_tris) -> dict:
+    """K5 and K6 (kernel call, plain version) on the bench step's own
+    inputs: its bins and K1 planes, the payload cotangents K3 and K4 gave,
+    and K5's rows for K6."""
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+
+    bins, gpl, k5 = sstate["bins"], sstate["gpl"], sstate["k5"]
+    _, entry, payload, extra, _ = sstate["k1"]
+    args = (bins, entry, payload[0], payload[1], extra, gpl)
+    return {
+        "pixel_grad": (lambda: gc.pixel_grad(*args),
+                       lambda: gc.pixel_grad_plain(*args)),
+        "fold_entries": (lambda: gc.fold_entries(*k5, bins, n_tris),
+                         lambda: gc.fold_entries_plain(*k5, bins, n_tris))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--paths", default="bench,mip,view,place",
-                    help="kernel sets to time: bench, mip, view, place")
+    ap.add_argument("--paths", default="bench,mip,view,place,grad",
+                    help="kernel sets to time: bench, mip, view, place, "
+                    "grad")
     ap.add_argument("--one", help="measure this tree (internal)")
     args = ap.parse_args()
     import torch

@@ -30,19 +30,33 @@
 // is dropped. Rows past bin_start[-1] are not written.
 //
 // K6 replaces raster_grad_tpu.py _fold_kernel (launched by banded_fold),
-// the counterpart of the segment_sum fold the JAX step uses by default:
-// one thread per (live entry, live slot), atomicAdd into the triangle's
-// row, then the same for the live global rows, in one launch. Atomics need
-// no band of triangle ids, so the TPU's sliding window, its overflow count
-// and the face-order flip that keeps scenes banded are not needed.
-//
-// n_live = bin_start[-1] and n_global are read on the device, so neither
-// launch needs the host to know them.
+// the counterpart of the segment_sum fold the JAX step uses by default; it
+// computes the JAX step's gather fold (FPC_FOLD_IMPL=gather, the inverse
+// of _place_sort(want_inv=True)) without its inverse array. Each triangle
+// gathers its own rows, so the fold needs no band of triangle ids (the
+// TPU's sliding window, overflow count and face-order flip), no memset
+// and no atomics, and adds in a fixed order: it is bit-stable from run to
+// run and equal to fold_entries_plain. A warp takes 4 triangles. First
+// each lane takes one window slot (triangle j = lane / 8, slot k = lane %
+// 8): the slot's tile from the binning's tile ids, then a binary search
+// for the triangle in its bin (sorted_tri[bin_start[tile] ..
+// bin_start[tile + 1]], ascending: at most 7 probes at the bench, served
+// by the L2). A slot the cap dropped is not found: bin_start is clamped
+// to P. A triangle with no live slot searches the global list (ascending,
+// n_global read on the device). Then lane (j, q) loads record slots
+// 4q..4q+3 of each found row of triangle j (8 lanes read a 128-byte row),
+// all loads issued before the adds, sums them in ascending slot k from
+// 0.0, adds the global row, and stores them: one coalesced row a
+// triangle, slots 12 and 28-31 zero. The tile ids and rows, read once,
+// are loaded and the rows stored with the streaming (evict-first) hint,
+// so that sorted_tri and bin_start, which every search probes, stay in
+// the L2 (11 % faster on the H100 than the default caching).
 //
 // Bound on the H100: the bytes. K5 reads entry, u, v, 8 extra and 11
 // cotangent planes (88 bytes a pixel; a missed pixel reads only its entry)
-// and writes the live rows (128 bytes each); K6 reads 27 floats and a
-// triangle id per live entry and writes the (B*T, 32) rows.
+// and writes the live rows (128 bytes each); K6 reads the live rows, the
+// tile ids (32 bytes a triangle) and writes the (B*T, 32) rows. The
+// search's dependent loads are latency, hidden by 4 triangles a warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +71,8 @@ constexpr int NLIVE = 27;               // record slots 0-11 and 13-27
 constexpr int CAP = 256;                // bin entries held in shared memory
 constexpr int N_EXTRA = 8;
 constexpr int N_GPL = 11;
+constexpr int WIN = 8;                  // window slots a triangle (K6)
+constexpr int FOLD_THREADS = 128;       // 4 warps, 16 triangles a block
 constexpr float AREA_EPS = 1e-12f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -187,31 +203,69 @@ pixel_grad_kernel(const int* __restrict__ entry,
   }
 }
 
-__global__ void fold_kernel(const float* __restrict__ grad_entries,
-                            const float* __restrict__ grad_global,
-                            const int* __restrict__ sorted_tri,
-                            const int* __restrict__ global_idx,
-                            const int* __restrict__ n_live_ptr,
-                            const int* __restrict__ n_global_ptr, int n_tris,
-                            float* __restrict__ out) {
-  const int64_t n_live = *n_live_ptr;
-  const int64_t total = (n_live + *n_global_ptr) * NLIVE;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const int64_t r = i / NLIVE;
-    const int k = slot((int)(i - r * NLIVE));
-    int t;
-    float val;
-    if (r < n_live) {
-      t = sorted_tri[r];
-      val = grad_entries[r * REC + k];
-    } else {
-      t = global_idx[r - n_live];
-      val = grad_global[(r - n_live) * REC + k];
-    }
-    if (t >= 0 && t < n_tris) atomicAdd(&out[(int64_t)t * REC + k], val);
+// the position of t in the ascending a[lo, hi), or -1
+__device__ __forceinline__ int find(const int* __restrict__ a, int lo,
+                                    int hi, int t) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int v = a[mid];
+    if (v == t) return mid;
+    if (v < t) lo = mid + 1; else hi = mid;
   }
+  return -1;
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+fold_kernel(const float* __restrict__ grad_entries,
+            const float* __restrict__ grad_global,
+            const int* __restrict__ tile_ids,
+            const int* __restrict__ bin_start,
+            const int* __restrict__ sorted_tri,
+            const int* __restrict__ global_idx,
+            const int* __restrict__ n_global_ptr, int n_tiles, int n_tris,
+            float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int group = lane & ~(WIN - 1);         // first lane of triangle j
+  const int t = (blockIdx.x * FOLD_THREADS + threadIdx.x) / WIN;
+  const bool own = t < n_tris;
+  // lane (j, k): slot k of triangle t
+  const int tile =
+      own ? __ldcs(tile_ids + (int64_t)t * WIN + (lane & (WIN - 1)))
+          : n_tiles;
+  const bool live = tile < n_tiles;
+  const int pos =
+      live ? find(sorted_tri, bin_start[tile], bin_start[tile + 1], t) : -1;
+  // every lane takes part in the ballot, owner of a triangle or not
+  const unsigned any_live =
+      __ballot_sync(FULL, live) & (((1u << WIN) - 1) << group);
+  const int gpos =
+      own && !any_live ? find(global_idx, 0, *n_global_ptr, t) : -1;
+
+  // lane (j, q): record slots 4q..4q+3 of triangle t's rows
+  const int q = lane & (WIN - 1);
+  float4 row[WIN];
+#pragma unroll
+  for (int k = 0; k < WIN; ++k) {
+    const int p = __shfl_sync(FULL, pos, group | k);
+    row[k] = p >= 0 ? __ldcs(reinterpret_cast<const float4*>(
+                          grad_entries + (int64_t)p * REC) + q)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float4 g = gpos >= 0 ? __ldg(reinterpret_cast<const float4*>(
+                                   grad_global + (int64_t)gpos * REC) + q)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < WIN; ++k) {
+    s.x += row[k].x; s.y += row[k].y; s.z += row[k].z; s.w += row[k].w;
+  }
+  if (gpos >= 0) {
+    s.x += g.x; s.y += g.y; s.z += g.z; s.w += g.w;
+  }
+  if (q == 3) s.x = 0.f;                        // slot 12, the id
+  if (q == 7) s = make_float4(0.f, 0.f, 0.f, 0.f);   // slots 28-31
+  if (own)
+    __stcs(reinterpret_cast<float4*>(out + (int64_t)t * REC) + q, s);
 }
 
 }  // namespace
@@ -235,21 +289,16 @@ extern "C" int pixel_grad_launch(const int* entry, const float* u,
 
 extern "C" int fold_entries_launch(const float* grad_entries,
                                    const float* grad_global,
+                                   const int* tile_ids, const int* bin_start,
                                    const int* sorted_tri,
-                                   const int* global_idx,
-                                   const int* n_live, const int* n_global,
-                                   int max_rows, int n_tris, float* out,
+                                   const int* global_idx, const int* n_global,
+                                   int n_tiles, int n_tris, float* out,
                                    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = cudaMemsetAsync(
-      out, 0, (size_t)n_tris * REC * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  constexpr int FOLD_THREADS = 256;
-  const int64_t work = (int64_t)max_rows * NLIVE;
-  const int64_t want = (work + FOLD_THREADS - 1) / FOLD_THREADS;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-  fold_kernel<<<blocks > 0 ? blocks : 1, FOLD_THREADS, 0, st>>>(
-      grad_entries, grad_global, sorted_tri, global_idx, n_live, n_global,
-      n_tris, out);
+  if (n_tris <= 0) return 0;
+  const unsigned blocks =
+      (unsigned)(((int64_t)n_tris * WIN + FOLD_THREADS - 1) / FOLD_THREADS);
+  fold_kernel<<<blocks, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+      grad_entries, grad_global, tile_ids, bin_start, sorted_tri, global_idx,
+      n_global, n_tiles, n_tris, out);
   return (int)cudaGetLastError();
 }

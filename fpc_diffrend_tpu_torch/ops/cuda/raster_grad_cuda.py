@@ -12,7 +12,9 @@ computes 32 coefficients per pixel (one per record slot) from the payload
 cotangents and reduces them onto the winner's entry row; K6 sums the
 entry rows (about 2.4 per triangle) and the global-list rows into
 per-triangle rows in the record layout (geometry slots 0-15, aux slots
-16-31; the id, neighbour and pad slots stay 0).
+16-31; the id, neighbour and pad slots stay 0). K6 gathers: each triangle
+finds its window slots' entries in their bins (``Bins.tile_ids``) and adds
+their rows in a fixed order, so it equals its plain version bit for bit.
 
 Each function runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``) for CPU tensors.
@@ -24,17 +26,18 @@ import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    MAX_GLOBAL, N_EXTRA, REC, TILE_H, TILE_W, Bins)
+    MAX_GLOBAL, N_EXTRA, REC, TILE_H, TILE_W, WINDOW_X, WINDOW_Y, Bins)
 
 Tensor = torch.Tensor
 
 N_GPL = 11        # cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]
 # record slots that carry gradient: all but the id (12) and pad (28-31)
 LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
+WINDOW = WINDOW_Y * WINDOW_X   # window slots a triangle (K)
 _AREA_EPS = 1e-12
 _PTR, _INT = build.PTR, build.INT
 _PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 4 + [_PTR] * 2 + [_INT, _PTR]
-_FOLD_ARGS = [_PTR] * 6 + [_INT] * 2 + [_PTR] * 2
+_FOLD_ARGS = [_PTR] * 7 + [_INT] * 2 + [_PTR] * 2
 
 
 def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
@@ -132,23 +135,55 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
 pixel_grad.launches = 0
 
 
+def fold_positions(bins: Bins) -> Tensor:
+    """The entry of each window slot in its bin, as K6's search finds it.
+
+    :return: (B*T, K) int64 positions into the live prefix; -1 where the
+        slot is dead or the entry cap dropped it. One ``searchsorted`` of
+        the slots' (tile, triangle) keys in the live entries' keys: a bin
+        holds its triangles ascending, so the keys ascend.
+    """
+    n_tiles = bins.bin_start.shape[0] - 1
+    tid = bins.tile_ids.reshape(-1, bins.tile_ids.shape[-1]).long()
+    n, dev = tid.shape[0], tid.device
+    n_live = int(bins.bin_start[-1])
+    if n_live == 0:
+        return torch.full(tid.shape, -1, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(bins.bin_start.long(),
+                              torch.arange(n_live, device=dev),
+                              right=True) - 1
+    keys = tile * n + bins.sorted_tri[:n_live].long()
+    want = tid * n + torch.arange(n, device=dev)[:, None]
+    pos = torch.searchsorted(keys, want.reshape(-1)).reshape(tid.shape)
+    hit = (tid < n_tiles) & (keys[pos.clamp(max=n_live - 1)] == want)
+    return torch.where(hit, pos, -1)
+
+
 def fold_entries_plain(grad_entries: Tensor, grad_global: Tensor,
                        bins: Bins, n_tris: int) -> Tensor:
     """Plain PyTorch version of K6 (same arguments as
-    :func:`fold_entries`): ``index_add_`` by ``sorted_tri`` and
-    ``global_idx``."""
+    :func:`fold_entries`), in the kernel's order: each triangle's found
+    rows (:func:`fold_positions`) added in ascending window slot from 0,
+    then the global row of a triangle none of whose slots names a tile.
+    Reads no row past the live prefix or past ``n_global``."""
     dev = grad_entries.device
-    n_raw = bins.sorted_tri.shape[0]
-    live_cols = torch.zeros(REC, dtype=torch.bool, device=dev)
-    live_cols[LIVE_SLOTS] = True
-    live = (torch.arange(n_raw, device=dev) < bins.bin_start[-1])[:, None]
-    out = torch.zeros((n_tris + 1, REC), device=dev)
-    out.index_add_(0, torch.clamp(bins.sorted_tri, max=n_tris).long(),
-                   torch.where(live & live_cols, grad_entries[:n_raw], 0.0))
-    live = (torch.arange(MAX_GLOBAL, device=dev) < bins.n_global)[:, None]
-    out.index_add_(0, torch.clamp(bins.global_idx, max=n_tris).long(),
-                   torch.where(live & live_cols, grad_global, 0.0))
-    return out[:n_tris]
+    pos = fold_positions(bins)
+    n_live = int(bins.bin_start[-1])
+    rows = torch.cat([grad_entries[:n_live],
+                      torch.zeros((1, REC), device=dev)])   # dead: 0
+    gathered = rows[torch.where(pos >= 0, pos, n_live)]
+    out = torch.zeros((n_tris, REC), device=dev)
+    for k in range(pos.shape[1]):
+        out = out + gathered[:, k]
+    n_global = int(bins.n_global[0])
+    gidx = bins.global_idx[:n_global].long()
+    none = (bins.tile_ids.reshape(n_tris, -1)
+            >= bins.bin_start.shape[0] - 1).all(1)
+    take = (gidx < n_tris) & none[gidx.clamp(max=max(n_tris - 1, 0))]
+    gidx = gidx[take]
+    out[gidx] = out[gidx] + grad_global[:n_global][take]
+    out[:, [k for k in range(REC) if k not in LIVE_SLOTS]] = 0.0
+    return out
 
 
 def fold_entries(grad_entries: Tensor, grad_global: Tensor, bins: Bins,
@@ -167,22 +202,31 @@ def fold_entries(grad_entries: Tensor, grad_global: Tensor, bins: Bins,
     n_raw = bins.sorted_tri.shape[0]
     if n_raw > bins.gbase:
         raise ValueError(f"{n_raw} bin entries exceed {bins.gbase} rows")
+    n_tiles = bins.bin_start.shape[0] - 1
+    check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
     check(bins.sorted_tri, "sorted_tri", torch.int32, (n_raw,), dev)
     check(bins.global_idx, "global_idx", torch.int32, (MAX_GLOBAL,), dev)
     check(bins.n_global, "n_global", torch.int32, (1,), dev)
+    if bins.tile_ids.numel() != n_tris * WINDOW:
+        raise ValueError(f"tile_ids {tuple(bins.tile_ids.shape)} do not "
+                         f"hold {WINDOW} slots of {n_tris} triangles")
+    check(bins.tile_ids, "tile_ids", torch.int32,
+          bins.tile_ids.shape[:-1] + (WINDOW,), dev)
     if dev.type == "cpu":
         return fold_entries_plain(grad_entries, grad_global, bins, n_tris)
     if dev.type != "cuda":
         raise ValueError(f"fold_entries: unsupported device {dev}")
+    if grad_entries.data_ptr() % 16 or grad_global.data_ptr() % 16:
+        raise ValueError("fold_entries: rows must be 16-byte aligned")
 
     out = torch.empty((n_tris, REC), device=dev)
     fn = build.entry("raster_grad", "fold_entries_launch", _FOLD_ARGS)
     fold_entries.launches += 1
     ptr = build.ptr
-    n_live = bins.bin_start[-1:]           # a view: read on the device
-    status = fn(ptr(grad_entries), ptr(grad_global), ptr(bins.sorted_tri),
-                ptr(bins.global_idx), ptr(n_live), ptr(bins.n_global),
-                n_raw + MAX_GLOBAL, n_tris, ptr(out), build.stream(dev))
+    status = fn(ptr(grad_entries), ptr(grad_global), ptr(bins.tile_ids),
+                ptr(bins.bin_start), ptr(bins.sorted_tri),
+                ptr(bins.global_idx), ptr(bins.n_global), n_tiles, n_tris,
+                ptr(out), build.stream(dev))
     build.check(status, "fold_entries")
     return out
 

@@ -193,6 +193,9 @@ class Bins:
     global_idx:  (MAX_GLOBAL,) int32 stacked triangle id per global row.
     global_bbox: (MAX_GLOBAL, 4) int32 stacked tile box (tx0, ty0, tx1, ty1)
                  of each global row; empty for unused rows.
+    tile_ids:    (B, T, K) int32 stacked tile of each triangle's K window
+                 slots, n_tiles where the slot is dead: K11's input, kept
+                 for K6, which finds each slot's entry in its bin.
     """
 
     sorted_rec: Tensor
@@ -202,6 +205,7 @@ class Bins:
     sorted_tri: Tensor
     global_idx: Tensor
     global_bbox: Tensor
+    tile_ids: Tensor
 
     @property
     def gbase(self) -> int:
@@ -354,7 +358,7 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
                 global_rec=global_rec.contiguous(),
                 n_global=n_global.reshape(1), sorted_tri=sorted_tri,
                 global_idx=big_idx.to(torch.int32),
-                global_bbox=global_bbox.contiguous())
+                global_bbox=global_bbox.contiguous(), tile_ids=tile_ids)
     return data_s, aux_s, bins
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fpc_diffrend_tpu_torch import device as device_mod
 from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
@@ -216,8 +217,8 @@ def test_kernels_match_plain_versions_on_the_card(card):
 def test_backward_kernels_match_plain_versions_on_the_card(card):
     """K3-K6 against their plain versions with chip_smoke's tolerances:
     K3 and K4's gtu/gtv within 1e-6, the sums taken with atomics within
-    1e-5 of the magnitudes they add up."""
-    import chip_smoke
+    1e-5 of the magnitudes they add up, K6 exactly and bit for bit over
+    two calls."""
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.fit import loop
@@ -274,7 +275,6 @@ def test_bin_place_matches_plain_version_on_the_card(card):
     for in_device_memory in (False, True):
         got = bp.count_pairs(tile_ids, 2 * n_tiles, in_device_memory)
         assert torch.equal(got.cpu(), want), in_device_memory
-    import chip_smoke
 
     chip_smoke.check_place_synthetic(card)   # a 6,000-entry bin; 70k tiles
     wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
@@ -296,7 +296,6 @@ def test_mip_kernels_match_plain_versions_on_the_card(card):
     """K8 and K9 against their plain versions with chip_smoke's
     tolerances, with the real LOD and a random one past both clamps, and
     K1's texture-free mode equal to its textured mode."""
-    import chip_smoke
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.fit import loop
@@ -327,7 +326,6 @@ def test_k7_and_k10_match_plain_versions_on_the_card(card):
     """K7 (wrap and clamp) equals its plain version and K1's colour planes
     exactly, K4's clamp mode its plain version, and K10 equals K1 and K2,
     with chip_smoke's checks, on the binned dome and the global list."""
-    import chip_smoke
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
     from fpc_diffrend_tpu_torch.fit import loop
@@ -361,9 +359,18 @@ def test_bin_place_edges_match_plain_version_on_the_card(card):
     dead, with one live triangle, with P inside the first bin and P equal
     to the live entries, on a 6,000-entry bin and on 70,000 tiles
     (``chip_smoke.check_place_edges``)."""
-    import chip_smoke
-
     chip_smoke.check_place_edges(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.FOLD_EDGE_CASES)
+def test_fold_edges_match_plain_version_on_the_card(card, case):
+    """K6 equals its plain version exactly, bit for bit over two calls, and
+    reads no NaN row past the live prefix or past n_global, in each edge
+    case of ``chip_smoke.fold_case``: P = 0, a cap that cuts a bin, every
+    slot dead, a full global list, triangles naming fewer than K tiles,
+    global rows, B = 1."""
+    chip_smoke.check_fold_edges(card, [case])
 
 
 @pytest.mark.cuda
@@ -371,7 +378,6 @@ def test_k10_edges_match_k1_and_k2_on_the_card(card):
     """K10 equals K1 + K2 exactly with C = 1 to 4, a partial last tile
     column, stacked samples at their pitch, empty bins and silhouettes
     across tile rows and columns (``chip_smoke.check_k10_edges``)."""
-    import chip_smoke
 
     gen = torch.Generator(device=card)
     gen.manual_seed(0)
@@ -383,7 +389,6 @@ def test_k2_edges_match_plain_version_on_the_card(card):
     """K2 against its plain version within 1e-6 where the bench's shapes do
     not take it: a width no multiple of 32, rows no multiple of 8, padding
     rows between samples (sample_ph > H), three channels."""
-    import chip_smoke
 
     gen = torch.Generator(device=card)
     gen.manual_seed(1)
@@ -396,7 +401,6 @@ def test_k4_edges_match_plain_version_on_the_card(card):
     ATOMIC_RTOL of the summed magnitudes), wrap and clamp, one and three
     channels, with part warps: every pixel at one uv, uv across the wrap
     edge, random uv, minified uv; an all-zero cotangent gives zeros."""
-    import chip_smoke
 
     gen = torch.Generator(device=card)
     gen.manual_seed(2)
@@ -417,7 +421,6 @@ def test_mip_edges_match_plain_versions_on_the_card(card):
     count no multiple of 4 and unaligned ones, every pixel at uv (0, 0),
     random and minified uv over a random LOD; an all-zero cotangent gives
     zeros."""
-    import chip_smoke
 
     gen = torch.Generator(device=card)
     gen.manual_seed(3)
@@ -434,7 +437,6 @@ def test_mip_edges_match_plain_versions_on_the_card(card):
 def test_mip_kernels_on_rendered_uv_on_the_card(card):
     """K8 and K9 on K1's uv of a small render, with its LOD and with a
     random LOD past both clamps, each launched once a call."""
-    import chip_smoke
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
     from fpc_diffrend_tpu_torch.profile_forward import forward_stages

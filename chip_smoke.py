@@ -93,6 +93,21 @@ Phases, each fatal on failure:
    ``tools.render_result`` over 5c's fitted take (4 frames, a grid of the
    3 cameras, and side by side with reference TIFFs the phase writes) and
    ``tools.simple_render`` of one camera, whose PNGs must parse;
+5e. the nvdiffrast-style primitives at full width: on the bench dome
+   through each camera, ``ops.rasterize.rasterize(with_db=True)`` (K11,
+   K1 without its texture tail) -> ``ops.interpolate.interpolate(...,
+   "all")`` -> ``ops.texture.texture`` (K7) -> ``ops.antialias.antialias``
+   (K2 on the winner planes gathered from rast) -> composite, forward and
+   forward + backward (K3, K4, K5 with live u, v, z cotangents, K6; the
+   first under sync-debug "error"), each of K11, K1, K7, K2 launched once
+   a forward and K3-K6 once a backward; held to ``render(route=
+   "separate")`` within JAX's limits between two renderers, K5 on the
+   composition's cotangents and K2/K3 on the gathered planes against
+   their plain versions; ms per view beside the "separate" route, for
+   information. Then the scan route at mid size (phase 3's B = 1 slice):
+   the visibility scan's ids against K1's, the route on the card against
+   the CPU, against the kernel route at a resolvable depth range, and one
+   scan ``train_step`` (``scan_route``); seconds per view;
 6. each kernel at the main path's shapes (K7, K10: the single view's; K8,
    K9: the mip path's; K11 the step's batch at the autotuned cap, checked
    also uncapped and at half the live entries) against its plain version
@@ -1220,6 +1235,25 @@ def _rel_err(a, b) -> float:
     return max_err(a, b) / max(float(b.abs().max()), 1e-30)
 
 
+def view_inputs(wl):
+    """[(mvp (4, 4), vertices (V, 3))] of frame 0 through each of the
+    bench's cameras: the single views of phases 5d and 5e."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+
+    config, scene, params = wl["config"], wl["scene"], wl["params"]
+    views = []
+    with torch.no_grad():
+        for c in range(N_VIEWS):
+            idx = torch.tensor([c, 0], device=params["tex"].device)
+            mvp = loop.build_mvp(scene, params, idx[:1], idx[1:])[0]
+            verts3 = loop.sample_clip_positions(config, scene, params,
+                                                idx[:1], idx[1:])[1][0]
+            views.append((mvp, verts3))
+    return views
+
+
 def single_view(wl, counters, gen, take):
     """Phase 5d: ``ops.pipeline.render`` of each of the bench's cameras at
     full width on every route, forward and then forward + backward to the
@@ -1236,25 +1270,17 @@ def single_view(wl, counters, gen, take):
     import numpy as np
     import torch
 
-    from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.ops.pipeline import render
     from fpc_diffrend_tpu_torch.profile_forward import device_kernels
     from fpc_diffrend_tpu_torch.tools.render_result import render_result
     from fpc_diffrend_tpu_torch.tools.simple_render import simple_render
     from fpc_diffrend_tpu_torch.utils.image import load_image
 
-    config, scene, params = wl["config"], wl["scene"], wl["params"]
+    scene, params = wl["scene"], wl["params"]
     H, W = wl["H"], wl["W"]
     tex = params["tex"].detach()
     dev = tex.device
-    views = []
-    with torch.no_grad():
-        for c in range(N_VIEWS):
-            idx = torch.tensor([c, 0], device=dev)
-            mvp = loop.build_mvp(scene, params, idx[:1], idx[1:])[0]
-            verts3 = loop.sample_clip_positions(config, scene, params,
-                                                idx[:1], idx[1:])[1][0]
-            views.append((mvp, verts3))
+    views = view_inputs(wl)
     mesh = (scene.faces, scene.uv, scene.uv_idx)
     g = torch.randn((H, W, tex.shape[2]), device=dev, generator=gen)
 
@@ -1409,6 +1435,443 @@ def single_view(wl, counters, gen, take):
           f"s per frame {per_frame} (grid of {N_VIEWS} cameras; "
           f"side by side with TIFF references), PNGs parse; simple_render "
           f"{simple_s:.2f} s, {covered:.3f} of the view covered", flush=True)
+    return rec
+
+
+def check_gathered_antialias(colour, rast, pos_clip, faces, fn, g, label):
+    """``ops.antialias.antialias`` over every pair (K2 forward, K3
+    backward on the winner planes gathered from ``rast``) against the
+    plain per-pair ``_pair_blend`` over every pair (``_antialias_compact``
+    with a cap above the pair count) on the same inputs: the image within
+    K2_ATOL, the colour's gradient within K3_ATOL, the clip positions'
+    within 1e-5 of their largest magnitude (both gathers' backwards add
+    with atomics); K2 and K3 launched once each.
+
+    :param colour: (H, W, C) shaded image; rast: (H, W, 4); g: (H, W, C)
+        cotangent.
+    :return: the errors.
+    """
+    from fpc_diffrend_tpu_torch.ops.antialias import (_antialias_compact,
+                                                      antialias)
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.rasterize import screen_vertices
+
+    H, W = colour.shape[:2]
+    out = {}
+    before = (ac.antialias_planes.launches,
+              ac.antialias_planes_bwd.launches)
+    for name in ("gathered", "pair_blend"):
+        p = pos_clip.detach().clone().requires_grad_(True)
+        col = colour.detach().clone().requires_grad_(True)
+        if name == "gathered":
+            aa = antialias(col, rast, p, faces, fn)
+        else:
+            tri = screen_vertices(p, W, H)[faces][..., :2]
+            aa = _antialias_compact(col, rast, tri, fn, H * W)
+        (aa * g).sum().backward()
+        out[name] = (aa.detach(), col.grad, p.grad)
+    launched = (ac.antialias_planes.launches - before[0],
+                ac.antialias_planes_bwd.launches - before[1])
+    (a_k, gc_k, gp_k), (a_p, gc_p, gp_p) = out.values()
+    errs = {"K2 gathered": max_err(a_k, a_p),
+            "K3 gathered colour": max_err(gc_k, gc_p),
+            "K3 gathered vertex rel": _rel_err(gp_k, gp_p)}
+    if not (errs["K2 gathered"] <= K2_ATOL
+            and errs["K3 gathered colour"] <= K3_ATOL
+            and errs["K3 gathered vertex rel"] <= 1e-5
+            and launched == (1, 1) and max_err(a_k, colour) > 0):
+        fail(f"{label}: K2/K3 on gathered planes differ from the plain "
+             f"pair blend: {errs}, launches {launched}")
+    return errs
+
+
+def primitive_views(wl, counters, gen):
+    """Phase 5e, at full width: the nvdiffrast-style primitives composed
+    as a user composes them, on the bench dome through each of the
+    bench's cameras: ``rasterize(with_db=True)`` (K11's bins, K1 without
+    its texture tail) -> ``interpolate(..., "all")`` -> ``texture`` (K7)
+    -> ``antialias`` (K2 on the winner planes gathered from rast) ->
+    composite, forward, then forward + backward to the vertices and the
+    texture (K3, K4, K5 with live u, v, z cotangents, K6; the first under
+    sync-debug "error"). Held to ``render(route="separate")`` of the same
+    view (the same kernels, its uv from K1 rather than interpolate): the
+    image within 2e-4 on >= 99.5 % of pixels (JAX's limit between two
+    renderers, ``tests/test_pipeline_fused.py``), interpolate's uv within
+    1e-6 of K1's, the gradients within 5e-2 relative L2 (JAX's
+    per-element limits are recorded: see the texel flips below); the same
+    chain on K1's uv (``rasterize_with_uv``) within
+    phase 5d's limits between routes (image 1e-6, vertex gradients
+    GRAD_SPREAD_RTOL, texture ATOMIC_RTOL of the largest magnitude); K5 on the
+    composition's own cotangents against its plain version (ATOMIC_RTOL
+    of the summed magnitudes); K2 and K3 on the gathered planes against
+    the plain per-pair ``_pair_blend`` over every pair (K2_ATOL, K3_ATOL
+    for the colour's gradient; the vertices' within 1e-5 of the largest
+    magnitude, both sums taken with atomics). Launch counts: K11, K1, K7,
+    K2 once a forward, K3-K6 once a backward.
+
+    :return: the phase's record.
+    """
+    import torch
+
+    import fpc_diffrend_tpu_torch.ops.rasterize as rz
+    from fpc_diffrend_tpu_torch.models.camera import transform_clip
+    from fpc_diffrend_tpu_torch.ops.antialias import antialias
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.interpolate import interpolate
+    from fpc_diffrend_tpu_torch.ops.pipeline import BACKGROUND, render
+    from fpc_diffrend_tpu_torch.ops.texture import texture
+
+    scene = wl["scene"]
+    H, W = wl["H"], wl["W"]
+    tex = wl["params"]["tex"].detach()
+    dev = tex.device
+    faces, fn = scene.faces, scene.face_neighbors
+    views = view_inputs(wl)
+    g = torch.randn((H, W, tex.shape[2]), device=dev, generator=gen)
+
+    def compose(mvp, pos, t):
+        pc = transform_clip(mvp, pos)
+        rast, rast_db = rz.rasterize(pc, faces, (H, W), with_db=True)
+        texc, _ = interpolate(scene.uv, rast, scene.uv_idx, rast_db, "all")
+        colour = antialias(texture(t, texc), rast, pc, faces, fn)
+        return torch.where(rast[..., 3:] > 0, colour, BACKGROUND)
+
+    def separate(mvp, pos, t):
+        return render(mvp, pos, faces, scene.uv, scene.uv_idx, t, (H, W),
+                      fn, route="separate", device=dev)
+
+    def grads(draw, mvp, pos):
+        p = pos.clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(True)
+        (draw(mvp, p, t) * g).sum().backward()
+        return p.grad, t.grad
+
+    for f in counters.values():
+        f.launches = 0
+    imgs, grad = [], []
+    for c, (mvp, pos) in enumerate(views):
+        with torch.no_grad():
+            imgs.append(compose(mvp, pos, tex))
+        if c == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        grad.append(grads(compose, mvp, pos))
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(bin_place=2 * N_VIEWS, fused_raster=2 * N_VIEWS,
+                texture_fwd=2 * N_VIEWS, antialias=2 * N_VIEWS,
+                antialias_bwd=N_VIEWS, texture_bwd=N_VIEWS,
+                pixel_grad=N_VIEWS, fold_entries=N_VIEWS)
+    if launches != want:
+        fail(f"primitives: launches {launches} != {want}")
+
+    # against render(route="separate") of each view: the composition
+    # (its uv from interpolate), and the same with K1's uv
+    # (rasterize_with_uv), whose planes are the route's bit for bit
+    def compose_k1_uv(mvp, pos, t):
+        pc = transform_clip(mvp, pos)
+        rast, texc = rz.rasterize_with_uv(pc, faces, scene.uv, scene.uv_idx,
+                                          (H, W))
+        colour = antialias(texture(t, texc), rast, pc, faces, fn)
+        return torch.where(rast[..., 3:] > 0, colour, BACKGROUND)
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    errs = {"image_close": 1.0, "image_max_abs": 0.0, "texture_grad": 0.0,
+            "vertex_grad_rel": 0.0, "vertex_grad_l2": 0.0,
+            "texture_grad_l2": 0.0, "texel_flips": 0, "texc_max_abs": 0.0,
+            "k1_uv_image": 0.0,
+            "k1_uv_vertex_grad_rel": 0.0, "k1_uv_texture_grad_rel": 0.0}
+    for (mvp, pos), img, (gp, gt) in zip(views, imgs, grad):
+        if img.shape != (H, W, tex.shape[2]) or not bool(
+                torch.isfinite(img).all()) or not bool(
+                torch.isfinite(gp).all() & torch.isfinite(gt).all()):
+            fail(f"primitives: image {img.shape} or gradients not finite")
+        with torch.no_grad():
+            ref = separate(mvp, pos, tex)
+            same = compose_k1_uv(mvp, pos, tex)
+            pc = transform_clip(mvp, pos)
+            rast, texc_k = rz.rasterize_with_uv(pc, faces, scene.uv,
+                                                scene.uv_idx, (H, W))
+            texc_i = interpolate(scene.uv, rast, scene.uv_idx)[0]
+            hit = rast[..., 3] > 0
+            size = torch.tensor([tex.shape[1], tex.shape[0]], device=dev)
+            flips = int(((torch.floor(texc_i * size - 0.5)
+                          != torch.floor(texc_k * size - 0.5)).any(-1)
+                         & hit).sum())
+        rp, rt = grads(separate, mvp, pos)
+        sp, st = grads(compose_k1_uv, mvp, pos)
+        close = float(((img - ref).abs() <= 2e-4).float().mean())
+        # assert_allclose's test: |a - b| <= atol + rtol |b|
+        tex_excess = float(((gt - rt).abs() - 5e-3 * rt.abs()).max())
+        new = {"image_close": close, "image_max_abs": max_err(img, ref),
+               "texture_grad": tex_excess, "vertex_grad_rel": _rel_err(gp, rp),
+               "vertex_grad_l2": l2(gp, rp), "texture_grad_l2": l2(gt, rt),
+               "texel_flips": flips,
+               "texc_max_abs": max_err(texc_i[hit], texc_k[hit]),
+               "k1_uv_image": max_err(same, ref),
+               "k1_uv_vertex_grad_rel": _rel_err(sp, rp),
+               "k1_uv_texture_grad_rel": _rel_err(st, rt)}
+        errs = {k: (min if k == "image_close" else max)(errs[k], v)
+                for k, v in new.items()}
+    # Interpolate's uv and K1's differ by an ulp (texc_max_abs, within
+    # 1e-6); where that moves a sample across a texel edge of the 1024^2
+    # noise texture (texel_flips) the bilinear derivative jumps by a texel
+    # difference times 1024, so a few pixels move single gradient elements
+    # past JAX's per-element limits (recorded): the composition's
+    # gradients are held in relative L2 (5e-2; 5.2e-3 and 8.1e-3 measured
+    # on an H100), the same chain on K1's uv per element (the limits of
+    # phase 5d between routes).
+    if not (errs["image_close"] >= 0.995 and errs["texc_max_abs"] <= 1e-6
+            and errs["vertex_grad_l2"] <= 5e-2
+            and errs["texture_grad_l2"] <= 5e-2
+            and errs["k1_uv_image"] <= 1e-6
+            and errs["k1_uv_vertex_grad_rel"] <= GRAD_SPREAD_RTOL
+            and errs["k1_uv_texture_grad_rel"] <= ATOMIC_RTOL):
+        fail(f"primitives differ from render(route='separate'): {errs}")
+
+    # K5 on the composition's own cotangents (u, v, z live), view 0
+    mvp, pos = views[0]
+    seen = []
+
+    def recording(*args):
+        seen.append(args)
+        return gc.pixel_grad(*args)
+
+    rz.pixel_grad = recording
+    try:
+        grads(compose, mvp, pos)
+    finally:
+        rz.pixel_grad = gc.pixel_grad
+    bins, entry, u, v, extra, gpl = seen[0]
+    live_uvz = int((gpl[:3] != 0).any(dim=0).sum())
+    if live_uvz == 0:
+        fail("primitives: K5 saw no u, v, z cotangent")
+    k5 = gc.pixel_grad(*seen[0])
+    p5 = gc.pixel_grad_plain(*seen[0])
+    m5 = k5_magnitudes(*seen[0])
+    n_live = int(bins.bin_start[-1])
+    errs["K5 entries rel"] = atomic_err(k5[0][:n_live], p5[0][:n_live],
+                                        m5[0][:n_live])
+    errs["K5 global rel"] = atomic_err(k5[1], p5[1], m5[1])
+    if not max(errs["K5 entries rel"], errs["K5 global rel"]) <= ATOMIC_RTOL:
+        fail(f"primitives: K5 on live u, v, z differs from its plain "
+             f"version: {errs}")
+
+    # K2/K3 on the gathered planes against the plain per-pair blend
+    pc = transform_clip(mvp, pos)
+    with torch.no_grad():
+        rast = rz.rasterize(pc, faces, (H, W), with_db=False)
+        colour = texture(tex, interpolate(scene.uv, rast, scene.uv_idx)[0])
+    errs.update(check_gathered_antialias(colour, rast, pc, faces, fn, g,
+                                         "primitives"))
+
+    # ms per view beside the "separate" route, for information
+    # and the device's work in a forward + backward by kernel (profiler)
+    ms = {}
+    for name, draw in (("primitives", compose), ("separate", separate)):
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: draw(mvp, pos, tex), 5)
+        both = cuda_ms(lambda: grads(draw, mvp, pos), 5)
+        kernels = device_kernels_ms(lambda: grads(draw, mvp, pos), 3)
+        ms[name] = {"forward": fwd, "forward_backward": both,
+                    "forward_backward_device": sum(kernels.values()),
+                    "top_kernels": {k[:60]: v for k, v in sorted(
+                        kernels.items(), key=lambda kv: -kv[1])[:6]}}
+    rec = {"launches": launches, "errs": errs, "ms": ms,
+           "live_uvz_px": live_uvz}
+    print(f"primitives ({N_VIEWS} cameras, {H}x{W}): launches {launches}; "
+          f"against render(route='separate') and the plain versions "
+          f"{errs}; K5 saw {live_uvz} pixels with live u, v, z cotangents; "
+          f"ms per view (CUDA events, camera 0; for information) {ms}",
+          flush=True)
+    return rec
+
+
+def _depth_flips(rast_a, rast_b):
+    """Pixel pairs of differing, covered ids whose nearer side (the
+    antialias's occluder) differs between two rast buffers of one view."""
+    n = 0
+    for sl_a, sl_b in (((slice(None), slice(None, -1)),
+                        (slice(None), slice(1, None))),
+                       ((slice(None, -1),), (slice(1, None),))):
+        ia, ib = rast_a[..., 3][sl_a], rast_a[..., 3][sl_b]
+        pair = (ia != ib) & (ia > 0) & (ib > 0)
+        near_a = rast_a[..., 2][sl_a] <= rast_a[..., 2][sl_b]
+        near_b = rast_b[..., 2][sl_a] <= rast_b[..., 2][sl_b]
+        n += int((pair & (near_a != near_b)).sum())
+    return n
+
+
+def scan_card_vs_cpu(scene, pc, tex, g, height, width):
+    """``render_from_clip(impl="scan")`` and its gradients to the clip
+    positions and the texture on the card against the same call on the
+    CPU, from the same inputs: the image within 1e-6 (the scan is the same
+    torch ops on both; K7 and K2 equal their plain versions), the
+    gradients within 1e-5 of their largest magnitude (K4's texture sums and
+    the gathers' backward add with atomics on the card).
+
+    :return: the errors.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.pipeline import render_from_clip
+
+    out = []
+    for dev in (pc.device, torch.device("cpu")):
+        p = pc.detach().to(dev).requires_grad_(True)
+        t = tex.detach().to(dev).requires_grad_(True)
+        img = render_from_clip(p, scene.faces.to(dev), scene.uv.to(dev),
+                               scene.uv_idx.to(dev), t, (height, width),
+                               scene.face_neighbors.to(dev), impl="scan")
+        (img * g.to(dev)).sum().backward()
+        out.append([x.detach().cpu() for x in (img, p.grad, t.grad)])
+    (img_c, gp_c, gt_c), (img_p, gp_p, gt_p) = out
+    errs = {"image": max_err(img_c, img_p),
+            "vertex_grad_rel": _rel_err(gp_c, gp_p),
+            "texture_grad_rel": _rel_err(gt_c, gt_p)}
+    if not (errs["image"] <= 1e-6 and errs["vertex_grad_rel"] <= 1e-5
+            and errs["texture_grad_rel"] <= 1e-5):
+        fail(f"scan: the route on the card differs from the CPU's: {errs}")
+    print(f"scan route on the card against the CPU: {errs}", flush=True)
+    return errs
+
+
+def scan_route(dev, gen):
+    """Phase 5e, at mid size: the O(T·H·W) scan route on phase 3's B = 1
+    slice of the 3,042-triangle dome at 256x384, and a B = 2 step.
+
+    Gated: the visibility scan's ids against K1's on >= 99.8 % of pixels
+    (``tests/test_rasterize_pallas.py``'s allowance); the scan route on
+    the card against the same route on the CPU from the same clip
+    positions (:func:`scan_card_vs_cpu`); one ``train_step`` with
+    ``raster_impl="scan"`` finite; with the cameras' depth range [50, 150]
+    (the dome lies at 88-110), ``render_from_clip`` with impl "scan"
+    (every pair antialiased) against "auto": the image within 2e-4 on
+    >= 99.5 % of values (JAX's limit between two renderers), and the
+    render's and the step's gradients within 2 % relative L2.
+
+    Recorded for information: JAX's per-element gradient limits, and the
+    same comparison at the bench's own depth range [0.01, 200]. There
+    every z_ndc of the dome lies in [0.99989, 0.99990], adjacent
+    triangles' depths differ by an ulp, and the two routes' depth formulas
+    pick the other occluder on about half of the pixel pairs the
+    antialias blends (``_depth_flips``), so its blends and their
+    gradients differ; at [50, 150] a few pairs remain, where the surface
+    faces the camera.
+
+    :return: the phase's record.
+    """
+    import dataclasses
+
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.pipeline import render_from_clip
+    from fpc_diffrend_tpu_torch.ops.rasterize import (rasterize,
+                                                      visibility_scan)
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    H, W = 256, 384
+    wl = build_workload(H, W, grid=40, batch=2, tex_size=1024, device=dev)
+    config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
+                                    wl["batch"])
+    tex = params["tex"].detach()
+    zn, zf = 50.0, 150.0
+    tight = dataclasses.replace(scene, proj=scene.proj.clone())
+    tight.proj[:, 2, 2] = -(zf + zn) / (zf - zn)
+    tight.proj[:, 2, 3] = -(2.0 * zf * zn) / (zf - zn)
+    scan_cfg = dataclasses.replace(config, raster_impl="scan",
+                                   aa_max_pairs=-1)
+    g = torch.randn((H, W, tex.shape[2]), device=dev, generator=gen)
+    rec = {"tris": int(scene.faces.shape[0]), "depth_range": [zn, zf]}
+
+    def draw(sc, impl, p, t):
+        return render_from_clip(p, sc.faces, sc.uv, sc.uv_idx, t, (H, W),
+                                sc.face_neighbors, impl=impl)
+
+    for name, sc in (("bench", scene), ("depth_50_150", tight)):
+        with torch.no_grad():
+            pc = loop.sample_clip_positions(config, sc, params,
+                                            batch.cam_idx,
+                                            batch.frame_idx)[0][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = visibility_scan(pc, sc.faces, H, W)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        with torch.no_grad():
+            rk = rasterize(pc, sc.faces, (H, W), with_db=False)
+            rs = rasterize(pc, sc.faces, (H, W), impl="scan", with_db=False)
+        agree = float((ids == rk[..., 3] - 1).float().mean())
+        if not agree >= 0.998:
+            fail(f"scan ({name}): visibility_scan ids agree with K1's on "
+                 f"{agree}")
+        out, secs = {}, {}
+        for impl in ("scan", "auto"):
+            p = pc.clone().requires_grad_(True)
+            t = tex.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (draw(sc, impl, p, t) * g).sum().backward()
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+            with torch.no_grad():
+                out[impl] = (draw(sc, impl, pc, tex), p.grad, t.grad)
+        (img_s, gp_s, gt_s), (img_k, gp_k, gt_k) = out.values()
+        errs = {"ids_agree": agree,
+                "image_close": float(((img_s - img_k).abs() <= 2e-4)
+                                     .float().mean()),
+                "image_max_abs": max_err(img_s, img_k),
+                "texture_grad": float(((gt_s - gt_k).abs()
+                                       - 5e-3 * gt_k.abs()).max()),
+                "vertex_grad_rel": _rel_err(gp_s, gp_k),
+                "occluder_flips": _depth_flips(rs, rk)}
+        # the step's gradients on both routes
+        step_grads = {}
+        for impl, cfg in (("scan", scan_cfg), ("auto", config)):
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            loop.loss_fn(p, cfg, sc, batch)[0].backward()
+            step_grads[impl] = {k: v.grad for k, v in p.items()
+                                if v.grad is not None and bool(v.grad.any())}
+        errs["step_grad_rel"] = {
+            k: _rel_err(step_grads["scan"].get(k, torch.zeros_like(v)), v)
+            for k, v in step_grads["auto"].items()}
+        errs["l2"] = {k: float((a - b).norm() / b.norm()) for k, (a, b) in {
+            "vertex": (gp_s, gp_k), "texture": (gt_s, gt_k),
+            **{f"step {k}": (step_grads["scan"].get(k, torch.zeros_like(v)),
+                             v) for k, v in step_grads["auto"].items()}
+        }.items()}
+        rec[name] = {"errs": errs, "visibility_scan_s": scan_s,
+                     "render_backward_s": secs}
+        print(f"scan route, {name} depth range ({rec['tris']} tris, "
+              f"{H}x{W}): visibility_scan {scan_s:.3f} s a view; render + "
+              f"backward s a view {secs}; against the kernel route {errs}",
+              flush=True)
+        if name == "bench":
+            rec["card_vs_cpu"] = scan_card_vs_cpu(sc, pc, tex, g, H, W)
+            continue
+        if not (errs["image_close"] >= 0.995
+                and set(step_grads["scan"]) == set(step_grads["auto"])
+                and max(errs["l2"].values()) <= 0.02):
+            fail(f"scan: the scan route differs from the kernel route: "
+                 f"{errs}")
+
+    state = wl["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = loop.train_step(scan_cfg, scene, state, batch)
+    torch.cuda.synchronize()
+    rec["train_step_s"] = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()) or not all(
+            bool(torch.isfinite(v).all()) for v in state.params.values()):
+        fail(f"scan: train_step not finite: {metrics}")
+    print(f"scan route: one train_step (B = 2, bench depth range) "
+          f"{rec['train_step_s']:.3f} s, loss {float(metrics['loss'])}",
+          flush=True)
     return rec
 
 
@@ -2503,6 +2966,10 @@ def main() -> int:
         # over the fitted take ----
         record["single_view"] = single_view(
             wl, counters, gen, (fcfg, paths, written, tmp))
+
+    # ---- 5e. the primitives composed at full width; the scan route ----
+    record["primitives"] = primitive_views(wl, counters, gen)
+    record["scan_route"] = scan_route(dev, gen)
     record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
                   fit_take_launches=fit_launches, fit_take_losses=losses,
                   fit_take_pair_cap=cap, fit_take_live_pairs=live0)

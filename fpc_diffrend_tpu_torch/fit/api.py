@@ -36,7 +36,7 @@ from fpc_diffrend_tpu_torch.fit.config import FitConfig
 from fpc_diffrend_tpu_torch.fit.scene import build_scene, load_calibration
 from fpc_diffrend_tpu_torch.models import blendshape
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import raster_stats
-from fpc_diffrend_tpu_torch.ops.pipeline import check_impl
+from fpc_diffrend_tpu_torch.ops.rasterize import check_impl
 from fpc_diffrend_tpu_torch.utils.image import (display_image, load_image,
                                                 make_img)
 from fpc_diffrend_tpu_torch.utils.video import ProgressVideo, progress_callback
@@ -117,12 +117,13 @@ def health_warnings(config: FitConfig, health: dict) -> list[str]:
 
 def autotune_caps(config: FitConfig, scene, params) -> FitConfig:
     """Resolve ``pair_cap == 0`` (auto) from the scene: 1.25 x the worst
-    camera's bin entries, rounded up to a multiple of 128.
+    camera's bin entries, rounded up to a multiple of 128. The scan route
+    has no bins, and keeps its cap of 0.
 
     :raises RuntimeError: the oversized-triangle list overflows (the fit
         would drop triangles).
     """
-    if config.pair_cap:
+    if config.pair_cap or config.raster_impl == "scan":
         return config
     health = measure_raster_health(config, scene, params)
     if health["global_overflow"] > 0:
@@ -166,8 +167,8 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
 
     :param device: default CUDA; ``"cpu"`` runs the plain versions.
     :return: the final TrainState.
-    :raises NotImplementedError, ValueError: ``config.raster_impl`` names
-        no ported path (:func:`ops.pipeline.check_impl`).
+    :raises ValueError: ``config.raster_impl`` names no rasterizer
+        (:func:`ops.rasterize.check_impl`).
     """
     config.validate()
     check_impl(config.raster_impl)
@@ -199,7 +200,9 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
         record = {"step": int(st.step), "loss": loss, "it_per_s": rate,
                   "pair_cap": config.pair_cap}
         # the geometry moves during a fit: re-measure the caps' health
-        if i % health_interval < every:
+        # (the scan route has no bins; a cap set on it is still watched)
+        if ((config.raster_impl != "scan" or config.pair_cap)
+                and i % health_interval < every):
             health = measure_raster_health(config, scene, st.params)
             record.update(health)
             for warning in health_warnings(config, health):

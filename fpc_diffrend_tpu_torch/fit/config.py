@@ -1,13 +1,15 @@
 """Fit configuration: the port's own copy of ``fpc_diffrend_tpu.fit.config``.
 
 Field names and defaults are the JAX package's, so one config means the
-same thing in both packages. ``raster_impl`` names the kernel path
-("auto" or "pallas"): ``run_fit``, ``evaluate`` and ``fit_take`` raise
-for "scan", JAX's reference rasterizer, which is not ported, and for any
-other value (``ops.pipeline.check_impl``). ``aa_max_pairs`` is JAX's pair
-cap of its scan-path antialias; the kernels' antialias is exact and does
-not read it. The single view (``ops.pipeline.render``, which the result
-renderers call) is the same path at a batch of one.
+same thing in both packages. ``raster_impl`` names the rasterizer: "auto"
+or "pallas" the kernel path (the port's "auto" is always the kernels;
+JAX's takes the scan route off the TPU), "scan" the O(T·H·W) reference
+rasterizer, rendered sample by sample; ``run_fit``, ``evaluate`` and
+``fit_take`` raise for any other value (``ops.rasterize.check_impl``).
+``aa_max_pairs`` is the scan route's antialias pair cap (0: 8 (H + W),
+-1: every pair); the kernels' antialias is exact and does not read it.
+The single view (``ops.pipeline.render``, which the result renderers
+call) is the same path at a batch of one.
 """
 
 from __future__ import annotations

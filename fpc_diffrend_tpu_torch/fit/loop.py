@@ -10,8 +10,12 @@ package's:
 
 Entry points: ``evaluate`` (the loss forward for a few sampled batches),
 ``train_step`` (one step on a given batch), ``train_steps`` (k steps with
-on-device sampling) and ``run_fit``. Nothing on the step's path reads a
+on-device sampling) and ``run_fit``; ``render_sample`` renders one
+(camera, frame) sample. Nothing on the kernel route's step path reads a
 device value on the host, so steps queue on the card without waiting.
+With ``raster_impl="scan"`` the batch renders sample by sample through
+``render_sample`` (the JAX package's ``vmap`` fallback), over the
+O(T·H·W) reference rasterizer.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from fpc_diffrend_tpu_torch.fit.scene import Scene
 from fpc_diffrend_tpu_torch.models import blendshape, pose
 from fpc_diffrend_tpu_torch.models.camera import transform_clip
 from fpc_diffrend_tpu_torch.ops import mesh_ops
-from fpc_diffrend_tpu_torch.ops.pipeline import (check_impl,
-                                                 render_batch_stacked)
+from fpc_diffrend_tpu_torch.ops.pipeline import (render_batch_stacked,
+                                                 render_from_clip)
+from fpc_diffrend_tpu_torch.ops.rasterize import check_impl
 
 Tensor = torch.Tensor
 
@@ -65,10 +70,45 @@ def sample_clip_positions(config: FitConfig, scene: Scene, params: dict,
     return transform_clip(mvp, verts3), verts3
 
 
+def resolve_aa_max_pairs(config: FitConfig) -> int | None:
+    """``config.aa_max_pairs`` -> the scan route's antialias pair cap:
+    0 = 8 (H + W), -1 = None (every pair, exact)."""
+    if config.aa_max_pairs == -1:
+        return None
+    if config.aa_max_pairs == 0:
+        h, w = config.resolution
+        return 8 * (h + w)
+    return config.aa_max_pairs
+
+
+def render_sample(config: FitConfig, scene: Scene, params: dict, cam_idx,
+                  frame_idx):
+    """Blend, pose and render one (camera, frame) sample through
+    ``ops.pipeline.render_from_clip`` with ``config.raster_impl``.
+
+    :param cam_idx, frame_idx: ints or 0-d integer tensors.
+    :return: (image (H, W, C), verts3 (V, 3)).
+    """
+    cam, frame = (torch.as_tensor(i, device=scene.device).reshape(1)
+                  for i in (cam_idx, frame_idx))
+    pos_clip, verts3 = sample_clip_positions(config, scene, params, cam,
+                                             frame)
+    img = render_from_clip(pos_clip[0], scene.faces, scene.uv, scene.uv_idx,
+                           params["tex"], tuple(config.resolution),
+                           scene.face_neighbors, enable_mip=config.enable_mip,
+                           max_mip_level=config.max_mip_level,
+                           impl=config.raster_impl,
+                           aa_max_pairs=resolve_aa_max_pairs(config),
+                           pair_cap=config.pair_cap or None)
+    return img, verts3[0]
+
+
 def render_batch(config: FitConfig, scene: Scene, params: dict,
                  cam_idx: Tensor, frame_idx: Tensor):
-    """Render a (B,) batch through the stacked-batch kernel pipeline (the
-    entry points check ``config.raster_impl`` once, not each step).
+    """Render a (B,) batch: through the stacked-batch kernel pipeline, or
+    with ``config.raster_impl == "scan"`` sample by sample through
+    :func:`render_sample` (the entry points check ``config.raster_impl``
+    once, not each step).
 
     With ``config.enable_mip`` the texture is sampled trilinearly across
     its mip chain (K8, K9 in place of K1's tail and K4). The JAX package
@@ -79,6 +119,11 @@ def render_batch(config: FitConfig, scene: Scene, params: dict,
 
     :return: (imgs (B, H, W, C), verts3 (B, V, 3)).
     """
+    if config.raster_impl == "scan":
+        out = [render_sample(config, scene, params, c, f)
+               for c, f in zip(cam_idx, frame_idx)]
+        return (torch.stack([img for img, _ in out]),
+                torch.stack([v for _, v in out]))
     pos_clip_b, verts3 = sample_clip_positions(config, scene, params,
                                                cam_idx, frame_idx)
     imgs = render_batch_stacked(pos_clip_b, scene.faces, scene.uv,
@@ -234,8 +279,8 @@ def run_fit(config: FitConfig, scene: Scene, frames_u8: Tensor,
     :param state: the TrainState to continue; default a fresh one, its
         texture drawn from ``config.seed``.
     :return: the final TrainState.
-    :raises NotImplementedError, ValueError: ``config.raster_impl`` names
-        no ported path (:func:`ops.pipeline.check_impl`).
+    :raises ValueError: ``config.raster_impl`` names no rasterizer
+        (:func:`ops.rasterize.check_impl`).
     """
     config.validate()
     check_impl(config.raster_impl)

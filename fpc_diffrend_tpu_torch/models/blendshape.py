@@ -84,13 +84,15 @@ def setup_dataset_free(n_frames: int, n_vertices_x3: int):
     return m1, m2, m3
 
 
-def load_blendshape_deltas(localblpath: str,
-                           v_basemesh: np.ndarray) -> np.ndarray:
+def load_blendshape_deltas(localblpath: str, v_basemesh: np.ndarray,
+                           progress_every: int = 50) -> np.ndarray:
     """A directory of blendshape OBJs as a (3V, nB) delta matrix.
 
     Each OBJ gives one column of per-vertex deltas against the base mesh,
     in ``sorted(os.listdir)`` order. The vertex blocks are parsed by the
-    native runtime where it is available, else by :func:`load_obj_vertices`.
+    native runtime where it is available, else by :func:`load_obj_vertices`,
+    which prints ``Blendshape i/n`` every ``progress_every`` files (0:
+    never).
     """
     v_basemesh = np.asarray(v_basemesh, dtype=np.float32).reshape(-1)
     paths = [os.path.join(localblpath, name)
@@ -98,7 +100,11 @@ def load_blendshape_deltas(localblpath: str,
     if native.available():
         out = native.parse_obj_vertices(paths, v_basemesh.shape[0])
     else:
-        out = np.stack([load_obj_vertices(p) for p in paths])
+        out = np.empty((len(paths), v_basemesh.shape[0]), dtype=np.float32)
+        for i, path in enumerate(paths):
+            if progress_every and i % progress_every == 0:
+                print(f"Blendshape {i}/{len(paths)}")
+            out[i] = load_obj_vertices(path)
     return (out - v_basemesh[None, :]).T.copy()
 
 

@@ -3,6 +3,14 @@ single view ``render`` / ``render_from_clip``, which the result renderers
 call, and the stacked batch ``render_batch_stacked``, which the fit step
 calls.
 
+``impl`` picks the rasterizer: "auto" and "pallas" (the JAX name of the
+binned kernel path) render through the kernels at B = 1; "scan" composes
+the nvdiffrast-style primitives as the JAX package's scan route does
+(``ops.rasterize.rasterize_with_uv`` with the O(T·H·W) visibility scan,
+``ops.texture.texture``, ``ops.antialias.antialias`` with its pair cap;
+with mip, ``rasterize`` -> ``interpolate(diff_attrs="all")`` -> the
+trilinear ``texture``).
+
 The background is composited after antialias, as in the reference
 renderer: antialias blends a foreground pixel against the colour a missed
 pixel sampled (uv (0, 0)), and the composite then paints 45/255 over every
@@ -18,29 +26,16 @@ import torch
 
 from fpc_diffrend_tpu_torch.device import resolve_device
 from fpc_diffrend_tpu_torch.models.camera import transform_clip
+from fpc_diffrend_tpu_torch.ops.antialias import antialias
+from fpc_diffrend_tpu_torch.ops.interpolate import interpolate
 from fpc_diffrend_tpu_torch.ops.rasterize import (
-    rasterize_textured_sepaa_stacked)
+    check_impl, rasterize, rasterize_textured_sepaa_stacked,
+    rasterize_with_uv)
+from fpc_diffrend_tpu_torch.ops.texture import texture
 
 Tensor = torch.Tensor
 
 BACKGROUND = 45.0 / 255.0
-
-
-def check_impl(impl: str) -> None:
-    """Raise unless ``impl`` (``render``'s argument and
-    ``FitConfig.raster_impl``) names the kernel path: "auto" or "pallas"
-    (the JAX name of the binned kernel path). "scan", JAX's O(T·H·W)
-    reference rasterizer, is not ported.
-
-    :raises NotImplementedError: for "scan".
-    :raises ValueError: for any other value.
-    """
-    if impl == "scan":
-        raise NotImplementedError(
-            "impl='scan' (the O(T*H*W) reference rasterizer) is not ported; "
-            "use impl='auto'")
-    if impl not in ("auto", "pallas"):
-        raise ValueError(f"unknown impl {impl!r}")
 
 
 def composite_stacked(idbuf: Tensor, aa: Tensor, batch: int,
@@ -62,20 +57,20 @@ def render_batch_stacked(pos_clip_b: Tensor, pos_idx: Tensor, uv: Tensor,
                          uv_idx: Tensor, tex: Tensor,
                          resolution: Tuple[int, int], face_neighbors: Tensor,
                          background: float = BACKGROUND,
+                         pair_cap: int | None = None,
                          enable_mip: bool = False,
-                         max_mip_level: int = 0,
-                         pair_cap: int = 0) -> Tensor:
+                         max_mip_level: int = 0) -> Tensor:
     """Render a batch of clip positions through the stacked pipeline.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
+    :param pair_cap: per-sample bin-entry cap (None or 0: uncapped).
     :param enable_mip: trilinear mipmap sampling (``linear-mipmap-linear``
         with up to ``max_mip_level`` levels) in place of bilinear.
-    :param pair_cap: per-sample bin-entry cap (0: uncapped).
     :return: (B, H, W, C) images in [0, 1], row 0 = bottom (GL convention).
     """
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip_b, pos_idx, uv, uv_idx, tex, face_neighbors, resolution,
-        enable_mip, max_mip_level, pair_cap)
+        enable_mip, max_mip_level, pair_cap or 0)
     return composite_stacked(idbuf, aa, pos_clip_b.shape[0], resolution,
                              background)
 
@@ -97,15 +92,18 @@ def render(mvp, pos, pos_idx, uv, uv_idx, tex, resolution: Tuple[int, int],
     :param resolution: (height, width).
     :param face_neighbors: (T, 3) int adjacency for antialiasing.
     :param impl: "auto" or "pallas" (the JAX name of the binned kernel
-        path) render through the kernels; "scan", JAX's O(T·H·W)
-        reference rasterizer, is not ported and raises.
-    :param aa_max_pairs: JAX's pair cap of its scan-path antialias; the
-        kernels' antialias is exact, so it is not read.
-    :param pair_cap: bin-entry cap (None: uncapped).
+        path) render through the kernels; "scan" composes the primitives
+        over the O(T·H·W) reference rasterizer. JAX's "auto" takes the
+        scan route off the TPU; the port's is always the kernels.
+    :param aa_max_pairs: the scan route's antialias pair cap a direction
+        (None: every pair, exact); the kernels' antialias is exact and
+        does not read it.
+    :param pair_cap: bin-entry cap of the kernel route (None: uncapped).
     :param route: the kernels of the bilinear path: "sepaa" (K1 -> K2,
         JAX's default), "aa_fused" (K10) or "separate" (K1 -> K7 -> K2);
         the three give the same image and gradients. JAX picks them by
-        environment variables; the port reads none.
+        environment variables; the port reads none. The scan route does
+        not read it.
     :param device: where to render; None means CUDA (no CPU fallback).
     :return: (H, W, C) image in [0, 1], row 0 = bottom (GL convention).
     """
@@ -141,11 +139,59 @@ def render_from_clip(pos_clip: Tensor, pos_idx: Tensor, uv: Tensor,
                      pair_cap: int | None = None,
                      route: str = "sepaa") -> Tensor:
     """:func:`render` from clip positions (V, 4), on the device they lie
-    on: one view binned as a batch of one, through the stacked pipeline.
-    A 2-D texture is taken as one channel."""
-    check_impl(impl)
+    on: on the kernel route one view binned as a batch of one, through the
+    stacked pipeline. A 2-D texture is taken as one channel."""
     tex3 = tex[..., None] if tex.ndim == 2 else tex
+    if check_impl(impl) == "scan":
+        return _render_scan(pos_clip, pos_idx, uv, uv_idx, tex3,
+                            tuple(resolution), face_neighbors, enable_mip,
+                            max_mip_level, background, aa_max_pairs)
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip[None], pos_idx, uv, uv_idx, tex3, face_neighbors,
         tuple(resolution), enable_mip, max_mip_level, pair_cap or 0, route)
     return composite_stacked(idbuf, aa, 1, tuple(resolution), background)[0]
+
+
+def _render_scan(pos_clip, pos_idx, uv, uv_idx, tex, resolution,
+                 face_neighbors, enable_mip, max_mip_level, background,
+                 aa_max_pairs):
+    """The scan route of :func:`render_from_clip` (JAX's
+    ``ops/pipeline.py:121-126,201-221``): the primitives composed over the
+    visibility scan, then the background composite. The mip route's uv
+    derivatives stay in the gradient, as in JAX."""
+    if enable_mip:
+        rast, rast_db = rasterize(pos_clip, pos_idx, resolution, impl="scan",
+                                  with_db=True)
+        texc, texd = interpolate(uv, rast, uv_idx, rast_db=rast_db,
+                                 diff_attrs="all")
+        colour = texture(tex, texc, uv_da=texd,
+                         filter_mode="linear-mipmap-linear",
+                         max_mip_level=max_mip_level)
+    else:
+        rast, texc = rasterize_with_uv(pos_clip, pos_idx, uv, uv_idx,
+                                       resolution, impl="scan")
+        colour = texture(tex, texc, filter_mode="linear")
+    colour = antialias(colour, rast, pos_clip, pos_idx, face_neighbors,
+                       max_pairs=aa_max_pairs)
+    return torch.where(rast[..., 3:] > 0, colour, background)
+
+
+def _bary_db_to_uv_da(db: Tensor, uv: Tensor, uv_idx: Tensor,
+                      rast: Tensor) -> Tensor:
+    """(du/dx, du/dy, dv/dx, dv/dy) barycentric derivatives -> the uv
+    derivatives (ds/dx, ds/dy, dt/dx, dt/dy) of the winner's texture
+    coordinates, texc = u c0 + v c1 + (1 - u - v) c2, with the corners held
+    out of the gradient (JAX's mip LOD of the kernel route; the port's
+    kernel route takes the finite-difference LOD instead).
+
+    :return: (H, W, 4).
+    """
+    ids = torch.clamp(rast[..., 3].to(torch.int64) - 1, min=0)
+    c = uv[uv_idx.long()].detach()[ids]              # (H, W, 3, 2)
+    d0 = c[..., 0, :] - c[..., 2, :]
+    d1 = c[..., 1, :] - c[..., 2, :]
+    du_dx, du_dy, dv_dx, dv_dy = db.unbind(-1)
+    return torch.stack([d0[..., 0] * du_dx + d1[..., 0] * dv_dx,
+                        d0[..., 0] * du_dy + d1[..., 0] * dv_dy,
+                        d0[..., 1] * du_dx + d1[..., 1] * dv_dx,
+                        d0[..., 1] * du_dy + d1[..., 1] * dv_dy], dim=-1)

@@ -30,23 +30,33 @@ sample), K2; backward K3 -> K9 -> K5 -> K6. The JAX package renders it per
 sample under ``vmap`` (``render_from_clip``'s mip branch); stacked, each
 sample gives the same result, as the JAX package says of its own stacked
 path ("functionally identical to vmapping").
+
+The nvdiffrast-style primitive (JAX's public ``rasterize`` and
+``rasterize_with_uv``) has two routes. The kernel route is the same pass
+at B = 1 with K1 in its texture-free mode, under
+:class:`RasterizeKernel` (JAX's ``rasterize_fused``): its backward is K5,
+fed the cotangents of u, v and z as well, then K6. The scan route is the
+O(T·H·W) :func:`visibility_scan` and the autograd of
+:func:`pixel_attributes`, plain torch on either device as JAX's is XLA.
 """
 
 from __future__ import annotations
 
 import torch
 
+from fpc_diffrend_tpu_torch.ops.antialias import edge_fn
 from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
     antialias_planes, antialias_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.raster_grad_cuda import (
     fold_entries, pixel_grad)
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    aux_records, bin_scene_stacked, fused_raster, fused_raster_aa,
-    pad_resolution)
+    _AREA_EPS, _W_EPS, _screen_xy, aux_records, bin_scene_stacked,
+    fused_raster, fused_raster_aa, pad_resolution)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
     texture_planes, texture_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
     mip_sample, mip_sample_bwd)
+from fpc_diffrend_tpu_torch.ops.interpolate import gather_rows, interpolate
 from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
 
 Tensor = torch.Tensor
@@ -79,15 +89,17 @@ def _antialias_bwd(ctx, idbuf, payload, colour, g_aa):
                                 height, width, sample_ph)
 
 
-def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts):
-    """K5 -> K6: the cotangents of the sampled uv and the screen corners
+def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
+    """K5 -> K6: the cotangents of the payload's u, v, z (``guvz`` (3,
+    rows, pw); None: zero), of the sampled uv and of the screen corners
     into the (B, T, 16) data and aux records."""
     B, T = ctx.dims[:2]
     # the 11 cotangent planes of payload 0-10 [gu gv gz gtu gtv
-    # g(x0..y2)]: u, v and z get none (the payload never leaves this
-    # op, and the antialias differentiates only corners and colour)
-    gpl = torch.cat([torch.zeros((3,) + gtu.shape, device=gtu.device),
-                     gtu[None], gtv[None], gverts])
+    # g(x0..y2)]; the render Functions' u, v and z never leave the op
+    # (the antialias differentiates only corners and colour)
+    if guvz is None:
+        guvz = torch.zeros((3,) + gtu.shape, device=gtu.device)
+    gpl = torch.cat([guvz, gtu[None], gtv[None], gverts])
     grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[0],
                                            payload[1], extra, gpl)
     grad = fold_entries(grad_entries, grad_global, ctx.bins, B * T)
@@ -246,3 +258,269 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
         return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid, sizes,
                                               bins, ph, height, width)
     return ROUTES[route].apply(data_s, aux_s, tex, bins, ph, height, width)
+
+
+# ----------------------------------------------------------------------------
+# The nvdiffrast-style primitive: rasterize, rasterize_with_uv
+# ----------------------------------------------------------------------------
+
+def screen_vertices(pos_clip: Tensor, width: int, height: int) -> Tensor:
+    """Clip-space (V, 4) -> screen-space (V, 3) = (sx, sy, z_ndc),
+    differentiable; w is guarded by a tiny epsilon (triangles with a
+    vertex at w <= eps are masked out where they are tested)."""
+    sx, sy, z, _ = _screen_xy(pos_clip, height, width)
+    return torch.stack([sx, sy, z], dim=1)
+
+
+def _tri_screen(pos_clip: Tensor, faces: Tensor, width: int, height: int):
+    """Per-triangle (p (T, 3, 2) screen xy, zndc (T, 3), w (T, 3),
+    valid (T,)): every vertex in front of w = eps."""
+    sv = screen_vertices(pos_clip, width, height)[faces]     # (T, 3, 3)
+    w = pos_clip[:, 3][faces]
+    return sv[..., :2], sv[..., 2], w, torch.all(w > _W_EPS, dim=1)
+
+
+def visibility_scan(pos_clip: Tensor, faces: Tensor, height: int,
+                    width: int, chunk: int = 8) -> Tensor:
+    """Winning triangle id per pixel by a full-image z-buffered test of
+    every triangle: the O(T·H·W) reference rasterizer (the JAX package's
+    XLA scan), plain torch on either device.
+
+    ``chunk`` triangles are tested at once; the nearest covering one of a
+    chunk replaces the buffer only where strictly nearer, and a tie goes to
+    the lower index, as the JAX scan's strict ``z < zbuf`` in triangle
+    order gives.
+
+    :return: (H, W) int32; -1 = background, else triangle index.
+    """
+    dev = pos_clip.device
+    p, zndc, _, valid = _tri_screen(pos_clip, faces, width, height)
+    px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    zbuf = torch.full((height, width), float("inf"), device=dev)
+    idbuf = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    for t0 in range(0, faces.shape[0], chunk):
+        c = p[t0:t0 + chunk, :, :, None, None]             # (n, 3, 2, 1, 1)
+        (ax, ay), (bx, by), (cx, cy) = (c[:, k].unbind(1) for k in range(3))
+        area = edge_fn(ax, ay, bx, by, cx, cy)
+        big = torch.abs(area) > _AREA_EPS
+        inv_area = torch.where(big, 1.0 / torch.where(big, area, 1.0), 0.0)
+        l0 = edge_fn(bx, by, cx, cy, px, py) * inv_area
+        l1 = edge_fn(cx, cy, ax, ay, px, py) * inv_area
+        l2 = edge_fn(ax, ay, bx, by, px, py) * inv_area
+        ok = valid[t0:t0 + chunk, None, None] & big
+        covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & ok
+        z0, z1, z2 = zndc[t0:t0 + chunk, :, None, None].unbind(1)
+        z = l0 * z0 + l1 * z1 + l2 * z2
+        zmin, k = torch.where(covered, z, float("inf")).min(dim=0)
+        closer = zmin < zbuf
+        zbuf = torch.where(closer, zmin, zbuf)
+        idbuf = torch.where(closer, (k + t0).to(torch.int32), idbuf)
+    return idbuf
+
+
+def _pixel_grid(height: int, width: int, dev):
+    """(px, py) (H, W) pixel centres."""
+    px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    return px.expand(height, width), py[:, None].expand(height, width)
+
+
+def _bary_derivatives(dl, iw, u, v, inv_denom):
+    """(H, W, 4) (du/dx, du/dy, dv/dx, dv/dy) of the perspective-correct
+    barycentrics from the affine ones' (dl0/dx, dl0/dy, ..., dl2/dy)."""
+    dd = [dl[2 * i + j] * iw[i] for i in range(3) for j in range(2)]
+    ddenom_dx = dd[0] + dd[2] + dd[4]
+    ddenom_dy = dd[1] + dd[3] + dd[5]
+    return torch.stack([(dd[0] - u * ddenom_dx) * inv_denom,
+                        (dd[1] - u * ddenom_dy) * inv_denom,
+                        (dd[2] - v * ddenom_dx) * inv_denom,
+                        (dd[3] - v * ddenom_dy) * inv_denom], dim=-1)
+
+
+def _safe_inverse(x, eps):
+    big = torch.abs(x) > eps
+    return torch.where(big, 1.0 / torch.where(big, x, 1.0), 0.0)
+
+
+def pixel_attributes(pos_clip: Tensor, faces: Tensor, idbuf: Tensor,
+                     height: int, width: int, with_db: bool = False):
+    """Perspective-correct (u, v, z) per pixel from the winning triangle
+    ids, differentiable with respect to ``pos_clip`` (the ids held fixed,
+    as nvdiffrast's rasterize backward holds them).
+
+    :param idbuf: (H, W) int winning triangle index, -1 = background.
+    :param with_db: also return (du/dx, du/dy, dv/dx, dv/dy).
+    :return: (u, v, z, mask[, db]), each (H, W), db (H, W, 4).
+    """
+    ids = torch.clamp(idbuf, min=0)
+    mask = idbuf >= 0
+    p, zndc, w, _ = _tri_screen(pos_clip, faces, width, height)
+    tp, tz, tw = (gather_rows(x, ids) for x in (p, zndc, w))
+    px, py = _pixel_grid(height, width, pos_clip.device)
+    ax, ay = tp[..., 0, 0], tp[..., 0, 1]
+    bx, by = tp[..., 1, 0], tp[..., 1, 1]
+    cx, cy = tp[..., 2, 0], tp[..., 2, 1]
+    inv_area = _safe_inverse(edge_fn(ax, ay, bx, by, cx, cy), _AREA_EPS)
+    l0 = edge_fn(bx, by, cx, cy, px, py) * inv_area
+    l1 = edge_fn(cx, cy, ax, ay, px, py) * inv_area
+    l2 = edge_fn(ax, ay, bx, by, px, py) * inv_area
+    iw = (1.0 / tw).unbind(-1)
+    d0, d1, d2 = l0 * iw[0], l1 * iw[1], l2 * iw[2]
+    inv_denom = _safe_inverse(d0 + d1 + d2, _AREA_EPS)
+    u = d0 * inv_denom
+    v = d1 * inv_denom
+    z = l0 * tz[..., 0] + l1 * tz[..., 1] + l2 * tz[..., 2]
+    u_m = torch.where(mask, u, 0.0)
+    v_m = torch.where(mask, v, 0.0)
+    z = torch.where(mask, z, 0.0)
+    if not with_db:
+        return u_m, v_m, z, mask
+    # the affine barycentrics' screen derivatives
+    dl = [-(cy - by) * inv_area, (cx - bx) * inv_area,
+          -(ay - cy) * inv_area, (ax - cx) * inv_area,
+          -(by - ay) * inv_area, (bx - ax) * inv_area]
+    db = _bary_derivatives(dl, iw, u_m, v_m, inv_denom)
+    return u_m, v_m, z, mask, torch.where(mask[..., None], db, 0.0)
+
+
+def _pixel_db_from_data(data: Tensor, idbuf: Tensor, height: int,
+                        width: int) -> Tensor:
+    """(H, W, 4) perspective-correct barycentric pixel derivatives from the
+    (T, 16) triangle records (``triangle_setup``: slots 0-8 the edge planes,
+    13-15 w): dlambda_i/dx = a_i, dlambda_i/dy = b_i. Differentiable
+    through the record gather."""
+    mask = idbuf >= 0
+    f = gather_rows(data, torch.clamp(idbuf, min=0)).unbind(-1)
+    px, py = _pixel_grid(height, width, data.device)
+    l0 = f[0] * px + f[1] * py + f[2]
+    l1 = f[3] * px + f[4] * py + f[5]
+    l2 = f[6] * px + f[7] * py + f[8]
+    iw = [1.0 / torch.where(torch.abs(w) > _W_EPS, w, 1.0)
+          for w in f[13:16]]
+    d0, d1, d2 = l0 * iw[0], l1 * iw[1], l2 * iw[2]
+    inv_denom = _safe_inverse(d0 + d1 + d2, _AREA_EPS)
+    u = d0 * inv_denom
+    v = d1 * inv_denom
+    db = _bary_derivatives([f[0], f[1], f[3], f[4], f[6], f[7]], iw, u, v,
+                           inv_denom)
+    return torch.where(mask[..., None], db, 0.0)
+
+
+class RasterizeKernel(torch.autograd.Function):
+    """K1 without its texture tail forward, K5 -> K6 backward: the port of
+    JAX's ``rasterize_fused`` custom VJP as ``_rasterize_pallas_full``
+    uses it.
+
+    ``apply(data_s, aux_s, bins, sample_ph, height, width)``: records and
+    bins as :class:`RasterizeTexturedSepaaStacked` takes them.
+
+    :return: (idbuf (rows, pw) int32, payload (14, rows, pw) [u v z tu tv
+        x0 y0 x1 y1 x2 y2 n0 n1 n2]), padded; the cotangents of payload
+        planes 0-10 reach the records (the neighbour ids have none).
+    """
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, bins, sample_ph, height, width):
+        idbuf, entry, payload, extra, _ = _raster(
+            ctx, data_s, bins, None, sample_ph, height, width)
+        ctx.save_for_backward(entry, payload, extra)
+        ctx.mark_non_differentiable(idbuf)
+        return idbuf, payload
+
+    @staticmethod
+    def backward(ctx, _g_id, g_payload):
+        entry, payload, extra = ctx.saved_tensors
+        g = g_payload.contiguous()
+        return (*_records_bwd(ctx, entry, payload, extra, g[3], g[4],
+                              g[5:11], g[:3]),
+                None, None, None, None)
+
+
+def check_impl(impl: str) -> str:
+    """The rasterizer ``impl`` names (``render``'s argument and
+    ``FitConfig.raster_impl``): "pallas" for "auto" and "pallas" (the
+    kernels), "scan" for "scan" (the O(T·H·W) reference rasterizer).
+
+    :raises ValueError: for any other value.
+    """
+    if impl in ("auto", "pallas"):
+        return "pallas"
+    if impl == "scan":
+        return "scan"
+    raise ValueError(f"unknown rasterize impl {impl!r}")
+
+
+def _rasterize_kernel(pos_clip: Tensor, faces: Tensor, uv, uv_idx,
+                      resolution):
+    """The kernel route at B = 1: aux records, K11's binning, K1 without
+    its texture tail, cropped to (H, W).
+
+    :return: (rast (H, W, 4), texc (H, W, 2), data (T, 16) records,
+        idbuf (H, W) int32).
+    """
+    height, width = resolution
+    if uv is None:
+        uv = torch.zeros((1, 2), device=pos_clip.device)
+        uv_idx = torch.zeros_like(faces)
+    ph, _ = pad_resolution(height, width)
+    aux = aux_records(uv, uv_idx, pos_clip[None], faces, None, height, width)
+    data_s, aux_s, bins = bin_scene_stacked(pos_clip[None], faces, height,
+                                            width, aux)
+    idbuf_p, payload_p = RasterizeKernel.apply(data_s, aux_s, bins, ph,
+                                               height, width)
+    idbuf = idbuf_p[:height, :width]
+    payload = payload_p[:, :height, :width]
+    idf = torch.where(idbuf >= 0, (idbuf + 1).to(torch.float32), 0.0)
+    rast = torch.stack([payload[0], payload[1], payload[2], idf], dim=-1)
+    texc = torch.stack([payload[3], payload[4]], dim=-1)
+    return rast, texc, data_s[0], idbuf
+
+
+def rasterize(pos_clip: Tensor, faces: Tensor, resolution,
+              impl: str = "auto", with_db: bool = True):
+    """Rasterize clip-space triangles; nvdiffrast-compatible output, on
+    the device of ``pos_clip``.
+
+    :param pos_clip: (V, 4) float32 clip-space positions.
+    :param faces: (T, 3) int triangle vertex indices.
+    :param resolution: (height, width).
+    :param impl: "pallas" (JAX's name of the kernel route): K11 bins, K1
+        rasterizes, K5 -> K6 differentiate; "scan": the O(T·H·W)
+        :func:`visibility_scan` and the autograd of
+        :func:`pixel_attributes`; "auto": the kernel route on every device
+        (JAX's "auto" takes the scan route off the TPU). JAX's
+        ``interpret`` switch has no counterpart.
+    :param with_db: also return the (H, W, 4) barycentric derivatives.
+    :return: rast (H, W, 4) = (u, v, z_ndc, tri_id + 1), id 0 the
+        background; with ``with_db`` also rast_db (H, W, 4) = (du/dx,
+        du/dy, dv/dx, dv/dy) in pixels. Row 0 is the bottom row.
+    """
+    height, width = resolution
+    if check_impl(impl) == "pallas":
+        rast, _, data, idbuf = _rasterize_kernel(pos_clip, faces, None, None,
+                                                 resolution)
+        if with_db:
+            return rast, _pixel_db_from_data(data, idbuf, height, width)
+        return rast
+    idbuf = visibility_scan(pos_clip.detach(), faces, height, width)
+    u, v, z, mask, *db = pixel_attributes(pos_clip, faces, idbuf, height,
+                                          width, with_db=with_db)
+    idf = torch.where(mask, (idbuf + 1).to(torch.float32), 0.0)
+    rast = torch.stack([u, v, z, idf], dim=-1)
+    return (rast, db[0]) if with_db else rast
+
+
+def rasterize_with_uv(pos_clip: Tensor, faces: Tensor, uv: Tensor,
+                      uv_idx: Tensor, resolution, impl: str = "auto"):
+    """Rasterize and interpolate the uv coordinates: on the kernel route K1
+    resolves the winner's perspective-correct uv in its pass; on the scan
+    route :func:`rasterize` then ``ops.interpolate.interpolate``.
+
+    :param impl: as :func:`rasterize`.
+    :return: (rast (H, W, 4), texc (H, W, 2)).
+    """
+    if check_impl(impl) == "pallas":
+        return _rasterize_kernel(pos_clip, faces, uv, uv_idx, resolution)[:2]
+    rast = rasterize(pos_clip, faces, resolution, impl=impl, with_db=False)
+    return rast, interpolate(uv, rast, uv_idx)[0]

@@ -69,15 +69,18 @@ def build_mip_pyramid(tex: Tensor, max_level: int) -> list[Tensor]:
     return levels
 
 
-def texture(tex: Tensor, uv: Tensor, boundary_mode: str = "wrap",
-            filter_mode: str = "linear", uv_da: Tensor | None = None,
+def texture(tex: Tensor, uv: Tensor, uv_da: Tensor | None = None,
+            filter_mode: str = "linear", boundary_mode: str = "wrap",
             max_mip_level: int = 0) -> Tensor:
-    """Sample tex (TH, TW, C) at uv (..., 2) -> (..., C).
+    """Sample tex (TH, TW, C) at uv (..., 2) -> (..., C); the JAX
+    ``texture``'s parameters, in its order.
 
-    :param filter_mode: "linear" (bilinear) or "linear-mipmap-linear"
-        (trilinear across the mip chain, LOD from ``uv_da``).
     :param uv_da: (..., 4) screen-space uv derivatives (du/dx, du/dy,
         dv/dx, dv/dy); required for mipmap filtering.
+    :param filter_mode: "linear" (bilinear) or "linear-mipmap-linear"
+        (trilinear across the mip chain, LOD from ``uv_da``).
+    :param boundary_mode: "wrap" or "clamp".
+    :param max_mip_level: the deepest mip level built and sampled.
     """
     if filter_mode == "linear":
         # imported here: texture_cuda takes its plain version from this module

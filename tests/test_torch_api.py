@@ -18,7 +18,8 @@
   ``progress_{n:05d}.png`` frames, pixels within 1/255 of each other (the
   two fits sample different batches at a tiny learning rate).
 * ``raster_impl``: ``fit_take``, ``run_fit`` and ``evaluate`` raise for
-  "scan" (not ported) and for an unknown value, and run for "pallas".
+  an unknown value and run for "pallas" and "scan"; ``fit_take`` with
+  "scan" logs JAX's first loss within 1e-6 relative.
 """
 
 import dataclasses
@@ -389,9 +390,38 @@ def test_fit_take_rejects_bad_mode(take_dirs, tmp_path):
     with pytest.raises(ValueError, match="bogus"):
         tapi.fit_take(_config(take_dirs, tmp_path, mode="bogus"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="scan"):
-        tapi.fit_take(_config(take_dirs, tmp_path, raster_impl="scan"),
+    with pytest.raises(ValueError, match="bogus"):
+        tapi.fit_take(_config(take_dirs, tmp_path, raster_impl="bogus"),
                       device="cpu")
+
+
+def test_fit_take_scan_matches_jax(take_dirs, tmp_path):
+    """``fit_take`` with raster_impl="scan" (the reference rasterizer,
+    sample by sample) on the tiny take: no cap is autotuned and no bin
+    health is logged, as in JAX; the first logged loss equals JAX's within
+    1e-6 relative (one texture file for both; the frames are equal, so the
+    two packages' different batch draws see the same references), the
+    later ones within 1e-4 (the draws update other frames' parameters;
+    measured 2.8e-5)."""
+    tex = np.random.default_rng(3).integers(0, 256, (8, 8), np.uint8)
+    Image.fromarray(tex).save(take_dirs / "tex.png")
+    kw = dict(max_iter=3, lr_base=1e-6, lr_t=1e-6, lr_q=1e-6,
+              texpath=str(take_dirs / "tex.png"), log_interval=1,
+              raster_impl="scan")
+    t_out, j_out = tmp_path / "t", tmp_path / "j"
+    state = tapi.fit_take(_config(take_dirs, tmp_path, out_dir=str(t_out),
+                                  **kw), resume=False, device="cpu")
+    japi.fit_take(_config(take_dirs, tmp_path, JConfig, out_dir=str(j_out),
+                          **kw), resume=False)
+    got, want = ([json.loads(ln) for ln in open(d / "metrics.jsonl")]
+                 for d in (t_out, j_out))
+    assert state.step == 3 and [r["step"] for r in got] == [1, 2, 3]
+    assert set(got[0]) == set(want[0]) == {"step", "loss", "it_per_s",
+                                           "pair_cap"}
+    assert got[0]["pair_cap"] == want[0]["pair_cap"] == 0
+    losses = [[r["loss"] for r in x] for x in (got, want)]
+    np.testing.assert_allclose(losses[0][0], losses[1][0], rtol=1e-6)
+    np.testing.assert_allclose(*losses, rtol=1e-4)
 
 
 def test_fit_take_display_interval(take_dirs, tmp_path):
@@ -446,7 +476,7 @@ def test_fit_take_mp4_interval_writes_jax_progress_frames(take_dirs,
         assert np.any(got[:, RES[1]:] != 45)         # the quad is in view
 
 
-@pytest.mark.parametrize("impl, error", [("scan", NotImplementedError),
+@pytest.mark.parametrize("impl, error", [("scan", None),
                                          ("bogus", ValueError),
                                          ("pallas", None)])
 def test_fit_entry_points_check_raster_impl(take_dirs, tmp_path, impl,

@@ -144,3 +144,155 @@ def test_build_mvp_and_clip_positions_match(rng):
                                        atol=ATOL)
             np.testing.assert_allclose(clip_t[b].numpy(), np.asarray(clip_j),
                                        atol=ATOL)
+
+
+# ------------------------------------------------------- signatures ----
+
+# The port's deliberate differences from the JAX package's public
+# signatures (ROADMAP.md §3). RENAMED: JAX name -> torch name. DROPPED:
+# JAX parameters the port has no counterpart of (TPU switches). ADDED:
+# the port's own parameters, after JAX's.
+RENAMED = {
+    "fit.loop.sample_batches": {"rng": "generator"},
+    "fit.loop.train_steps": {"rng_key": "generator"},
+    "fit.state.TrainState": {"opt_state": "optimizer"},
+    "fit.state.apply_corrective_gate": {"grads": "params"},
+}
+DROPPED = {
+    "ops.pipeline.render_from_clip": ("inc",),
+    "ops.pipeline.render_batch_stacked": ("inc", "interpret"),
+    "ops.rasterize.rasterize": ("interpret",),
+    "ops.rasterize.rasterize_with_uv": ("interpret",),
+}
+ADDED = {
+    "fit.api.fit_take": ("device",),
+    "fit.api.load_texture": ("seed",),
+    "fit.api.setup_from_config": ("device",),
+    "fit.scene.build_scene": ("device",),
+    "fit.state.init_params": ("device",),
+    "fit.state.make_optimizer": ("params",),
+    "models.camera.extrinsic_to_modelview": ("device",),
+    "models.camera.intrinsic_to_projection": ("device",),
+    "ops.pipeline.render": ("route", "device"),
+    "ops.pipeline.render_from_clip": ("route",),
+    "ops.pipeline.render_batch_stacked": ("enable_mip", "max_mip_level"),
+    "tools.render_result.render_result": ("route", "device"),
+    "tools.simple_render.simple_render": ("route", "device"),
+}
+# defaults that differ: Scene requires the padded neighbour table; the
+# port's loss_fn starts at step 0 unless told
+DEFAULTS = {"fit.scene.Scene": {"nbr_idx", "nbr_mask"},
+            "fit.loop.loss_fn": {"step"}}
+# private helpers that are part of the ported primitives' surface
+PRIVATE = ("ops.rasterize._tri_screen", "ops.rasterize._pixel_db_from_data",
+           "ops.antialias._pair_blend", "ops.antialias._antialias_compact",
+           "ops.pipeline._bary_db_to_uv_da")
+
+
+def _shared_callables():
+    """{"module.name": (torch object, JAX object)} for every public
+    callable a port module defines that the JAX module of the same name
+    has, and the PRIVATE ones."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import fpc_diffrend_tpu_torch
+
+    out = {}
+    for info in pkgutil.walk_packages(fpc_diffrend_tpu_torch.__path__,
+                                      "fpc_diffrend_tpu_torch."):
+        name = info.name.split(".", 1)[1]
+        try:
+            jmod = importlib.import_module("fpc_diffrend_tpu." + name)
+        except ImportError:
+            continue
+        tmod = importlib.import_module(info.name)
+        for attr, obj in vars(tmod).items():
+            key = f"{name}.{attr}"
+            if ((attr.startswith("_") and key not in PRIVATE)
+                    or not hasattr(jmod, attr) or not callable(obj)
+                    or getattr(obj, "__module__", None) != tmod.__name__):
+                continue
+            try:
+                inspect.signature(obj)
+            except (TypeError, ValueError):
+                continue
+            out[key] = (obj, getattr(jmod, attr))
+    return out
+
+
+def test_shared_signatures_follow_jax():
+    """Every public function and class both packages share takes JAX's
+    parameter names in JAX's order with JAX's defaults, but for the named
+    differences; the new primitives included."""
+    import inspect
+
+    shared = _shared_callables()
+    for key in ("ops.rasterize.rasterize", "ops.rasterize.rasterize_with_uv",
+                "ops.rasterize.visibility_scan",
+                "ops.rasterize.pixel_attributes",
+                "ops.rasterize.screen_vertices",
+                "ops.interpolate.interpolate", "ops.antialias.antialias",
+                "ops.texture.texture", "fit.loop.render_sample",
+                "fit.loop.resolve_aa_max_pairs",
+                "models.blendshape.load_blendshape_deltas", *PRIVATE):
+        assert key in shared, key
+    assert len(shared) > 80
+    for key in set(RENAMED) | set(DROPPED) | set(ADDED) | set(DEFAULTS):
+        assert key in shared, f"stale exception {key}"
+    for key, (tobj, jobj) in sorted(shared.items()):
+        tp = inspect.signature(tobj).parameters
+        jp = inspect.signature(jobj).parameters
+        rename = RENAMED.get(key, {})
+        want = [rename.get(p, p) for p in jp if p not in DROPPED.get(key, ())]
+        assert list(tp) == want + list(ADDED.get(key, ())), key
+        for p in jp:
+            if rename.get(p, p) in tp and p not in DEFAULTS.get(key, ()):
+                a, b = tp[rename.get(p, p)].default, jp[p].default
+                assert a is b or a == b, f"{key}({p}): {a!r} != {b!r}"
+
+
+def test_jax_order_calls_match_jax(rng, tmp_path, capsys, monkeypatch):
+    """A positional call in JAX's order of ``texture`` (uv_da,
+    filter_mode, boundary_mode, max_mip_level) matches JAX's within 1e-6;
+    ``load_blendshape_deltas(..., progress_every)`` matches JAX's deltas
+    and, on the fallback parser, its progress lines (none at 0)."""
+    from fpc_diffrend_tpu.ops.texture import texture as jtexture
+    from fpc_diffrend_tpu.runtime import native as jnative
+    from fpc_diffrend_tpu_torch.data.obj import save_obj
+    from fpc_diffrend_tpu_torch.ops.texture import texture
+
+    tex = rng.uniform(size=(16, 16, 2)).astype(np.float32)
+    uv = rng.uniform(-0.2, 1.2, size=(9, 7, 2)).astype(np.float32)
+    uv_da = rng.uniform(-0.2, 0.2, size=(9, 7, 4)).astype(np.float32)
+    for da, *rest in ((uv_da, "linear-mipmap-linear", "clamp", 3),
+                      (None, "linear", "clamp"), (None, "linear", "wrap", 0)):
+        got = texture(_t(tex), _t(uv), None if da is None else _t(da), *rest)
+        want = jtexture(jnp.asarray(tex), jnp.asarray(uv), da, *rest)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+
+    base = rng.normal(size=(5, 3)).astype(np.float32)
+    faces = np.array([[0, 1, 2], [2, 3, 4]], np.int32)
+    (tmp_path / "bl").mkdir()
+    for i in range(3):
+        save_obj(str(tmp_path / "bl" / f"b{i}.obj"),
+                 base + 0.1 * i + rng.normal(scale=0.01, size=base.shape)
+                 .astype(np.float32), np.zeros((5, 2), np.float32), faces)
+    path = str(tmp_path / "bl")
+    for fallback in (False, True):
+        if fallback:
+            monkeypatch.setattr(tblend.native, "available", lambda: False)
+            monkeypatch.setattr(jnative, "available", lambda: False)
+        for every in (0, 2):
+            capsys.readouterr()
+            got = tblend.load_blendshape_deltas(path, base, every)
+            printed = capsys.readouterr().out
+            want = jblend.load_blendshape_deltas(path, base,
+                                                 progress_every=every)
+            assert got.shape == (15, 3)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+            assert printed == capsys.readouterr().out
+            assert printed == ("Blendshape 0/3\nBlendshape 2/3\n"
+                               if fallback and every else "")

@@ -6,6 +6,9 @@ On the 9x9 dome of ``tests/test_pipeline_fused.py`` at 48x128 with a
 * the three routes ("sepaa": K1 -> K2; "aa_fused": K10; "separate": K1
   -> K7 -> K2) agree: image within 1e-6, gradients within 1e-6 + 1e-5
   relative (``test_pipeline_fused.py``'s tolerances for its three routes);
+* ``render(impl="scan")`` against JAX's within 5e-5 (image) and 1e-4 of
+  the largest magnitude (gradients): the same formulas on clip positions
+  a few ulp apart;
 * each route against JAX ``render(impl="scan", aa_max_pairs=None)`` with
   that file's own tolerances (>= 99.5 % of pixels within 2e-4; texture
   gradient within 5e-5 + 5e-3 relative, vertex gradient within 2 % of its
@@ -61,14 +64,14 @@ def _dome():
     return arrays, tex, ref
 
 
-def _port(route, res=RES, grads=True):
+def _port(route, res=RES, grads=True, impl="auto"):
     """(image, vertex gradient, texture gradient) of the loss
     mean((ref - img)^2) on the CPU."""
     (mvp, verts, faces, uv, uv_idx, neigh), tex, ref = _dome()
     v = torch.tensor(verts, requires_grad=grads)
     t = torch.tensor(tex, requires_grad=grads)
     img = render(mvp, v, faces, uv, uv_idx, t, res, neigh, route=route,
-                 device="cpu")
+                 impl=impl, device="cpu")
     if not grads:
         return img.numpy(), None, None
     torch.mean((torch.as_tensor(ref[:res[0]]) - img) ** 2).backward()
@@ -120,6 +123,24 @@ def test_route_matches_jax_scan(port_routes, jax_scan, route):
     assert close.mean() > 0.995, f"{(~close).sum()} of {close.size} differ"
     np.testing.assert_allclose(gt, gt_s, atol=5e-5, rtol=5e-3)
     assert np.abs(gv - gv_s).max() / np.abs(gv_s).max() < 0.02
+
+
+def test_scan_route_matches_jax_scan(jax_scan):
+    """render(impl="scan"): JAX's scan route composed of the port's
+    primitives (the visibility scan, interpolate, the sampler's and the
+    gathered antialias's plain versions) on the same formulas: every id
+    equal, the image within 5e-5 and the gradients within 1e-4 of their
+    largest magnitude (measured 9.8e-6 and 1.5e-5: the two packages'
+    clip transforms round a few ulp apart, and the 128-texel texture
+    scales a uv ulp by its width)."""
+    img, gv, gt = _port("sepaa", impl="scan")
+    img_s, gv_s, gt_s = jax_scan
+    bg = 45.0 / 255.0
+    np.testing.assert_array_equal(img == bg, img_s == bg)
+    np.testing.assert_allclose(img, img_s, atol=5e-5, rtol=0)
+    for g, want in ((gv, gv_s), (gt, gt_s)):
+        np.testing.assert_allclose(g, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
 
 
 def _jax_pallas(route, monkeypatch, res, grads):
@@ -208,8 +229,14 @@ def test_single_view_bins_match_bin_scene(scene_name, cap):
 def test_render_arguments():
     (mvp, verts, faces, uv, uv_idx, neigh), tex, _ = _dome()
     args = (mvp, verts, faces, uv, uv_idx, tex, RES, neigh)
-    with pytest.raises(NotImplementedError, match="scan"):
-        render(*args, impl="scan", device="cpu")
+    # the scan route reads the antialias pair cap and not the route
+    scan = render(*args, impl="scan", device="cpu")
+    capped = render(*args, impl="scan", aa_max_pairs=8, route="fused",
+                    device="cpu")
+    assert scan.shape == capped.shape == RES + (1,)
+    assert 0 < int((scan != capped).sum()) < scan.numel() // 10
+    with pytest.raises(ValueError, match="bogus"):
+        render(*args, impl="bogus", device="cpu")
     with pytest.raises(ValueError, match="route"):
         render(*args, route="fused", device="cpu")
     # a 2-D texture is one channel; the mip path runs at a batch of one

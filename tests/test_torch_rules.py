@@ -459,3 +459,33 @@ def test_mip_kernels_on_rendered_uv_on_the_card(card):
     assert (tmc.mip_sample.launches - before[0],
             tmc.mip_sample_bwd.launches - before[1]) == (2, 2)
     assert len(errs) == 2 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["auto", "scan"])
+def test_gathered_antialias_matches_plain_version_on_the_card(card, impl):
+    """The primitives' antialias over every pair, K2 forward and K3
+    backward on the winner planes gathered from a rast buffer (the kernel
+    route's and the scan route's), against the plain per-pair blend on the
+    card with ``chip_smoke.check_gathered_antialias``'s limits (K2_ATOL,
+    K3_ATOL; the vertices' within 1e-5 of the largest magnitude), at 90x200:
+    the planes padded to whole tiles, pad pixels background."""
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.interpolate import interpolate
+    from fpc_diffrend_tpu_torch.ops.rasterize import rasterize
+    from fpc_diffrend_tpu_torch.ops.texture import texture
+
+    H, W = 90, 200
+    wl = build_workload(H, W, grid=20, batch=1, tex_size=64, device=card)
+    s, p, b = wl["scene"], wl["params"], wl["batch"]
+    with torch.no_grad():
+        pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
+                                           b.frame_idx)
+        rast = rasterize(pc[0], s.faces, (H, W), impl=impl, with_db=False)
+        colour = texture(p["tex"], interpolate(s.uv, rast, s.uv_idx)[0])
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    g = torch.randn(colour.shape, device=card, generator=gen)
+    errs = chip_smoke.check_gathered_antialias(colour, rast, pc[0], s.faces,
+                                               s.face_neighbors, g, impl)
+    assert errs["K2 gathered"] <= chip_smoke.K2_ATOL

@@ -108,6 +108,23 @@ Phases, each fatal on failure:
    the visibility scan's ids against K1's, the route on the card against
    the CPU, against the kernel route at a resolvable depth range, and one
    scan ``train_step`` (``scan_route``); seconds per view;
+5f. the fit examples (``fpc_diffrend_tpu_torch/examples``) at their own
+   widths through ``run_fit`` and ``fit_take`` (``examples_phase``):
+   ``fit_cube`` (128^2, 300 steps, the 12-triangle cube in the global
+   list; its exit rule), ``fit_rig_synthetic`` (256^2, 300 steps, a take
+   of the synthetic 9-camera rig written to disk and fitted by
+   ``fit_take``; each camera's coverage in [0.05, 0.95], "RECOVERING",
+   the result files parse) and the convergence study (512^2, 9 cameras, 4
+   frames, 2,000 steps at batch 8 and at batch 1; each batch's logged
+   losses finite, its final loss below its first logged one, its pose
+   error below its start); K1-K6 and K11 once a step in each fit; after
+   each fit, one step's inputs of it (the cube's and the rig's fitted
+   parameters, the study's init at batch 8 and at batch 1, each at its
+   own entry cap, with the batch its first step samples and the step's
+   own cotangent) held through K1-K6 and K11 against their plain
+   versions at phase 3's limits (``check_fit_step``), the cube's with
+   triangles in the global list; ms per step of each; JAX's "CONVERGED"
+   rule printed beside JAX's recorded table, not gated;
 6. each kernel at the main path's shapes (K7, K10: the single view's; K8,
    K9: the mip path's; K11 the step's batch at the autotuned cap, checked
    also uncapped and at half the live entries) against its plain version
@@ -181,25 +198,6 @@ MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
 GRAD_SPREAD_RTOL = 1e-2
 ROUTES = ("sepaa", "aa_fused", "separate")   # the single view's kernels
 N_VIEWS = 3                    # the bench's cameras, one view each
-
-
-def write_tiff(path: str, img) -> None:
-    """Write an (H, W) uint8 image as an uncompressed little-endian
-    grayscale TIFF in one strip (the capture rig's export format)."""
-    import struct
-
-    h, w = img.shape
-    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
-            (273, 4, None), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
-    data_at = 8 + 2 + 12 * len(tags) + 4
-    ifd = struct.pack("<H", len(tags))
-    for tag, kind, value in tags:
-        value = data_at if value is None else value
-        ifd += (struct.pack("<HHIHH", tag, 3, 1, value, 0) if kind == 3
-                else struct.pack("<HHII", tag, 4, 1, value))
-    with open(path, "wb") as f:
-        f.write(b"II" + struct.pack("<HI", 42, 8) + ifd
-                + struct.pack("<I", 0) + img.astype("uint8").tobytes())
 
 
 def fail(msg: str) -> None:
@@ -1155,6 +1153,7 @@ def write_take(root, wl):
     """
     import numpy as np
 
+    from fpc_diffrend_tpu_torch.data.frames import save_tiff
     from fpc_diffrend_tpu_torch.data.obj import save_obj
     from fpc_diffrend_tpu_torch.models import camera
 
@@ -1189,7 +1188,7 @@ def write_take(root, wl):
     for c, cam in enumerate(cams):
         os.makedirs(os.path.join(paths["imdir"], cam))
         for fi in range(4):
-            write_tiff(os.path.join(paths["imdir"], cam,
+            save_tiff(os.path.join(paths["imdir"], cam,
                                     f"{cam}_{fi:02d}.tif"), frames[c, fi])
     return paths, frames, cams
 
@@ -1270,6 +1269,7 @@ def single_view(wl, counters, gen, take):
     import numpy as np
     import torch
 
+    from fpc_diffrend_tpu_torch.data.frames import save_tiff
     from fpc_diffrend_tpu_torch.ops.pipeline import render
     from fpc_diffrend_tpu_torch.profile_forward import device_kernels
     from fpc_diffrend_tpu_torch.tools.render_result import render_result
@@ -1395,7 +1395,7 @@ def single_view(wl, counters, gen, take):
     refdir = os.path.join(tmp, "refs")
     os.makedirs(refdir)
     for i in range(written.shape[1]):
-        write_tiff(os.path.join(refdir, f"cam0_{i:03d}.tif"), written[0, i])
+        save_tiff(os.path.join(refdir, f"cam0_{i:03d}.tif"), written[0, i])
     n_frames = written.shape[1]
     per_frame = {}
     for mode, cams, shape in (
@@ -1872,6 +1872,257 @@ def scan_route(dev, gen):
     print(f"scan route: one train_step (B = 2, bench depth range) "
           f"{rec['train_step_s']:.3f} s, loss {float(metrics['loss'])}",
           flush=True)
+    return rec
+
+
+STEP_KERNELS = ("fused_raster", "antialias", "antialias_bwd", "texture_bwd",
+                "pixel_grad", "fold_entries", "bin_place")   # K1-K6, K11
+
+
+def example_launches(counters, steps, renders):
+    """The launches of ``steps`` default fit steps and ``renders``
+    single-sample renders (K11, K1, K2 each) of the examples."""
+    want = dict.fromkeys(counters, 0)
+    for k in STEP_KERNELS:
+        want[k] = steps
+    for k in ("fused_raster", "antialias", "bin_place"):
+        want[k] += renders
+    return want
+
+
+def check_fit_step(config, scene, params, frames_u8, label):
+    """K1-K6 and K11 against their plain versions on one step's inputs of
+    an example's fit: its config (entry cap included), scene and
+    parameters, the batch its first step samples (``fit.loop.
+    train_steps`` from a generator seeded with ``config.seed``), the
+    step's own cotangent of K2's output and zero u, v, z cotangents (as on
+    the main path). Each at the limits of phases 3 and 6; the counters are
+    left for the caller to reset.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.profile_forward import step_stages
+
+    dev = scene.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(config.seed)
+    cams = torch.tensor(config.cam_idxs, dtype=torch.int64, device=dev)
+    B = config.batch_size
+    pick = torch.randint(0, cams.shape[0], (B,), generator=gen, device=dev)
+    frame = torch.randint(0, frames_u8.shape[1], (B,), generator=gen,
+                          device=dev)
+    cam = cams[pick]
+    H, W = config.resolution
+    wl = {"config": config, "scene": scene, "B": B, "H": H, "W": W,
+          "params": {k: v.detach().clone() for k, v in params.items()},
+          "batch": loop.Batch(cam, frame,
+                              loop.decode_refs(frames_u8, cam, frame))}
+    state = {}
+    # prologue, binning, K1, K2, the composite and loss with its cotangent
+    for _, fn in step_stages(wl, state)[:5]:
+        fn()
+    bins, tex = state["bins"], wl["params"]["tex"].detach()
+    ph, pw = rc.pad_resolution(H, W)
+    T = scene.faces.shape[0]
+    with torch.no_grad():
+        _, _, k1 = check_kernels(bins, tex, B * ph, pw, H, W, ph, label)
+        gtuv = torch.zeros((3, B * ph, pw), device=dev)
+        check_backward(k1, bins, tex, state["g_aa"], gtuv, H, W, ph, B * T,
+                       label)
+        check_place(state["pc"], scene.faces, H, W, config.pair_cap, label)
+    return int(bins.n_global[0])
+
+
+def examples_phase(counters, card):
+    """Phase 5f: the three fit examples at their own widths through their
+    entry points (``run_fit``, ``fit_take``), each with the launch
+    counters set to 0 just before its fit and read just after.
+
+    ``fit_cube`` (128^2, 300 steps, batch 4, 2 cameras, free mode, 12
+    triangles in the global list): its exit rule (the last loss below half
+    of the first) and finite losses. ``fit_rig_synthetic`` (256^2, 300
+    steps, the synthetic 9-camera rig, 2 frames, batch 8, prior mode, 4
+    blendshapes), written to disk and fitted with ``fit_take``: each
+    camera's frame-0 coverage in [0.05, 0.95], "RECOVERING" (the mean pose
+    error below its start), the result files parse. The convergence study
+    (512^2, 9 cameras, 4 frames, 25 steps a dispatch) at batch 8 and at
+    batch 1, the full 2,000 steps each (~40 s a batch on the H100): every
+    logged loss finite, the final loss below the first logged, the final
+    pose error below its start. Each fit runs K1-K6 and K11 once a step
+    (and the ground-truth renders K11, K1, K2 once each). After each fit
+    (each batch of the study), :func:`check_fit_step` holds K1-K6 and K11
+    against their plain versions on one step's inputs of it, the cube's
+    with triangles in the global list; the counters are set to 0 after
+    it, so each fit's counts are its own. JAX's
+    "CONVERGED" rule is printed with its numbers beside JAX's recorded
+    table (``results/convergence_512``), not gated: JAX's own run fails
+    it, and the rigs differ (a synthetic calibration against the real
+    one).
+
+    :return: the phase's record.
+    """
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.examples import (convergence_study,
+                                                 fit_cube, fit_rig_synthetic)
+    from fpc_diffrend_tpu_torch.fit.api import (measure_raster_health,
+                                                setup_from_config)
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def checked(config, scene, params, frames_u8, label):
+        n_global = check_fit_step(config, scene, params, frames_u8, label)
+        zero()
+        return n_global
+
+    def counted(fn):
+        zero()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: f.launches
+                                               for k, f in counters.items()}
+
+    # ---- fit_cube ----
+    cube, cube_s, launches = counted(
+        lambda: fit_cube.run(fit_cube.parse_args([])))
+    steps = cube["config"].max_iter
+    want = example_launches(counters, steps, cube["renders"])
+    losses = cube["losses"]
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        fail(f"fit_cube: {len(losses)} losses, not all finite")
+    if launches != want:
+        fail(f"fit_cube: launches {launches} != {want}")
+    if not cube["ok"]:
+        fail(f"fit_cube did not converge: loss {losses[0]} -> {losses[-1]}")
+    health = measure_raster_health(cube["config"], cube["scene"],
+                                   cube["state"].params)
+    n_global = checked(cube["config"], cube["scene"], cube["state"].params,
+                       cube["frames"], "fit_cube step")
+    if n_global == 0:
+        fail("fit_cube: the checked step left the global list empty")
+    rec["fit_cube"] = {"ms_per_step": cube["seconds"] / steps * 1e3,
+                       "loss_first": losses[0], "loss_last": losses[-1],
+                       "n_global": health["n_global"], "launches": launches,
+                       "gt_t": cube["gt_t"], "fit_t": cube["fit_t"]}
+    print(f"fit_cube: {steps} steps at 128^2, "
+          f"{rec['fit_cube']['ms_per_step']:.3f} ms/step (host clock, a "
+          f"loss read each step); loss {losses[0]:.2f} -> {losses[-1]:.2f} "
+          f"(CONVERGED); {health['n_global']} of 12 triangles in the "
+          f"global list; launches {launches}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        # ---- fit_rig_synthetic: the take on disk, fitted by fit_take ----
+        work = os.path.join(tmp, "rig")
+        rig_out, rig_s, launches = counted(lambda: fit_rig_synthetic.run(
+            fit_rig_synthetic.parse_args(["--workdir", work])))
+        cfg = rig_out["config"]
+        want = example_launches(counters, cfg.max_iter, rig_out["renders"])
+        if launches != want or rig_out["state"].step != cfg.max_iter:
+            fail(f"fit_rig_synthetic: {rig_out['state'].step} steps, "
+                 f"launches {launches} != {want}")
+        cov = rig_out["coverage"]
+        if len(cov) != 9 or not all(0.05 <= c <= 0.95 for c in cov):
+            fail(f"fit_rig_synthetic: frame-0 coverage {cov}")
+        if not rig_out["ok"]:
+            fail(f"fit_rig_synthetic NOT RECOVERING: pose error "
+                 f"{rig_out['err0']} -> {rig_out['err']}")
+        records = check_fit_outputs(cfg, 1584, 3072, 2, "fit_rig_synthetic")
+        if not all(math.isfinite(r["loss"]) for r in records):
+            fail(f"fit_rig_synthetic: non-finite loss in {records}")
+        scene, frames_u8, _, _ = setup_from_config(cfg, rig_out["state"]
+                                                   .params["tex"].device)
+        checked(dataclasses.replace(cfg, pair_cap=records[0]["pair_cap"]),
+                scene, rig_out["state"].params, frames_u8,
+                "fit_rig_synthetic step")
+        at = {r["step"] - 1: r["step"] / r["it_per_s"] for r in records}
+        lo, hi = sorted(at)[1], sorted(at)[-1]
+        rig_ms = (at[hi] - at[lo]) / (hi - lo) * 1e3
+        rec["fit_rig_synthetic"] = {
+            "ms_per_step": rig_ms, "seconds": rig_s, "coverage": cov,
+            "pose_err_init": rig_out["err0"], "pose_err": rig_out["err"],
+            "losses": [r["loss"] for r in records],
+            "pair_cap": records[0]["pair_cap"], "launches": launches}
+        print(f"fit_rig_synthetic: fit_take of a 9-camera take on disk "
+              f"(256^2, 2 frames, batch 8, 3,072 tris) in {rig_s:.1f} s "
+              f"with set-up, renders and results; {rig_ms:.3f} ms/step over "
+              f"steps {lo}-{hi} (host clock); coverage {min(cov):.3f}-"
+              f"{max(cov):.3f}; pose error {rig_out['err0']:.4f} -> "
+              f"{rig_out['err']:.4f} (RECOVERING); pair_cap "
+              f"{records[0]['pair_cap']}; launches {launches}", flush=True)
+
+        # ---- the convergence study, batch 8 then batch 1 ----
+        args = convergence_study.parse_args(["--out",
+                                             os.path.join(tmp, "study")])
+        study = convergence_study.build_study(args)
+        init_err = float(np.abs(study["gt_t"]).mean())
+        results, rec["convergence"] = {}, {}
+        for batch in convergence_study.BATCHES:
+            res, sec, launches = counted(
+                lambda: convergence_study.fit_batch(study, batch))
+            results[f"batch{batch}"] = res
+            config, params = convergence_study.initial_state(study, batch)
+            checked(config, study["scene"], params, study["frames_u8"],
+                    f"convergence batch {batch} step")
+            curve = res["curve"]
+            want = example_launches(counters, args.steps, 0)
+            if launches != want:
+                fail(f"convergence batch {batch}: launches {launches} != "
+                     f"{want}")
+            if not all(math.isfinite(p["loss"]) for p in curve):
+                fail(f"convergence batch {batch}: non-finite logged loss")
+            if not res["final_loss"] < curve[0]["loss"]:
+                fail(f"convergence batch {batch}: final loss "
+                     f"{res['final_loss']} not below the first logged "
+                     f"{curve[0]['loss']}")
+            if not res["final_pose_err"] < init_err:
+                fail(f"convergence batch {batch}: final pose error "
+                     f"{res['final_pose_err']} not below its start "
+                     f"{init_err}")
+            rec["convergence"][f"batch{batch}"] = {
+                "seconds": sec, "ms_per_step": sec / args.steps * 1e3,
+                "loss_first": curve[0]["loss"], "loss_final":
+                res["final_loss"], "pose_err_first": curve[0]["pose_err"],
+                "pose_err_final": res["final_pose_err"],
+                "min_pose_err": min(p["pose_err"] for p in curve),
+                "launches": launches}
+            print(f"convergence batch {batch}: {args.steps} steps at 512^2 "
+                  f"in {sec:.1f} s ({sec / args.steps * 1e3:.3f} ms/step, "
+                  f"host clock, autotune and a loss read every 25 steps); "
+                  f"loss {curve[0]['loss']:.3f} (step {curve[0]['step']}) "
+                  f"-> {res['final_loss']:.3f}; pose error {init_err:.4f} "
+                  f"-> {res['final_pose_err']:.4f}; launches {launches}",
+                  flush=True)
+        converged = convergence_study.write_report(study, results)
+        with open(os.path.join(args.out, "convergence.md")) as f:
+            table = f.read()
+        rec["convergence"].update(
+            converged=converged, init_pose_err=init_err,
+            curves={f"batch{b}": results[f"batch{b}"]["curve"]
+                    for b in convergence_study.BATCHES},
+            coverage=study["coverage"])
+    ref_path = os.path.join(REPO, "results", "convergence_512",
+                            "convergence.md")
+    with open(ref_path) as f:
+        ref = f.read()
+    print(f"finding, not gated: JAX's rule says "
+          f"{'CONVERGED' if converged else 'NOT CONVERGED'} on the H100 "
+          f"({card}; synthetic rig):\n{table}JAX's recorded run "
+          f"(results/convergence_512, the reference's real rig):\n{ref}",
+          flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5f: {rec['seconds']:.1f} s on {card}", flush=True)
     return rec
 
 
@@ -2970,6 +3221,9 @@ def main() -> int:
     # ---- 5e. the primitives composed at full width; the scan route ----
     record["primitives"] = primitive_views(wl, counters, gen)
     record["scan_route"] = scan_route(dev, gen)
+
+    # ---- 5f. the fit examples at their own widths ----
+    record["examples"] = examples_phase(counters, card)
     record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
                   fit_take_launches=fit_launches, fit_take_losses=losses,
                   fit_take_pair_cap=cap, fit_take_live_pairs=live0)

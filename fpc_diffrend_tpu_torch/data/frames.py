@@ -12,6 +12,7 @@ the take only if that decoder rejects a file.
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
@@ -109,6 +110,25 @@ def load_tiff(path: str) -> np.ndarray:
         raise RuntimeError(f"cannot decode {path} natively ({reason}) and "
                            "PIL is not installed") from e
     return np.array(Image.open(path))
+
+
+def save_tiff(path: str, img) -> None:
+    """Write an (H, W) uint8 image as an uncompressed little-endian
+    grayscale TIFF in one strip (the capture rig's export format, which
+    ``load_take`` and ``load_tiff`` read natively)."""
+    h, w = img.shape
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1),
+            (273, 4, None), (277, 3, 1), (278, 4, h), (279, 4, h * w)]
+    data_at = 8 + 2 + 12 * len(tags) + 4
+    ifd = struct.pack("<H", len(tags))
+    for tag, kind, value in tags:
+        value = data_at if value is None else value
+        ifd += (struct.pack("<HHIHH", tag, 3, 1, value, 0) if kind == 3
+                else struct.pack("<HHII", tag, 4, 1, value))
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8) + ifd
+                + struct.pack("<I", 0)
+                + np.ascontiguousarray(img, np.uint8).tobytes())
 
 
 def synthetic_take(render_fn, n_cams: int, n_frames: int) -> np.ndarray:

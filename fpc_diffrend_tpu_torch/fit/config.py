@@ -15,6 +15,7 @@ call) is the same path at a batch of one.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 
@@ -95,3 +96,7 @@ class FitConfig:
         with open(path, "w") as f:
             for k, v in dataclasses.asdict(self).items():
                 f.write(f"{k}: '{v}'\n")
+
+    def to_json(self) -> str:
+        """Every field as an indented JSON object."""
+        return json.dumps(dataclasses.asdict(self), indent=2)

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
+from fpc_diffrend_tpu_torch.fit.scene import Scene
 from fpc_diffrend_tpu_torch.models import blendshape
+from fpc_diffrend_tpu_torch.ops import mesh_ops
 
 Tensor = torch.Tensor
 
@@ -19,6 +21,18 @@ Tensor = torch.Tensor
 def photometric_loss(ref: Tensor, colour: Tensor) -> Tensor:
     """L2 in 8-bit units over the trailing (H, W, C) dims: (...) losses."""
     return torch.mean((ref - colour * 255.0) ** 2, dim=(-3, -2, -1))
+
+
+def mesh_regularizers(config: FitConfig, scene: Scene, verts3: Tensor):
+    """(edge, Laplacian, normal-consistency) terms of one mesh (or of a
+    batch of them over leading dims), the Laplacian over the scene's
+    directed edge lists."""
+    mel = mesh_ops.mesh_edge_loss(verts3, scene.edges, config.meshedge_target)
+    lap = mesh_ops.mesh_laplacian_smoothing(
+        verts3, scene.neighbor_src, scene.neighbor_dst, scene.degree)
+    mnc = mesh_ops.mesh_normal_consistency(verts3, scene.faces,
+                                           scene.edge_face_pairs)
+    return mel, lap, mnc
 
 
 def temporal_smoothness(config: FitConfig, params: dict,

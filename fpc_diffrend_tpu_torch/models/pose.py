@@ -12,6 +12,19 @@ from fpc_diffrend_tpu_torch.models.camera import rigid_transform
 Tensor = torch.Tensor
 
 
+def quat_identity(shape=()) -> Tensor:
+    """Identity quaternion(s) [0, 0, 0, 1], broadcast to ``shape + (4,)``
+    (a float32 CPU tensor; ``.to`` moves it)."""
+    q = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32)
+    return q.expand(tuple(shape) + (4,))
+
+
+def quat_normalize(q) -> Tensor:
+    """Quaternion(s) scaled to unit norm along the last axis."""
+    q = torch.as_tensor(q, dtype=torch.float32)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def quat_to_rotmat(q: Tensor) -> Tensor:
     """Unit quaternion(s) (..., 4) XYZW -> (..., 3, 3) rotation matrices.
 
@@ -28,6 +41,18 @@ def quat_to_rotmat(q: Tensor) -> Tensor:
     row2 = torch.stack([2.0 * (xz - wy), 2.0 * (yz + wx),
                         1.0 - 2.0 * (xx + yy)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def quat_multiply(q1, q2) -> Tensor:
+    """Hamilton product of XYZW quaternions, batched over leading dims."""
+    q1 = torch.as_tensor(q1, dtype=torch.float32)
+    q2 = torch.as_tensor(q2, dtype=torch.float32)
+    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2], dim=-1)
 
 
 def rigid_from_pose(tvec: Tensor, quat: Tensor) -> Tensor:

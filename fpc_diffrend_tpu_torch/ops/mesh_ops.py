@@ -3,8 +3,10 @@
 All adjacency is precomputed once (``data.obj.build_topology``), so each
 loss is a fixed-shape gather and reduction. Inputs are batched over any
 leading dims: ``verts3`` is (..., V, 3) and each loss returns (...).
-Gradients are autograd's, except the padded neighbour sum's, which is the
-same gather applied to the cotangent (as in the JAX package).
+Gradients are autograd's, except the neighbour sums': the undirected
+adjacency is symmetric, so each sum's backward is the same sum applied to
+the cotangent (the padded table's as in the JAX package; the directed
+edge list's ``index_add_`` likewise).
 """
 
 from __future__ import annotations
@@ -24,6 +26,46 @@ def mesh_edge_loss(verts3: Tensor, edges: Tensor,
                    target_length: float = 0.0) -> Tensor:
     """Mean over edges of (||e|| - target)^2."""
     return torch.mean((edge_lengths(verts3, edges) - target_length) ** 2,
+                      dim=-1)
+
+
+class _SegmentNeighborSum(torch.autograd.Function):
+    """Sum of each vertex's neighbours over the directed edge lists (both
+    directions of every edge): ``index_add_`` of ``x[dst]`` at ``src``.
+    The lists are symmetric, so the backward is the same sum of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, verts3, neighbor_src, neighbor_dst):
+        ctx.save_for_backward(neighbor_src, neighbor_dst)
+        return _segment_sum(verts3, neighbor_src, neighbor_dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        neighbor_src, neighbor_dst = ctx.saved_tensors
+        return _segment_sum(g, neighbor_src, neighbor_dst), None, None
+
+
+def _segment_sum(x: Tensor, neighbor_src: Tensor,
+                 neighbor_dst: Tensor) -> Tensor:
+    return torch.zeros_like(x).index_add_(-2, neighbor_src,
+                                          x[..., neighbor_dst, :])
+
+
+def uniform_laplacian(verts3: Tensor, neighbor_src: Tensor,
+                      neighbor_dst: Tensor, degree: Tensor) -> Tensor:
+    """(mean of neighbours) - vertex, (..., V, 3), over the directed edge
+    lists (``data.obj.MeshTopology``)."""
+    sums = _SegmentNeighborSum.apply(verts3, neighbor_src, neighbor_dst)
+    return sums / torch.clamp(degree, min=1.0)[:, None] - verts3
+
+
+def mesh_laplacian_smoothing(verts3: Tensor, neighbor_src: Tensor,
+                             neighbor_dst: Tensor, degree: Tensor) -> Tensor:
+    """Mean over vertices of the L2 norm of the uniform Laplacian (the
+    epsilon inside the sqrt keeps a flat region's gradient finite)."""
+    lap = uniform_laplacian(verts3, neighbor_src, neighbor_dst, degree)
+    return torch.mean(torch.sqrt(torch.sum(lap * lap, dim=-1) + 1e-12),
                       dim=-1)
 
 

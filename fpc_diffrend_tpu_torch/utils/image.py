@@ -1,5 +1,9 @@
-"""Image files and preview grids (port of ``fpc_diffrend_tpu.utils.image``'s
-``save_image``, ``make_img`` and ``display_image``).
+"""Image utilities (port of ``fpc_diffrend_tpu.utils.image``).
+
+Whitening, normalization, highlight reduction and the gaussian kernels and
+blur work on tensors (the blur is two depthwise ``F.conv2d`` passes, as
+the JAX package's is two depthwise XLA convolutions); preview grids and
+image files on numpy arrays.
 
 PNG is written with the standard library (``zlib``, ``struct``): 8-bit
 gray, gray + alpha, RGB or RGBA, not interlaced. The machines the port runs
@@ -13,10 +17,68 @@ import struct
 import zlib
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}          # channels -> PNG colour type
 _CHANNELS = {v: k for k, v in _COLOUR_TYPE.items()}
+
+
+def reduce_highlights(img, mean) -> Tensor:
+    """abs(img - (img - mean)) (reference utils.py:12-15)."""
+    img = torch.as_tensor(img)
+    return torch.abs(img - (img - mean))
+
+
+def normalize_highlights(img, alpha: float = 0.99,
+                         beta: float = 0.5) -> Tensor:
+    """Gamma-ish highlight compression over the image's range (reference
+    utils.py:17-35)."""
+    img = torch.as_tensor(img)
+    lo = torch.min(img)
+    rng = torch.max(img) - lo
+    return (((img - lo) / rng) ** alpha * rng + lo) * beta
+
+
+def whiten(image, mean, std) -> Tensor:
+    """(image - mean) / std (reference utils.py:39-52)."""
+    return (torch.as_tensor(image) - mean) / std
+
+
+def normalize_image(image, low, high) -> Tensor:
+    """(image - low) / (high - low) (reference utils.py:56-67)."""
+    return (torch.as_tensor(image) - low) / (high - low)
+
+
+def gaussian_1d(m: int, std: float) -> Tensor:
+    """Unnormalized 1D gaussian window of ``m`` taps (reference
+    utils.py:139-143)."""
+    n = torch.arange(0, m, dtype=torch.float32) - (m - 1.0) / 2.0
+    return torch.exp(-(n ** 2) / (2 * std * std))
+
+
+def gaussian_kernel(kernel_size: int, std: float = 128.0) -> Tensor:
+    """2D gaussian kernel, the outer product of two windows (reference
+    utils.py:147-156)."""
+    k1 = gaussian_1d(kernel_size, std)
+    return torch.outer(k1, k1)
+
+
+def gaussian_blur(image: Tensor, kernel_size: int, sigma: float) -> Tensor:
+    """Depthwise gaussian blur of an (H, W, C) image with a normalized
+    kernel and "same" zero padding, on the image's device."""
+    k1 = gaussian_1d(kernel_size, sigma).to(image.device)
+    k1 = k1 / torch.sum(k1)
+    c = image.shape[-1]
+    x = torch.movedim(image, -1, 0)[None]                 # (1, C, H, W)
+    kh = k1.reshape(1, 1, -1, 1).expand(c, 1, kernel_size, 1)
+    kw = k1.reshape(1, 1, 1, -1).expand(c, 1, 1, kernel_size)
+    x = F.conv2d(x, kh, padding="same", groups=c)
+    x = F.conv2d(x, kw, padding="same", groups=c)
+    return torch.movedim(x[0], 0, -1)
 
 
 def to_uint8(x) -> np.ndarray:

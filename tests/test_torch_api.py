@@ -3,7 +3,8 @@
 * Loading, within 1e-6 of the JAX package on the same files (the values are
   equal: the same parsers in the same float32 order): ``load_obj`` /
   ``save_obj`` round trips, ``load_take`` on TIFFs written by PIL and by
-  ``chip_smoke.write_tiff`` (the native decoder) and on a compressed TIFF
+  ``data.frames.save_tiff``, ``chip_smoke.py``'s writer (the native
+  decoder), and on a compressed TIFF
   (the PIL fallback), ``load_calibration``, ``setup_dataset``.
 * ``save_results`` on the same parameters: the same ``{i}.obj`` vertices
   (1e-6), ``pose.json`` and ``config.txt`` keys; the texture PNG's pixels
@@ -35,7 +36,6 @@ import pytest
 import torch
 from PIL import Image
 
-import chip_smoke
 from fpc_diffrend_tpu.data import frames as jframes
 from fpc_diffrend_tpu.data import obj as jobj
 from fpc_diffrend_tpu.fit import api as japi
@@ -71,6 +71,19 @@ def _calibration():
                      "distortion": [[0], [0], [0], [0], [0]],
                      "rotation": np.eye(3).tolist(),
                      "translation": [[0.0], [0.0], [30.0]]}}
+
+
+@pytest.fixture(autouse=True)
+def _restore_fold_impl():
+    """JAX's ``fit_take`` (``autotune_caps``) sets ``FPC_FOLD_IMPL`` for
+    the rest of the process when a scene's id bands fit its banded fold;
+    restore it, so later tests in this worker fold as they would alone."""
+    before = os.environ.get("FPC_FOLD_IMPL")
+    yield
+    if before is None:
+        os.environ.pop("FPC_FOLD_IMPL", None)
+    else:
+        os.environ["FPC_FOLD_IMPL"] = before
 
 
 @pytest.fixture()
@@ -157,7 +170,7 @@ def _pil_writer(compression=None):
 
 @pytest.mark.parametrize("writer", ["pil", "chip_smoke", "pil compressed"])
 def test_load_take_matches_jax(tmp_path, writer):
-    write = {"pil": _pil_writer(), "chip_smoke": chip_smoke.write_tiff,
+    write = {"pil": _pil_writer(), "chip_smoke": tframes.save_tiff,
              "pil compressed": _pil_writer("tiff_lzw")}[writer]
     cams, imgs = _write_take(tmp_path, write)
     assert native.available(), native.unavailable_reason()
@@ -178,7 +191,7 @@ def test_load_take_matches_jax(tmp_path, writer):
 
 
 def test_assert_num_frames_rejects_uneven_cameras(tmp_path):
-    cams, _ = _write_take(tmp_path, chip_smoke.write_tiff)
+    cams, _ = _write_take(tmp_path, tframes.save_tiff)
     os.remove(tmp_path / cams[1] / f"{cams[1]}_02.tif")
     with pytest.raises(ValueError, match="same number of frames"):
         tframes.assert_num_frames(cams, str(tmp_path))

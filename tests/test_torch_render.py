@@ -39,6 +39,7 @@ import torch
 from fpc_diffrend_tpu.ops.pallas import rasterize_tpu as jr
 from fpc_diffrend_tpu.ops.pipeline import render as jrender
 from fpc_diffrend_tpu.utils.debugging import pallas_interpret_mode
+from fpc_diffrend_tpu_torch.data.frames import save_tiff
 from fpc_diffrend_tpu_torch.data.obj import save_obj
 from fpc_diffrend_tpu_torch.models import camera
 from fpc_diffrend_tpu_torch.ops import render
@@ -258,8 +259,6 @@ TOOL_RES = (48, 64)
 def tiny_take(tmp_path_factory):
     """A result directory of two fitted frames of the dome, its base mesh,
     a two-camera calibration and reference TIFFs."""
-    import chip_smoke
-
     root = tmp_path_factory.mktemp("take")
     (_, verts, faces, uv, uv_idx, _), _, _ = _dome()
     rng = np.random.default_rng(2)
@@ -289,7 +288,7 @@ def tiny_take(tmp_path_factory):
     refs = root / "refs"
     refs.mkdir()
     for i in range(2):
-        chip_smoke.write_tiff(str(refs / f"cam0_{i:03d}.tif"), rng.integers(
+        save_tiff(str(refs / f"cam0_{i:03d}.tif"), rng.integers(
             0, 256, size=TOOL_RES, dtype=np.uint8))
     return root
 

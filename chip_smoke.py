@@ -161,7 +161,28 @@ Phases, each fatal on failure:
 7. one bench step's forward and backward three times from the same state
    on the same batch: every parameter gradient must spread by at most
    ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order;
-   checked after the record is written).
+   checked after the record is written);
+8. the sharded fit step (``fpc_diffrend_tpu_torch/parallel``) at the
+   bench workload's full width (``sharded_phase``): 8a, world size 1 on
+   NCCL, mesh (1, 1, 1): the sharded step and ``fit.loop.train_step``
+   from one state on the bench batch, losses within 1e-6 relative, every
+   gradient within ``GRAD_SPREAD_RTOL`` of its largest magnitude, K11 and
+   K1-K6 once in the sharded step, then both timed in turns; 8b, four
+   gloo ranks sharing the card (processes this script starts with
+   ``--sharded-rank``, after the parent's build, each with its own
+   timeout), mesh (2, 1, 2), ``shard_frames`` and the temporal term, 4
+   samples and 600 rows a rank: the global loss within 2e-4 of the
+   single-process step's, the summed gradients (frame shards gathered)
+   within ``GRAD_SPREAD_RTOL``, K11 and K1-K6 once on every rank; 8c,
+   mesh (1, 1, 4): one view in four 300-row bands (K11, K1, K2 once a
+   rank) stitched against the full-frame render within 2e-3, and the
+   count of values that differ by more than 1e-5;
+9. the host tools (``tools_phase``, run after 5d while 5c's take is on
+   disk): ``tools.undistort.undistort_image_torch`` over the take's 12
+   frames on the card against the CPU and ``cv2.undistort``, a
+   ``data.seq`` round trip, ``tools.comparisons`` on 5d's renders.
+
+Each phase prints its seconds.
 
 The card's line and the kernels line come before the last line, which is
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -2304,6 +2325,644 @@ def grad_spread(wl, n_runs: int = 3):
             for k in runs[0]}
 
 
+# ----------------------------------------------------------------------------
+# Phase 8: the sharded fit step (parallel/ on torch.distributed)
+# ----------------------------------------------------------------------------
+
+SHARDED_RANKS = 4              # 8b and 8c: gloo ranks sharing the one card
+SHARDED_CHILD_TIMEOUT = 600    # seconds a rank may take, build included
+SHARDED_LOSS_RTOL = 2e-4       # tests/test_parallel.py's limit for 8b
+BAND_ATOL = 2e-3               # tests/test_parallel.py's band limit (8c)
+BAND_ATOL_SHARE = 1e-3         # 8c: share of values allowed past BAND_ATOL
+SEAM_ROW_FACTOR = 5.0          # 8c: the seam rows' share past BAND_ATOL
+SEAM_ROW_SLACK = 2             #     against the other rows' (+ values)
+TEMPORAL_WEIGHT = 1.0          # 8b: the temporal term and its pose halo
+# 8b and 8c run at the bench's depth range and at one where the dome's
+# depths resolve (as phase 5f's examples do)
+SHARDED_RANGES = {"bench": None, "50-250": (50.0, 250.0)}
+STEP_KERNELS = ("bin_place", "fused_raster", "antialias", "antialias_bwd",
+                "texture_bwd", "pixel_grad", "fold_entries")   # K11, K1-K6
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def counters_of():
+    """name -> the kernel wrapper whose ``launches`` counts its launches."""
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+
+    return {"fused_raster": rc.fused_raster,
+            "antialias": ac.antialias_planes,
+            "antialias_bwd": ac.antialias_planes_bwd,
+            "texture_bwd": tc.texture_planes_bwd,
+            "pixel_grad": gc.pixel_grad,
+            "fold_entries": gc.fold_entries,
+            "texture_fwd": tc.texture_planes,
+            "mip_sample": tmc.mip_sample,
+            "mip_sample_bwd": tmc.mip_sample_bwd,
+            "fused_raster_aa": rc.fused_raster_aa,
+            "bin_place": bp.place_pairs}
+
+
+def sharded_workload(dev, near_far=None):
+    """Phase 8b's inputs, built alike in every rank and in the parent: the
+    bench workload with the temporal term on, per-frame translations
+    drawn from a seed (so the term and its halo have a gradient) and the
+    stratified batch of a (2, 1, 2) mesh (each frame shard samples its own
+    two frames).
+
+    :param near_far: the cameras' (near, far) depth range; None the
+        bench's [0.01, 200].
+    :return: (workload dict, config, full parameters, global Batch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    wl = build_workload(device=dev)
+    if near_far is not None:       # the GL depth terms of another range
+        zn, zf = (torch.tensor(v, device=dev) for v in near_far)
+        wl["scene"].proj[:, 2, 2] = -(zf + zn) / (zf - zn)
+        wl["scene"].proj[:, 2, 3] = -(2.0 * zf * zn) / (zf - zn)
+    config = dataclasses.replace(wl["config"],
+                                 weight_temporal=TEMPORAL_WEIGHT)
+    params = {k: v.detach().clone() for k, v in wl["params"].items()}
+    rng = np.random.default_rng(8)
+    params["per_frame_t"] = torch.as_tensor(rng.normal(
+        0.0, 0.05, (wl["n_frames"], 3)).astype(np.float32), device=dev)
+    stand_in = type("Mesh", (), {"mesh_dim_names": ("frame", "view", "tile"),
+                                 "mesh": torch.zeros(2, 1, 2)})()
+    from fpc_diffrend_tpu_torch.parallel.train import sample_stratified
+
+    cam, frame = sample_stratified(rng, config, stand_in, wl["n_frames"],
+                                   len(config.cam_idxs))
+    cam, frame = cam.to(dev), frame.to(dev)
+    batch = loop.Batch(cam, frame, loop.decode_refs(wl["frames_u8"], cam,
+                                                    frame))
+    return wl, config, params, batch
+
+
+def sharded_rank_main(argv) -> int:
+    """One gloo rank of phases 8b and 8c (``python3 chip_smoke.py
+    --sharded-rank R WORLD HOST:PORT OUT_DIR RANGE``): the frame-sharded
+    step at mesh (2, 1, 2), then one view's bands at mesh (1, 1, 4), at
+    the depth range ``SHARDED_RANGES[RANGE]``; results to
+    ``OUT_DIR/rank{R}.pt``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.fit import state as state_mod
+    from fpc_diffrend_tpu_torch.models.camera import transform_clip
+    from fpc_diffrend_tpu_torch.ops.pipeline import (render,
+                                                     render_batch_stacked)
+    from fpc_diffrend_tpu_torch.parallel import mesh as pmesh
+    from fpc_diffrend_tpu_torch.parallel import multihost, spatial
+    from fpc_diffrend_tpu_torch.parallel import train as ptrain
+
+    rank, world, coord, out_dir, depth = (int(argv[0]), int(argv[1]),
+                                          argv[2], argv[3], argv[4])
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    multihost.initialize(coord, world, rank, backend="gloo")
+    wl, config, params, batch = sharded_workload(dev, SHARDED_RANGES[depth])
+    counters = counters_of()
+    out = {"rank": rank, "setup_s": time.perf_counter() - t0}
+
+    # 8b: the frame-sharded step
+    mesh = pmesh.make_mesh(("frame", "view", "tile"), (2, 1, 2))
+    step = ptrain.make_sharded_train_step(config, wl["scene"], mesh,
+                                          shard_frames=True,
+                                          params_like=params)
+    state = state_mod.init_state(config, ptrain.frame_shard(params, mesh))
+    local = ptrain.shard_batch_for(mesh, batch)
+    for f in counters.values():
+        f.launches = 0
+    _, metrics = step(state, local)
+    torch.cuda.synchronize()
+    out["launches"] = {k: f.launches for k, f in counters.items()}
+    grads = ptrain.gather_frame_shards(
+        {k: p.grad for k, p in state.params.items()}, mesh)
+    out["loss"] = float(metrics["loss"])
+    out["coords"] = {a: pmesh.axis_index(mesh, a)
+                     for a in ("frame", "view", "tile")}
+    out["samples"] = int(local.cam_idx.shape[0])
+    out["band_rows"] = int(local.ref.shape[1])
+    if rank == 0:
+        out["grads"] = {k: v.detach().cpu() for k, v in grads.items()}
+    # the same step with the per-frame parameters replicated: the same
+    # renders, so the same gradients up to the order of the sums
+    rstep = ptrain.make_sharded_train_step(config, wl["scene"], mesh)
+    rstate = state_mod.init_state(config, {k: v.clone()
+                                           for k, v in params.items()})
+    _, rmetrics = rstep(rstate, local)
+    out["loss_replicated"] = float(rmetrics["loss"])
+    if rank == 0:
+        out["grads_replicated"] = {k: p.grad.detach().cpu()
+                                   for k, p in rstate.params.items()}
+    n = 3
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        step(state, local)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t1) / n * 1e3
+
+    # 8c: one view in four bands, forward only
+    mesh4 = pmesh.make_mesh(("frame", "view", "tile"), (1, 1, 4))
+    band = pmesh.axis_index(mesh4, "tile")
+    H, W = wl["H"], wl["W"]
+    p0 = wl["params"]
+    with torch.no_grad():
+        idx = torch.zeros(1, dtype=torch.int64, device=dev)
+        mvp = loop.build_mvp(wl["scene"], p0, idx, idx)[0]
+        verts = loop.sample_clip_positions(config, wl["scene"], p0, idx,
+                                           idx)[1][0]
+        sc = wl["scene"]
+        args = (sc.faces, sc.uv, sc.uv_idx, p0["tex"])
+        for f in counters.values():
+            f.launches = 0
+        img = spatial.render_band(mvp, verts, *args, (H // 4, W),
+                                  sc.face_neighbors, band, 4,
+                                  group=mesh4.get_group("tile"),
+                                  pair_cap=config.pair_cap)
+        torch.cuda.synchronize()
+        out["band_launches"] = {k: f.launches for k, f in counters.items()}
+        out["band"], out["band_img"] = band, img.cpu()
+        out["band_img_no_seam"] = spatial.render_band(
+            mvp, verts, *args, (H // 4, W), sc.face_neighbors, band, 4,
+            pair_cap=config.pair_cap).cpu()
+        if rank == 0:
+            out["full_img"] = render(mvp, verts, *args, (H, W),
+                                     sc.face_neighbors,
+                                     pair_cap=config.pair_cap).cpu()
+            # the witness: the same view as the second sample of a stack,
+            # which moves its rows and so the rounding of its planes
+            pc = transform_clip(mvp, verts)
+            out["full_img_at_1"] = render_batch_stacked(
+                torch.stack([pc, pc]), *args, (H, W), sc.face_neighbors,
+                pair_cap=config.pair_cap)[1].cpu()
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_sharded_ranks(out_dir, depth):
+    """Start phase 8b/8c's ranks, each its own process on the one card,
+    and wait for them; fail if one fails, or outlives its timeout (then
+    every rank is killed).
+
+    :return: the ranks' results, by rank.
+    """
+    import torch
+
+    coord = f"localhost:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+         str(r), str(SHARDED_RANKS), coord, out_dir, depth],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SHARDED_RANKS)]
+    logs, deadline = [], time.perf_counter() + SHARDED_CHILD_TIMEOUT
+    try:
+        for p in procs:
+            left = max(deadline - time.perf_counter(), 1.0)
+            try:
+                logs.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"sharded rank {len(logs)} ran past "
+                     f"{SHARDED_CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"sharded rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(SHARDED_RANKS)]
+
+
+def sharded_phase(wl, card):
+    """Phase 8: the sharded fit step at the bench workload's full width.
+
+    8a: world size 1 (NCCL), mesh (1, 1, 1): the sharded step and
+    ``fit.loop.train_step`` from one state on the bench batch (loss within
+    1e-6 relative, every gradient within ``GRAD_SPREAD_RTOL`` of its
+    largest magnitude, K11, K1-K6 once in the sharded step), then their ms
+    per step in turns. 8b: four gloo ranks on the one card, mesh (2, 1,
+    2), ``shard_frames`` and the temporal term: the loss within 2e-4 of
+    the single-process step's, the summed gradients (frame shards
+    gathered) within ``GRAD_SPREAD_RTOL``, K11, K1-K6 once on every rank.
+    8c: mesh (1, 1, 4), one view's four 300-row bands stitched against the
+    full-frame render, within 2e-3.
+
+    :return: the phase's record.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.fit import state as state_mod
+    from fpc_diffrend_tpu_torch.kernels import build
+    from fpc_diffrend_tpu_torch.parallel import multihost
+    from fpc_diffrend_tpu_torch.parallel import train as ptrain
+
+    t_phase = time.perf_counter()
+    counters = counters_of()
+    rec = {}
+
+    # ---- 8a ----
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0)
+    mesh = multihost.make_pod_mesh()
+    config, scene, batch = wl["config"], wl["scene"], wl["batch"]
+    start = {k: v.detach().clone() for k, v in wl["params"].items()}
+
+    def fresh():
+        return state_mod.init_state(config, {k: v.clone()
+                                             for k, v in start.items()})
+
+    step = ptrain.make_sharded_train_step(config, scene, mesh)
+    local = ptrain.shard_batch_for(mesh, batch)
+    s_sh, s_one = fresh(), fresh()
+    for f in counters.values():
+        f.launches = 0
+    _, m_sh = step(s_sh, local)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    m_one = loop.train_step(config, scene, s_one, batch)
+    l_sh, l_one = float(m_sh["loss"]), float(m_one["loss"])
+    loss_rel = abs(l_sh - l_one) / abs(l_one)
+    gerr = {k: _rel_err(s_sh.params[k].grad, p.grad)
+            for k, p in s_one.params.items() if float(p.grad.abs().max())}
+    want = {k: int(k in STEP_KERNELS) for k in counters}
+    if launches != want:
+        fail(f"8a: the sharded step's launches {launches} != {want}")
+    if not loss_rel <= 1e-6 or not all(
+            v <= GRAD_SPREAD_RTOL for v in gerr.values()):
+        fail(f"8a: the sharded step (mesh (1, 1, 1)) differs from "
+             f"train_step: loss {l_sh} vs {l_one} ({loss_rel:.3g} rel), "
+             f"gradients {gerr}")
+    turns = {"sharded": [], "unsharded": []}
+    n = 5
+    for name in ("sharded", "unsharded", "sharded", "unsharded"):
+        fn = ((lambda: step(s_sh, local)) if name == "sharded"
+              else (lambda: loop.train_step(config, scene, s_one, batch)))
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) / n * 1e3)
+    ratio = sum(turns["sharded"]) / sum(turns["unsharded"])
+    dist.destroy_process_group()
+    rec["8a"] = {"loss": [l_sh, l_one], "loss_rel": loss_rel,
+                 "grad_rel": gerr, "launches": launches,
+                 "ms_per_step_turns": turns, "ratio": ratio}
+    print(f"phase 8a (world 1, NCCL, mesh (1, 1, 1), bench workload): "
+          f"loss {l_sh} vs train_step {l_one} ({loss_rel:.3g} rel); "
+          f"gradients over their largest magnitude {gerr}; launches "
+          f"{launches}; ms per step in turns (host clock, {n} steps each, "
+          f"{card}): sharded {turns['sharded']}, unsharded "
+          f"{turns['unsharded']}, ratio {ratio:.4f}", flush=True)
+
+    # ---- 8b, 8c: four ranks on the card, at two depth ranges ----
+    build.build()          # the ranks load these libraries, not nvcc's
+    torch.cuda.empty_cache()
+    for depth in SHARDED_RANGES:
+        rec[depth] = sharded_ranks(scene.device, depth, card,
+                                   gate=depth == "50-250")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: {rec['seconds']:.1f} s on {card}", flush=True)
+    return rec
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| over ||b|| (2-norms)."""
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def sharded_ranks(dev, depth, card, gate):
+    """Phases 8b and 8c at one depth range.
+
+    8b's ranks take the frame-sharded step, then the same step with the
+    per-frame parameters replicated: both render the same bands of the
+    same samples, so their losses must agree within 1e-6 relative and
+    every summed gradient within ``GRAD_SPREAD_RTOL`` of its largest
+    magnitude (the order of the sums aside, the same arithmetic). Against
+    the single-process ``train_step`` the global loss must agree within
+    2e-4. The gradients against it are printed beside the witness of
+    ``train_step`` against itself on the batch in reverse order: a band
+    rounds its clip y, and a sample moved in the stack its planes,
+    otherwise, which moves the antialias's occluder and the winner of a
+    pixel whose centre lies within rounding of an edge; the pose and
+    vertex gradients are sums that cancel to a small remainder, which
+    such pixels move by tens of percent (the witness shows it). The
+    texture gradient does not cancel: with ``gate`` it must agree within
+    ``GRAD_SPREAD_RTOL`` in relative L2.
+
+    8c's four bands, stitched, against the full-frame view: with
+    ``gate``, at most ``BAND_ATOL_SHARE`` of the values past
+    ``BAND_ATOL``, and the rows beside a band's edge (where the seam
+    blends) no worse than the others, ``SEAM_ROW_FACTOR`` x their share
+    (with ``SEAM_ROW_SLACK`` values more). Printed beside: the view as a
+    second sample of a stack, and the bands without the seam.
+
+    :param gate: fail past the limits (else only print them).
+    :return: the record.
+    """
+    import tempfile
+
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.fit import state as state_mod
+
+    counters = counters_of()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        ranks = spawn_sharded_ranks(tmp, depth)
+    ranks_s = time.perf_counter() - t0
+    swl, sconfig, sparams, sbatch = sharded_workload(dev,
+                                                     SHARDED_RANGES[depth])
+
+    def single_step(batch):
+        st = state_mod.init_state(sconfig, {k: v.clone()
+                                            for k, v in sparams.items()})
+        m = loop.train_step(sconfig, swl["scene"], st, batch)
+        return float(m["loss"]), {k: p.grad for k, p in st.params.items()}
+
+    l_ref, g_ref = single_step(sbatch)
+    _, g_rev = single_step(loop.Batch(*(x.flip(0) for x in sbatch)))
+    losses = [r["loss"] for r in ranks]
+    if len(set(losses)) != 1:
+        fail(f"8b ({depth}): the ranks' global losses differ: {losses}")
+    loss_rel = abs(losses[0] - l_ref) / abs(l_ref)
+    l_rep = ranks[0]["loss_replicated"]
+    rep_rel = abs(losses[0] - l_rep) / abs(l_rep)
+    g_sh = ranks[0]["grads"]
+    g_rep = ranks[0]["grads_replicated"]
+    live = [k for k, g in g_ref.items() if float(g.abs().max())]
+    rep_err = {k: _rel_err(g_sh[k], g_rep[k]) for k in live}
+    gerr = {k: {"max_rel": _rel_err(g_sh[k].to(dev), g_ref[k]),
+                "l2_rel": _rel_l2(g_sh[k].to(dev), g_ref[k]),
+                "reversed_max_rel": _rel_err(g_rev[k], g_ref[k]),
+                "reversed_l2_rel": _rel_l2(g_rev[k], g_ref[k])}
+            for k in live}
+    stray = [k for k in g_ref if k not in live
+             and float(g_sh[k].abs().max())]
+    print(f"phase 8b (4 gloo ranks on one card, mesh (2, 1, 2), "
+          f"shard_frames, weight_temporal {TEMPORAL_WEIGHT}, depth range "
+          f"{depth}): ranks {[r['coords'] for r in ranks]}, "
+          f"{ranks[0]['samples']} samples and {ranks[0]['band_rows']} rows "
+          f"a rank; loss {losses[0]}, with the per-frame parameters "
+          f"replicated {l_rep} ({rep_rel:.3g} rel), train_step {l_ref} "
+          f"({loss_rel:.3g} rel); summed gradients against the replicated "
+          f"step's (max over the largest magnitude) {rep_err}; against "
+          f"train_step's (and train_step's own on the batch reversed) "
+          f"{gerr}{'' if gate else ' (not gated)'}; launches "
+          f"{[r['launches'] for r in ranks]}; ms per step a rank "
+          f"{[round(r['step_ms'], 3) for r in ranks]} ({card}); ranks ran "
+          f"{ranks_s:.1f} s (each {[round(r['seconds'], 1) for r in ranks]})",
+          flush=True)
+    bad = [r["rank"] for r in ranks
+           if r["launches"] != {k: int(k in STEP_KERNELS) for k in counters}]
+    if bad:
+        fail(f"8b: ranks {bad} did not launch K11, K1-K6 once: "
+             f"{[r['launches'] for r in ranks]}")
+    if not rep_rel <= 1e-6 or not all(
+            v <= GRAD_SPREAD_RTOL for v in rep_err.values()) or stray:
+        fail(f"8b ({depth}): the frame-sharded step differs from the "
+             f"replicated one: loss {rep_rel:.3g} rel, gradients {rep_err}; "
+             f"nonzero where train_step's are zero: {stray}")
+    if not loss_rel <= SHARDED_LOSS_RTOL:
+        fail(f"8b ({depth}): loss {losses[0]} vs {l_ref} ({loss_rel:.3g} "
+             "rel)")
+    if gate and not gerr["tex"]["l2_rel"] <= GRAD_SPREAD_RTOL:
+        fail(f"8b ({depth}): the texture gradient differs from "
+             f"train_step's: {gerr['tex']}")
+    if not float(g_sh["per_frame_t"].abs().max()):
+        fail("8b: the per-frame translations got no gradient")
+
+    bands = sorted((r["band"], r["band_img"], r["band_img_no_seam"])
+                   for r in ranks)
+    if [b[0] for b in bands] != [0, 1, 2, 3]:
+        fail(f"8c: the ranks rendered bands {[b[0] for b in bands]}")
+    stitched = torch.cat([img for _, img, _ in bands])
+    no_seam = torch.cat([img for _, _, img in bands])
+    full, witness = ranks[0]["full_img"], ranks[0]["full_img_at_1"]
+    hb = full.shape[0] // 4
+    edge = torch.zeros(full.shape[0], dtype=torch.bool)
+    edge[hb - 1::hb] = True
+    edge[hb::hb] = True
+    edge[-1] = False
+    counts = {}
+    for name, img in (("bands", stitched), ("second sample", witness),
+                      ("bands without the seam", no_seam)):
+        diff = (img - full).abs()
+        counts[name] = {"max_abs_err": float(diff.max()),
+                        "over_1e-5": int((diff > 1e-5).sum()),
+                        "over_atol": int((diff > BAND_ATOL).sum()),
+                        "over_atol_seam_rows": int(
+                            (diff[edge] > BAND_ATOL).sum())}
+    c = counts["bands"]
+    n_edge = int(edge.sum()) * full[0].numel()
+    n_rest = full.numel() - n_edge
+    seam_limit = (SEAM_ROW_FACTOR * (c["over_atol"] - c["over_atol_seam_rows"])
+                  / n_rest * n_edge + SEAM_ROW_SLACK)
+    blaunch = [r["band_launches"] for r in ranks]
+    want = {k: int(k in ("bin_place", "fused_raster", "antialias"))
+            for k in counters}
+    print(f"phase 8c (mesh (1, 1, 4), {hb}-row bands of camera 0, frame 0, "
+          f"depth range {depth}): against the full view ({full.numel()} "
+          f"values) {counts}; limits: past {BAND_ATOL} at most "
+          f"{BAND_ATOL_SHARE * full.numel():.0f} values, in the "
+          f"{int(edge.sum())} rows beside a band's edge at most "
+          f"{seam_limit:.1f}{'' if gate else ' (not gated)'}; launches "
+          f"{blaunch}", flush=True)
+    if gate and (c["over_atol"] > BAND_ATOL_SHARE * full.numel()
+                 or c["over_atol_seam_rows"] > seam_limit):
+        fail(f"8c ({depth}): the stitched bands differ from the full view: "
+             f"{counts}")
+    if any(b != want for b in blaunch):
+        fail(f"8c: a rank's band launches {blaunch} != {want}")
+    return {"8b": {"loss": losses[0], "loss_replicated": l_rep,
+                   "loss_train_step": l_ref, "loss_rel": loss_rel,
+                   "replicated_grad_max_rel": rep_err, "grad_err": gerr,
+                   "launches": [r["launches"] for r in ranks],
+                   "step_ms": [r["step_ms"] for r in ranks],
+                   "rank_seconds": [r["seconds"] for r in ranks],
+                   "ranks_s": ranks_s},
+            "8c": {**counts, "seam_row_limit": seam_limit,
+                   "launches": blaunch}}
+
+
+# ----------------------------------------------------------------------------
+# Phase 9: the host tools
+# ----------------------------------------------------------------------------
+
+UNDISTORT_DIST = (-0.21, 0.08, 0.003, -0.002, 0.01)   # k1 k2 p1 p2 k3
+# the card's remap against the CPU's: the map (~15 float32 operations on
+# coordinates up to 1,600, whose ulp is 1.2e-4) within 8 ulps, the frame
+# within that times its steepest step (255 counts)
+UNDISTORT_MAP_ATOL = 1e-3      # pixels
+UNDISTORT_DEVICE_ATOL = 0.25   # counts
+# cv2.undistort maps integer pixel coordinates (the remap, pixel centres)
+# and interpolates at 1/32 pixel, so the two differ by a few counts at
+# steep steps; their mean difference stays within
+UNDISTORT_CV2_MEAN = 2.0       # counts
+
+
+def tools_phase(take, card):
+    """Phase 9, on 5c's take and 5d's renders (run while they are on
+    disk): ``tools.undistort.undistort_image_torch`` on the card over the
+    take's frames against the same remap on the CPU (the image within
+    ``UNDISTORT_DEVICE_ATOL``, the map within ``UNDISTORT_MAP_ATOL``) and
+    against ``cv2.undistort`` (mean within ``UNDISTORT_CV2_MEAN``); a
+    ``data.seq`` round trip (``write_seq`` -> ``SeqReader`` ->
+    ``extract_to_tif``) of camera 0's frames, exact; ``tools.comparisons``
+    on 5d's side-by-side renders against the take's frames (the crop's
+    means equal to numpy's, heatmaps that parse).
+
+    :return: the phase's record.
+    """
+    import json as json_mod
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from fpc_diffrend_tpu_torch.data import seq as seqlib
+    from fpc_diffrend_tpu_torch.tools import comparisons
+    from fpc_diffrend_tpu_torch.tools.undistort import (undistort_image_cv2,
+                                                        undistort_image_torch,
+                                                        undistort_map)
+
+    fcfg, paths, written, _ = take
+    t_phase = time.perf_counter()
+    rec = {}
+    C, F, H, W = written.shape
+    with open(paths["calibpath"]) as f:
+        calib = json_mod.load(f)
+    dist_c = np.asarray(UNDISTORT_DIST, np.float32)
+    keys = sorted(calib)[:C]
+    dev_err = map_err = cv_err = cv_mean = 0.0
+    t_card = 0.0
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    for c, key in enumerate(keys):
+        intr = np.asarray(calib[key]["intrinsic"], np.float32)
+        for i in range(F):
+            img = written[c, i]
+            t0 = time.perf_counter()
+            got = undistort_image_torch(img, intr, dist_c)
+            torch.cuda.synchronize()
+            t_card += time.perf_counter() - t0
+            cpu = undistort_image_torch(img, intr, dist_c, device="cpu")
+            dev_err = max(dev_err, float((got.cpu() - cpu).abs().max()))
+            if i == 0:
+                map_err = max(map_err, float((undistort_map(
+                    intr, dist_c, H, W).cpu() - undistort_map(
+                        intr, dist_c, H, W, "cpu")).abs().max()))
+            if have_cv2:
+                d = np.abs(got.cpu().numpy()
+                           - undistort_image_cv2(img, intr, dist_c))
+                cv_err, cv_mean = max(cv_err, float(d.max())), max(
+                    cv_mean, float(d.mean()))
+    n = C * F
+    print(f"phase 9 undistort: {n} frames of {H}x{W}, the card's remap "
+          f"against the CPU's max abs err {dev_err:.3g} counts (limit "
+          f"{UNDISTORT_DEVICE_ATOL}), its map {map_err:.3g} px (limit "
+          f"{UNDISTORT_MAP_ATOL}); against cv2.undistort "
+          + (f"max {cv_err:.3g}, mean {cv_mean:.3g} counts (mean limit "
+             f"{UNDISTORT_CV2_MEAN})" if have_cv2 else "not run (no cv2)")
+          + f"; {t_card / n * 1e3:.2f} ms a frame on the card (host clock, "
+          f"{card})", flush=True)
+    if (not dev_err <= UNDISTORT_DEVICE_ATOL
+            or not map_err <= UNDISTORT_MAP_ATOL
+            or (have_cv2 and not cv_mean <= UNDISTORT_CV2_MEAN)):
+        fail(f"9: the torch remap differs: card vs CPU {dev_err} ({map_err} "
+             f"px in the map), vs cv2 mean {cv_mean}")
+    rec["undistort"] = {"frames": n, "card_vs_cpu": dev_err,
+                        "map_card_vs_cpu_px": map_err,
+                        "vs_cv2_max": cv_err if have_cv2 else None,
+                        "vs_cv2_mean": cv_mean if have_cv2 else None,
+                        "ms_per_frame": t_card / n * 1e3}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        seq = os.path.join(tmp, "cam0.seq")
+        seqlib.write_seq(seq, written[0])
+        reader = seqlib.SeqReader(seq)
+        same = len(reader) == F and all(
+            np.array_equal(reader.read_frame(i), written[0, i])
+            for i in range(F))
+        reader.close()
+        n_tif = seqlib.extract_to_tif(seq, os.path.join(tmp, "tif"), "cam0")
+        same = same and n_tif == F and all(np.array_equal(
+            np.array(Image.open(os.path.join(tmp, "tif",
+                                             f"cam0_{i:03d}.tif"))),
+            written[0, i]) for i in range(F))
+        if not same:
+            fail("9: the .seq round trip changed the take's frames")
+
+        inf, refd = os.path.join(tmp, "inf"), os.path.join(tmp, "ref")
+        os.makedirs(inf)
+        os.makedirs(refd)
+        result_dir = os.path.join(fcfg.out_dir, "result")
+        renders = []
+        for i in range(F):
+            png = np.array(Image.open(os.path.join(
+                result_dir, f"frame{i}_side-by-side.png")))
+            png = png.reshape(H, 2 * W)[:, W:]
+            renders.append(png)
+            Image.fromarray(png).save(os.path.join(inf,
+                                                   f"frame{i}_pose.png"))
+            Image.fromarray(written[0, i]).save(os.path.join(
+                refd, f"pod2colour_pod2primary_{i:03d}.tif"))
+        means = comparisons.compare_sequence_numerical(
+            inf, refd, os.path.join(tmp, "num"), F)
+        want = [float(np.abs(r[200:1400, 100:1100].astype(np.int32)
+                             - written[0, i, 200:1400, 100:1100]).mean())
+                for i, r in enumerate(renders)]
+        comparisons.compare_sequence(inf, refd, os.path.join(tmp, "heat"),
+                                     F)
+        heat = np.array(Image.open(os.path.join(tmp, "heat",
+                                                "colcomp_0.png")))
+        if not np.allclose(means, want, rtol=1e-12) or heat.shape != (
+                H, W, 3):
+            fail(f"9: comparisons gave {means} (numpy {want}), a heatmap of "
+                 f"{heat.shape}")
+    rec["seq_frames"] = F
+    rec["crop_means"] = means
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: .seq round trip of {F} frames exact; comparisons of "
+          f"5d's renders against the take: crop means {means}, heatmaps "
+          f"{heat.shape}; {rec['seconds']:.1f} s on {card}", flush=True)
+    return rec
+
+
 def _bound(nbytes, ops):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
@@ -2823,6 +3482,8 @@ def main() -> int:
         fail("no CUDA device")
     if not os.path.isdir(os.path.join(REPO, "fpc_diffrend_tpu_torch")):
         fail("the fpc_diffrend_tpu_torch package is not beside this script")
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return sharded_rank_main(sys.argv[2:])
     sys.path.insert(0, REPO)
     import dataclasses
     import tempfile
@@ -2847,7 +3508,15 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     t_start = time.perf_counter()
-    record = {}
+    record = {"phase_s": {}}
+    t_mark = [t_start]
+
+    def phase_done(name):
+        """Print and record the seconds since the last phase ended."""
+        now = time.perf_counter()
+        record["phase_s"][name] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {name}: {record['phase_s'][name]:.1f} s", flush=True)
 
     # ---- 1. the card ----
     card = card_line()
@@ -2866,6 +3535,8 @@ def main() -> int:
         print(f"build {name}: {r['seconds']:.1f} s; " + " | ".join(lines),
               flush=True)
     print(f"build total: {record['build_s']:.1f} s", flush=True)
+
+    phase_done("1-2")
 
     # ---- 3. kernel checks at a mid size ----
     dev = torch.device("cuda")
@@ -2905,6 +3576,8 @@ def main() -> int:
     record["k10_edges_err"] = check_k10_edges(dev, gen)
     record["k4_edges_err"] = check_k4_edges(dev, gen)
     record["mip_edges_err"] = check_mip_edges(dev, gen)
+
+    phase_done("3")
 
     # ---- 4. the forward at full width ----
     counters = {"fused_raster": rc.fused_raster,
@@ -2961,6 +3634,8 @@ def main() -> int:
         fail(f"kernel launches {launches} != {want}")
     record.update(forward_ms_per_batch=fwd_ms, metrics=metrics,
                   launches_evaluate=launches, pair_cap=config.pair_cap)
+
+    phase_done("4")
 
     # ---- 5. the fit step at full width ----
     state = wl["state"]
@@ -3035,6 +3710,8 @@ def main() -> int:
     print("step stages (CUDA events, ms, batch of 8): " + ", ".join(
         f"{k} {v:.3f}" for k, v in step_stage_ms.items()), flush=True)
 
+    phase_done("5")
+
     # ---- 5b. the mip path at full width ----
     wlm = build_workload(mip=True, device=dev)
     cm, scm, pm = wlm["config"], wlm["scene"], wlm["params"]
@@ -3104,6 +3781,8 @@ def main() -> int:
                   mip_launches_evaluate=launches_fwd, mip_step_ms=mip_step_ms,
                   mip_step_losses=mlosses, mip_launches=mip_launches,
                   mip_stage_ms=mip_stages, mip_step_stage_ms=mip_step_stages)
+
+    phase_done("5b")
 
     # ---- 5c. fit_take at full width: a take on disk, fitted end to end ----
     from fpc_diffrend_tpu_torch.runtime import native
@@ -3218,15 +3897,24 @@ def main() -> int:
         record["single_view"] = single_view(
             wl, counters, gen, (fcfg, paths, written, tmp))
 
+        # ---- 9. the host tools, on 5c's take and 5d's renders while they
+        # are on disk ----
+        record["tools"] = tools_phase((fcfg, paths, written, tmp), card)
+    phase_done("5c, 5d, 9")
+
     # ---- 5e. the primitives composed at full width; the scan route ----
     record["primitives"] = primitive_views(wl, counters, gen)
     record["scan_route"] = scan_route(dev, gen)
+
+    phase_done("5e")
 
     # ---- 5f. the fit examples at their own widths ----
     record["examples"] = examples_phase(counters, card)
     record.update(fit_take_s=fit_s, fit_take_ms_per_step=fit_ms,
                   fit_take_launches=fit_launches, fit_take_losses=losses,
                   fit_take_pair_cap=cap, fit_take_live_pairs=live0)
+
+    phase_done("5f")
 
     # ---- 6. kernels at the main path's shapes ----
     bins = sstate["bins"]
@@ -3544,11 +4232,18 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": library.get(name)})
+    phase_done("6")
+
     # ---- 7. the step's gradients from run to run ----
     spread = grad_spread(wl)
     record["grad_spread"] = spread
     print(f"step gradients, 3 runs from one state: spread over the largest "
           f"magnitude {spread} (limit {GRAD_SPREAD_RTOL})", flush=True)
+    phase_done("7")
+
+    # ---- 8. the sharded fit step at full width ----
+    record["sharded"] = sharded_phase(wl, card)
+    phase_done("8")
     record.update(kernels=kernels, backward_check=berr,
                   live_bin_entries=live, n_global=int(bins.n_global[0]),
                   total_s=time.perf_counter() - t_start)

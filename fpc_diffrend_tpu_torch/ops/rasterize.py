@@ -31,6 +31,12 @@ sample under ``vmap`` (``render_from_clip``'s mip branch); stacked, each
 sample gives the same result, as the JAX package says of its own stacked
 path ("functionally identical to vmapping").
 
+The band Functions (:class:`RasterizeTexturedSepaaBand`,
+:class:`RasterizeMipSepaaBand`) are the stacked ones with each sample's
+first and last image rows of the pre-antialias colour and of u, v, z as
+two more outputs, whose cotangents join the backward before the sampler's
+kernel and K5: the sharded band render's seam (``parallel.spatial``).
+
 The nvdiffrast-style primitive (JAX's public ``rasterize`` and
 ``rasterize_with_uv``) has two routes. The kernel route is the same pass
 at B = 1 with K1 in its texture-free mode, under
@@ -205,6 +211,98 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
         gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
                                         payload[4], lam, gcolour)
         return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts),
+                gpyr, None, None, None, None, None)
+
+
+def _edge_rows(ctx, payload, colour):
+    """(colour (C, B, 2, pw), uvz (3, B, 2, pw)): each stacked sample's
+    first and last image rows (``b * ph`` and ``b * ph + height - 1``,
+    GL bottom-up) of the pre-antialias colour and the payload's u, v, z,
+    for the antialias seam between image row-bands
+    (``parallel.spatial``)."""
+    B, _, sample_ph, height, _ = ctx.dims
+    first = torch.arange(B, device=colour.device) * sample_ph
+    ctx.edge_rows = torch.stack([first, first + height - 1], 1).reshape(-1)
+    pw = colour.shape[-1]
+    return (colour[:, ctx.edge_rows].reshape(-1, B, 2, pw),
+            payload[:3, ctx.edge_rows].reshape(3, B, 2, pw))
+
+
+def _add_edge_grads(ctx, gcolour, g_colour_rows, g_uvz_rows):
+    """The edge rows' cotangents added into K3's colour cotangent (before
+    the sampler's backward) and into u, v, z planes for K5."""
+    rows = ctx.edge_rows
+    pw = gcolour.shape[-1]
+    gcolour = gcolour.index_add(1, rows, g_colour_rows.reshape(
+        gcolour.shape[0], -1, pw))
+    guvz = torch.zeros((3,) + gcolour.shape[1:], device=gcolour.device)
+    guvz.index_add_(1, rows, g_uvz_rows.reshape(3, -1, pw))
+    return gcolour, guvz
+
+
+class RasterizeTexturedSepaaBand(torch.autograd.Function):
+    """:class:`RasterizeTexturedSepaaStacked` with each sample's edge rows
+    as two more outputs: K1 -> K2 forward, K3 -> (+ the edge rows'
+    colour cotangents) K4 -> (+ their u, v, z cotangents) K5 -> K6
+    backward. The band render of ``parallel.spatial`` blends these rows
+    with the neighbouring bands' (JAX's fused band path takes them from
+    the fused pass's pre-antialias planes).
+
+    :return: (idbuf, aa, colour rows (C, B, 2, pw), uvz rows (3, B, 2,
+        pw)); rows as :func:`_edge_rows`.
+    """
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+        idbuf, entry, payload, extra, colour = _raster(
+            ctx, data_s, bins, tex, sample_ph, height, width)
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
+        aa = _antialias(ctx, idbuf, payload, colour)
+        return (idbuf, aa, *_edge_rows(ctx, payload, colour))
+
+    @staticmethod
+    def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
+        idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
+        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
+        gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
+                                        g_uvz_rows)
+        gtex, gtu, gtv = texture_planes_bwd(tex, payload[3], payload[4],
+                                            gcolour)
+        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts,
+                              guvz),
+                gtex, None, None, None, None)
+
+
+class RasterizeMipSepaaBand(torch.autograd.Function):
+    """:class:`RasterizeMipSepaaStacked` with the edge rows of
+    :class:`RasterizeTexturedSepaaBand`: their colour cotangents join K3's
+    before K9, their u, v, z cotangents reach K5."""
+
+    @staticmethod
+    def forward(ctx, data_s, aux_s, pyramid, sizes, bins, sample_ph, height,
+                width):
+        idbuf, entry, payload, extra, _ = _raster(
+            ctx, data_s, bins, None, sample_ph, height, width)
+        th, tw = sizes[0]
+        lam = lod_from_texc(payload[3], payload[4], idbuf, th, tw, height,
+                            width, sample_ph)
+        colour = mip_sample(pyramid, sizes, payload[3], payload[4], lam)
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, pyramid,
+                              lam)
+        ctx.sizes = sizes
+        aa = _antialias(ctx, idbuf, payload, colour)
+        return (idbuf, aa, *_edge_rows(ctx, payload, colour))
+
+    @staticmethod
+    def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
+        idbuf, entry, payload, extra, colour, pyramid, lam = ctx.saved_tensors
+        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
+        gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
+                                        g_uvz_rows)
+        gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
+                                        payload[4], lam, gcolour)
+        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts,
+                              guvz),
                 gpyr, None, None, None, None, None)
 
 

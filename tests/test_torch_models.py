@@ -157,6 +157,10 @@ RENAMED = {
     "fit.loop.train_steps": {"rng_key": "generator"},
     "fit.state.TrainState": {"opt_state": "optimizer"},
     "fit.state.apply_corrective_gate": {"grads": "params"},
+    # a process group in place of a mesh axis name, a device type in
+    # place of a device list
+    "parallel.mesh.make_mesh": {"devices": "device_type"},
+    "parallel.spatial.render_band": {"axis_name": "group"},
 }
 DROPPED = {
     "ops.pipeline.render_from_clip": ("inc",),
@@ -176,6 +180,12 @@ ADDED = {
     "ops.pipeline.render": ("route", "device"),
     "ops.pipeline.render_from_clip": ("route",),
     "ops.pipeline.render_batch_stacked": ("enable_mip", "max_mip_level"),
+    "parallel.multihost.initialize": ("backend",),
+    "parallel.multihost.make_pod_mesh": ("device_type",),
+    "parallel.spatial.band_window_matrix": ("device",),
+    "parallel.spatial.render_band": ("device",),
+    "tools.undistort.undistort_map": ("device",),
+    "tools.undistort.undistort_take": ("device",),
     "tools.render_result.render_result": ("route", "device"),
     "tools.simple_render.simple_render": ("route", "device"),
 }
@@ -236,7 +246,13 @@ def test_shared_signatures_follow_jax():
                 "ops.interpolate.interpolate", "ops.antialias.antialias",
                 "ops.texture.texture", "fit.loop.render_sample",
                 "fit.loop.resolve_aa_max_pairs",
-                "models.blendshape.load_blendshape_deltas", *PRIVATE):
+                "models.blendshape.load_blendshape_deltas",
+                "parallel.mesh.make_mesh", "parallel.multihost.initialize",
+                "parallel.spatial.render_band",
+                "parallel.train.make_sharded_train_step",
+                "parallel.train.sample_stratified", "data.seq.SeqReader",
+                "tools.undistort.undistort_map",
+                "tools.calibrate.calibrate_camera", *PRIVATE):
         assert key in shared, key
     assert len(shared) > 80
     for key in set(RENAMED) | set(DROPPED) | set(ADDED) | set(DEFAULTS):

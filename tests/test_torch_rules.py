@@ -157,6 +157,46 @@ def test_render_and_tools_raise_without_cuda(monkeypatch, tmp_path):
         simple_render(missing, "cam", missing, device="cpu")
 
 
+def test_parallel_and_undistort_raise_without_cuda(monkeypatch):
+    """The sharded step, the band render, the meshes and the torch remap
+    run on CUDA unless asked for the CPU, and raise without a card."""
+    import types
+
+    from fpc_diffrend_tpu_torch.parallel import mesh as pmesh
+    from fpc_diffrend_tpu_torch.parallel import multihost
+    from fpc_diffrend_tpu_torch.parallel.spatial import render_band
+    from fpc_diffrend_tpu_torch.parallel.train import make_sharded_train_step
+    from fpc_diffrend_tpu_torch.tools.undistort import (undistort_image_torch,
+                                                        undistort_map)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pos = np.array([[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [0.0, 0.5, 0.0]],
+                   np.float32)
+    faces = np.array([[0, 1, 2]], np.int32)
+    args = (np.eye(4, dtype=np.float32), pos, faces, pos[:, :2] + 0.5,
+            faces, np.full((4, 4, 1), 0.5, np.float32), (4, 8),
+            np.full((1, 3), -1, np.int32), 1, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render_band(*args)
+    img = render_band(*args, device="cpu")
+    assert img.shape == (4, 8, 1) and float(img.max()) == 0.5
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_train_step(FitConfig(), None,
+                                types.SimpleNamespace(device_type="cuda"))
+    for make in (pmesh.make_mesh, multihost.make_pod_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    intr = np.array([[8.0, 0, 4.0], [0, 8.0, 4.0], [0, 0, 1]], np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        undistort_image_torch(np.zeros((8, 8), np.float32), intr,
+                              np.zeros(5))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        undistort_map(intr, np.zeros(5), 8, 8)
+    out = undistort_image_torch(np.ones((8, 8), np.float32), intr,
+                                np.zeros(5), device="cpu")
+    assert out.device.type == "cpu" and float(out.min()) == 1.0
+
+
 def test_init_params_matches_jax():
     from fpc_diffrend_tpu.fit import state as jstate
     from fpc_diffrend_tpu.fit.config import FitConfig as JConfig

@@ -180,7 +180,28 @@ Phases, each fatal on failure:
 9. the host tools (``tools_phase``, run after 5d while 5c's take is on
    disk): ``tools.undistort.undistort_image_torch`` over the take's 12
    frames on the card against the CPU and ``cv2.undistort``, a
-   ``data.seq`` round trip, ``tools.comparisons`` on 5d's renders.
+   ``data.seq`` round trip, ``tools.comparisons`` on 5d's renders;
+10. the bench entry point and the gradient-precision modes
+   (``precision_phase``): 10a, at the bench step's inputs (phase 5's
+   stages), K4's "fast" and "fast2" (wrap and clamp) and K5's "fast"
+   against their plain versions at phase 3's limits, each unlike the exact
+   kernel's output, then every mode of K4 and K5 timed in turns
+   (``precision_pairs``, which ``chip_turns.py --paths prec`` times too);
+   10b, ``bench_matrix --quick`` (``fpc_diffrend_tpu_torch/
+   bench_matrix.py``) over its five rows in the exact mode and the
+   headline row in JAX's default modes (grad "fast", tex "fast2"): each
+   line parses with a finite Mpix/s, K11 and K1-K6 once a timed step (K8
+   and K9 in place of K4 on the mip row), the temporal row's temporal term
+   nonzero; after each of the three rows at shapes no earlier phase
+   checks (256^2 one camera, 512^2 nine cameras, 512^2 two cameras and
+   100 frames), K1-K6 and K11 against their plain versions on one step's
+   inputs of its fitted state (``check_fit_step``); 10c, the precision
+   study (``examples/precision_study.py``, 512^2, 9 cameras) at 300 steps
+   under "exact", "fast" and "fast2": each config's final loss below its
+   first logged loss, its pose error below its start (JAX's verdict
+   printed, not gated), then K1-K6, K11 and the fast K4 and K5 variants
+   on one step's inputs of the study's fit. The counters are set to 0
+   after each check.
 
 Each phase prints its seconds.
 
@@ -1666,13 +1687,13 @@ def primitive_views(wl, counters, gen):
         grads(compose, mvp, pos)
     finally:
         rz.pixel_grad = gc.pixel_grad
-    bins, entry, u, v, extra, gpl = seen[0]
+    bins, entry, u, v, extra, gpl = seen[0][:6]
     live_uvz = int((gpl[:3] != 0).any(dim=0).sum())
     if live_uvz == 0:
         fail("primitives: K5 saw no u, v, z cotangent")
     k5 = gc.pixel_grad(*seen[0])
     p5 = gc.pixel_grad_plain(*seen[0])
-    m5 = k5_magnitudes(*seen[0])
+    m5 = k5_magnitudes(*seen[0][:6])
     n_live = int(bins.bin_start[-1])
     errs["K5 entries rel"] = atomic_err(k5[0][:n_live], p5[0][:n_live],
                                         m5[0][:n_live])
@@ -1911,14 +1932,16 @@ def example_launches(counters, steps, renders):
     return want
 
 
-def check_fit_step(config, scene, params, frames_u8, label):
+def check_fit_step(config, scene, params, frames_u8, label, modes=False):
     """K1-K6 and K11 against their plain versions on one step's inputs of
-    an example's fit: its config (entry cap included), scene and
-    parameters, the batch its first step samples (``fit.loop.
+    a fit (an example's, a bench row's): its config (entry cap included),
+    scene and parameters, the batch its first step samples (``fit.loop.
     train_steps`` from a generator seeded with ``config.seed``), the
     step's own cotangent of K2's output and zero u, v, z cotangents (as on
-    the main path). Each at the limits of phases 3 and 6; the counters are
-    left for the caller to reset.
+    the main path). Each at the limits of phases 3 and 6; with ``modes``
+    also the fast K4 and K5 variants on the same inputs
+    (:func:`check_precision`). The counters are left for the caller to
+    reset.
     """
     import torch
 
@@ -1950,9 +1973,12 @@ def check_fit_step(config, scene, params, frames_u8, label):
     with torch.no_grad():
         _, _, k1 = check_kernels(bins, tex, B * ph, pw, H, W, ph, label)
         gtuv = torch.zeros((3, B * ph, pw), device=dev)
-        check_backward(k1, bins, tex, state["g_aa"], gtuv, H, W, ph, B * T,
-                       label)
+        _, _, (k3, _, _, _, gpl) = check_backward(
+            k1, bins, tex, state["g_aa"], gtuv, H, W, ph, B * T, label)
         check_place(state["pc"], scene.faces, H, W, config.pair_cap, label)
+        if modes:
+            args = (tex, k1, k3[0], bins, gpl)
+            check_precision(precision_pairs(*args), *args, label)
     return int(bins.n_global[0])
 
 
@@ -2326,6 +2352,245 @@ def grad_spread(wl, n_runs: int = 3):
 
 
 # ----------------------------------------------------------------------------
+# Phase 10: the bench entry point, its rows, the precision modes and study
+# ----------------------------------------------------------------------------
+
+def precision_pairs(tex, k1, gcolour, bins, gpl):
+    """K4 (wrap and clamp) and K5 in each precision mode
+    (``ops.precision``) on one state's inputs, as phase 10a and
+    ``chip_turns.py --paths prec`` time them: at the bench batch, K4 on K1's
+    uv planes ``k1`` and K3's colour cotangent ``gcolour``, K5 on the
+    step's payload cotangents ``gpl``.
+
+    :return: {"texture_bwd_<prec>_<wrap|clamp>", "pixel_grad_<prec>":
+        (kernel call, its plain version)}.
+    """
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+    from fpc_diffrend_tpu_torch.ops.precision import GRAD_MODES, TEX_MODES
+
+    _, entry, payload, extra, _ = k1
+    tu, tv = payload[3], payload[4]
+    args5 = (bins, entry, payload[0], payload[1], extra, gpl)
+    pairs = {}
+    for prec in TEX_MODES:
+        for bmode in ("wrap", "clamp"):
+            pairs[f"texture_bwd_{prec}_{bmode}"] = (
+                lambda p=prec, m=bmode: tc.texture_planes_bwd(
+                    tex, tu, tv, gcolour, m, p),
+                lambda p=prec, m=bmode: tc.texture_planes_bwd_plain(
+                    tex, tu, tv, gcolour, m, p))
+    for prec in GRAD_MODES:
+        fast = prec == "fast"
+        pairs[f"pixel_grad_{prec}"] = (
+            lambda f=fast: gc.pixel_grad(*args5, fast=f),
+            lambda f=fast: gc.pixel_grad_plain(*args5, fast=f))
+    return pairs
+
+
+def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
+                    names=None):
+    """Each fast variant of :func:`precision_pairs` (or those in
+    ``names``) against its plain version at phase 3's limits: K4's gtu and
+    gtv within ``K4_ATOL``, its gtex and K5's live rows within
+    ``ATOMIC_RTOL`` of the summed magnitudes. Each must also differ from
+    the exact kernel's output by more than that (the mode took effect):
+    gtu, gtv and K5's rows in every fast mode, gtex in "fast2" only; in
+    "fast" gtex stays the exact one, within ``ATOMIC_RTOL``.
+
+    :return: {name: its errors}.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    _, entry, payload, extra, _ = k1
+    tu, tv = payload[3], payload[4]
+    live = int(bins.bin_start[-1])
+    out = {}
+    for name, (kf, pf) in pairs.items():
+        if name.endswith("exact") or "_exact_" in name or (
+                names is not None and name not in names):
+            continue
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        if name.startswith("texture_bwd"):
+            prec, bmode = name.split("_")[2:]
+            ex = pairs[f"texture_bwd_exact_{bmode}"][0]()
+            mag = tc.texture_planes_bwd_plain(tex, tu, tv, gcolour.abs(),
+                                              bmode, prec)[0]
+            e = {"gtu/gtv": max(max_err(got[1], want[1]),
+                                max_err(got[2], want[2])),
+                 "gtex rel": atomic_err(got[0], want[0], mag),
+                 "gtu/gtv vs exact": max(max_err(got[1], ex[1]),
+                                         max_err(got[2], ex[2])),
+                 "gtex rel vs exact": atomic_err(got[0], ex[0], mag),
+                 "max_abs_err": max(max_err(a, b) for a, b in zip(got,
+                                                                  want))}
+            ok = e["gtu/gtv"] <= K4_ATOL and e["gtex rel"] <= ATOMIC_RTOL
+            took = (e["gtu/gtv vs exact"] > K4_ATOL
+                    and (e["gtex rel vs exact"] > ATOMIC_RTOL) == (
+                        prec == "fast2"))
+        else:
+            ex = pairs["pixel_grad_exact"][0]()
+            mag = k5_magnitudes(bins, entry, payload[0], payload[1], extra,
+                                gpl)
+            e = {"rows rel": max(
+                     atomic_err(got[0][:live], want[0][:live], mag[0][:live]),
+                     atomic_err(got[1], want[1], mag[1])),
+                 "rows rel vs exact": max(
+                     atomic_err(got[0][:live], ex[0][:live], mag[0][:live]),
+                     atomic_err(got[1], ex[1], mag[1])),
+                 "max_abs_err": max(max_err(got[0][:live], want[0][:live]),
+                                    max_err(got[1], want[1]))}
+            ok = e["rows rel"] <= ATOMIC_RTOL
+            took = e["rows rel vs exact"] > ATOMIC_RTOL
+        if not ok:
+            fail(f"{label}: {name} differs from its plain version: {e}")
+        if not took:
+            fail(f"{label}: {name} is not its mode against exact: {e}")
+        out[name] = e
+    print(f"check {label}: precision modes {out}", flush=True)
+    return out
+
+
+def precision_turns(pairs, turns: int = 2) -> dict:
+    """The kernels of :func:`precision_pairs` timed in turns, the order
+    reversed each turn: {name: {"ms": [per turn], "device_ms": [...]}}
+    (CUDA events and the profiler's device time, 20 calls a window)."""
+    names = list(pairs)
+    out = {n: {"ms": [], "device_ms": []} for n in names}
+    for t in range(turns):
+        for n in names if t % 2 == 0 else names[::-1]:
+            out[n]["ms"].append(cuda_ms(pairs[n][0], 20))
+            out[n]["device_ms"].append(device_ms(pairs[n][0], 20))
+    return out
+
+
+def bench_gates(rec, label):
+    """Phase 10b's gates on one ``bench`` record: it survives a JSON round
+    trip with a finite Mpix/s; K11 and K1-K6 launched once a timed step
+    (K8 and K9 in place of K4 on the mip row), K7 and K10 never; the
+    temporal term nonzero exactly where its weight is."""
+    line = json.loads(json.dumps(rec))
+    if not (math.isfinite(line["value"]) and line["value"] > 0
+            and math.isfinite(line["step_ms"])):
+        fail(f"{label}: bench line without a finite Mpix/s: {line}")
+    steps, mip = line["steps"], "mip" in label
+    want = dict.fromkeys(line["launches"], 0)
+    for k in STEP_KERNELS:
+        want[k] = steps
+    if mip:
+        want.update(texture_bwd=0, mip_sample=steps, mip_sample_bwd=steps)
+    if line["launches"] != want:
+        fail(f"{label}: launches {line['launches']} != {want}")
+    if (line["temporal"] > 0) != ("temporal" in label):
+        fail(f"{label}: temporal term {line['temporal']}")
+
+
+# the bench rows whose shapes no earlier phase checks the kernels at (the
+# headline's and the mip row's are phase 6's)
+CHECKED_ROWS = ("256sq-1cam", "512sq-9cam", "temporal-100f-2cam")
+
+
+def precision_phase(tex, sstate, card):
+    """Phase 10: (a) the fast K4 and K5 variants at the bench step's
+    inputs against their plain versions and unlike exact
+    (:func:`check_precision`), then every mode of K4 and K5 timed in turns;
+    (b) ``bench_matrix --quick`` over its five rows in the exact mode, then
+    the headline row in JAX's default modes (``--grad-prec fast --tex-prec
+    fast2``), each held by :func:`bench_gates`, and the kernels checked
+    at the shapes of the rows in ``CHECKED_ROWS`` (:func:`check_fit_step`);
+    (c) the precision study (``examples/precision_study.py``) at 300 steps
+    under all three configs: each config's final loss below its first
+    logged loss and its pose error below its start; JAX's verdict printed,
+    not gated; then :func:`check_fit_step` with the fast variants on one
+    step's inputs of the study's fit.
+
+    :return: the phase's record.
+    """
+    import tempfile
+
+    import torch
+
+    from fpc_diffrend_tpu_torch import bench, bench_matrix
+    from fpc_diffrend_tpu_torch.examples import (convergence_study,
+                                                 precision_study)
+
+    t_phase = time.perf_counter()
+    rec = {}
+    # ---- 10a ----
+    gcolour = sstate["k3"][0]
+    pairs = precision_pairs(tex, sstate["k1"], gcolour, sstate["bins"],
+                            sstate["gpl"])
+    with torch.no_grad():
+        rec["checks"] = check_precision(pairs, tex, sstate["k1"], gcolour,
+                                        sstate["bins"], sstate["gpl"],
+                                        "bench batch")
+        rec["turns"] = precision_turns(pairs)
+    print(f"phase 10a: K4 and K5 by precision mode, in turns (CUDA "
+          f"events, ms; device ms by the profiler; {card}): "
+          f"{rec['turns']}", flush=True)
+    # ---- 10b ----
+    def check_row(name, wl):
+        """K1-K6 and K11 at the shapes of a row no earlier phase checks,
+        on one step's inputs of its fitted state; counters then zeroed."""
+        if name not in CHECKED_ROWS:
+            return
+        check_fit_step(wl["config"], wl["scene"], wl["state"].params,
+                       wl["frames_u8"], f"{name} step")
+        for f in bench.KERNELS.values():
+            f.launches = 0
+
+    rows = bench_matrix.run(quick=True, check=check_row)
+    fast, _ = bench.run(bench_matrix.row_args(
+        "1600x1200-headline", quick=True, grad_prec="fast",
+        tex_prec="fast2"))
+    print(json.dumps(fast), flush=True)
+    for r in rows:
+        bench_gates(r, r["row"])
+    bench_gates(fast, "1600x1200-headline, fast/fast2")
+    rec["bench_matrix"] = rows
+    rec["bench_fast"] = fast
+    print(f"phase 10b ({card}):\n" + bench_matrix.table(
+        rows + [dict(fast, config="1600x1200-headline fast/fast2")]),
+          flush=True)
+    # ---- 10c ----
+    with tempfile.TemporaryDirectory() as tmp:
+        args = precision_study.parse_args(["--steps", "300", "--out", tmp])
+        t0 = time.perf_counter()
+        study = precision_study.run(args)
+        rec["study_s"] = time.perf_counter() - t0
+    # the study's fast modes at 512^2: one step's inputs of its fit
+    config, params = convergence_study.initial_state(study["study"],
+                                                     precision_study.BATCH)
+    check_fit_step(config, study["study"]["scene"], params,
+                   study["study"]["frames_u8"], "precision study step",
+                   modes=True)
+    for f in bench.KERNELS.values():
+        f.launches = 0
+    rec["study"] = {}
+    for tag, r in study["runs"].items():
+        first = r["curve"][0]
+        if not (r["final_loss"] < first["loss"]
+                and r["final_pose_err"] < r["init_pose_err"]):
+            fail(f"precision study {tag}: loss {first['loss']} -> "
+                 f"{r['final_loss']}, pose error {r['init_pose_err']} -> "
+                 f"{r['final_pose_err']}")
+        rec["study"][tag] = {
+            "loss_first": first["loss"], "loss_final": r["final_loss"],
+            "pose_err_init": r["init_pose_err"],
+            "pose_err_final": r["final_pose_err"],
+            "verdict": study["verdicts"][tag][1]}
+    print(f"phase 10c: precision study, 300 steps, {rec['study_s']:.1f} s "
+          f"on {card}; JAX's verdict printed, not gated: {rec['study']}",
+          flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {rec['seconds']:.1f} s on {card}", flush=True)
+    return rec
+
+
+# ----------------------------------------------------------------------------
 # Phase 8: the sharded fit step (parallel/ on torch.distributed)
 # ----------------------------------------------------------------------------
 
@@ -2340,8 +2605,6 @@ TEMPORAL_WEIGHT = 1.0          # 8b: the temporal term and its pose halo
 # 8b and 8c run at the bench's depth range and at one where the dome's
 # depths resolve (as phase 5f's examples do)
 SHARDED_RANGES = {"bench": None, "50-250": (50.0, 250.0)}
-STEP_KERNELS = ("bin_place", "fused_raster", "antialias", "antialias_bwd",
-                "texture_bwd", "pixel_grad", "fold_entries")   # K11, K1-K6
 
 
 def _free_port() -> int:
@@ -2352,28 +2615,6 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
-
-
-def counters_of():
-    """name -> the kernel wrapper whose ``launches`` counts its launches."""
-    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
-    from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
-    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
-    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-
-    return {"fused_raster": rc.fused_raster,
-            "antialias": ac.antialias_planes,
-            "antialias_bwd": ac.antialias_planes_bwd,
-            "texture_bwd": tc.texture_planes_bwd,
-            "pixel_grad": gc.pixel_grad,
-            "fold_entries": gc.fold_entries,
-            "texture_fwd": tc.texture_planes,
-            "mip_sample": tmc.mip_sample,
-            "mip_sample_bwd": tmc.mip_sample_bwd,
-            "fused_raster_aa": rc.fused_raster_aa,
-            "bin_place": bp.place_pairs}
 
 
 def sharded_workload(dev, near_far=None):
@@ -2426,6 +2667,7 @@ def sharded_rank_main(argv) -> int:
     import torch
 
     sys.path.insert(0, REPO)
+    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
     from fpc_diffrend_tpu_torch.models.camera import transform_clip
@@ -2442,7 +2684,6 @@ def sharded_rank_main(argv) -> int:
     dev = torch.device("cuda", 0)
     multihost.initialize(coord, world, rank, backend="gloo")
     wl, config, params, batch = sharded_workload(dev, SHARDED_RANGES[depth])
-    counters = counters_of()
     out = {"rank": rank, "setup_s": time.perf_counter() - t0}
 
     # 8b: the frame-sharded step
@@ -2579,6 +2820,7 @@ def sharded_phase(wl, card):
     import torch
     import torch.distributed as dist
 
+    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
     from fpc_diffrend_tpu_torch.kernels import build
@@ -2586,7 +2828,6 @@ def sharded_phase(wl, card):
     from fpc_diffrend_tpu_torch.parallel import train as ptrain
 
     t_phase = time.perf_counter()
-    counters = counters_of()
     rec = {}
 
     # ---- 8a ----
@@ -2693,10 +2934,10 @@ def sharded_ranks(dev, depth, card, gate):
 
     import torch
 
+    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
 
-    counters = counters_of()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
         ranks = spawn_sharded_ranks(tmp, depth)
@@ -3491,6 +3732,7 @@ def main() -> int:
     import numpy as np
 
     from fpc_diffrend_tpu_torch.data import frames as frames_mod
+    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import api as fit_api
     from fpc_diffrend_tpu_torch.fit import checkpoint as ckpt_mod
     from fpc_diffrend_tpu_torch.fit import loop
@@ -3501,7 +3743,6 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
     from fpc_diffrend_tpu_torch.profile_forward import (device_kernels,
                                                         forward_stages,
                                                         step_stages)
@@ -3529,6 +3770,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = build.build()
     record["build_s"] = time.perf_counter() - t0
+    record["build_kernel_s"] = {n: r["seconds"] for n, r in report.items()}
     for name, r in report.items():
         lines = [ln.strip() for ln in r["log"].splitlines()
                  if "registers" in ln or "spill" in ln or "reused" in ln]
@@ -3580,17 +3822,6 @@ def main() -> int:
     phase_done("3")
 
     # ---- 4. the forward at full width ----
-    counters = {"fused_raster": rc.fused_raster,
-                "antialias": ac.antialias_planes,
-                "antialias_bwd": ac.antialias_planes_bwd,
-                "texture_bwd": tc.texture_planes_bwd,
-                "pixel_grad": gc.pixel_grad,
-                "fold_entries": gc.fold_entries,
-                "texture_fwd": tc.texture_planes,
-                "mip_sample": tmc.mip_sample,
-                "mip_sample_bwd": tmc.mip_sample_bwd,
-                "fused_raster_aa": rc.fused_raster_aa,
-                "bin_place": bp.place_pairs}
     for f in counters.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -4244,6 +4475,10 @@ def main() -> int:
     # ---- 8. the sharded fit step at full width ----
     record["sharded"] = sharded_phase(wl, card)
     phase_done("8")
+
+    # ---- 10. the bench, its rows, the precision modes and study ----
+    record["precision"] = precision_phase(tex, sstate, card)
+    phase_done("10")
     record.update(kernels=kernels, backward_check=berr,
                   live_bin_entries=live, n_global=int(bins.n_global[0]),
                   total_s=time.perf_counter() - t_start)

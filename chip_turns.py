@@ -2,7 +2,7 @@
 """Checkouts of this repository's port timed in turns on one GPU.
 
     python3 chip_turns.py TREE [TREE ...] [--turns 2]
-                          [--paths bench,mip,view,place,grad]
+                          [--paths bench,mip,view,place,grad,prec]
 
 Runs the trees in order and then in reverse (OLD, NEW, NEW, OLD for two
 trees and ``--turns 2``), each in a process of its own that
@@ -39,6 +39,12 @@ it runs and its host issue of one call, and the traffic, search probes
 and found rows of K6's gather design (``chip_smoke.k6_design_bytes``;
 the same count on either tree: it reads only the bins).
 
+At the bench batch, on the step's own inputs ("prec"): K4 wrap and clamp
+in each texture precision and K5 in each gradient precision
+(``chip_smoke.precision_pairs``: ``texture_bwd_<exact|fast|fast2>_<wrap|
+clamp>``, ``pixel_grad_<exact|fast>``), 20-call windows. A tree whose
+wrappers take no precision argument cannot run this set.
+
 On the bench-mip workload, after its step's stages have run once
 (``chip_smoke.mip_kernel_pairs``; "mip"): K8 (``mip_sample``) and K9
 (``mip_sample_bwd``, on K3's colour cotangent) at the bench-mip batch.
@@ -48,7 +54,8 @@ bench-mip batches, 200 at the single view) and by the profiler's device
 time of the kernels they ran, and K7 and ``grid_sample`` by the host's
 issue of one call. Each kernel is held against its plain version (max abs
 error over its outputs; K4's and K9's gtu and gtv only; K5's live rows
-only). Each run also records the ptxas register and spill lines, each
+only). Each run also records each library's nvcc seconds (all built at once;
+0 where reused) and the ptxas register and spill lines, each
 after its kernel's name, of ``antialias``, ``antialias_bwd``,
 ``texture_bwd``, ``texture_fwd``, ``texture_mip``, ``fused_raster``,
 ``bin_place`` and ``raster_grad`` (a
@@ -79,7 +86,7 @@ PER_KERNEL = ("fused_raster_aa", "sepaa", "fused_raster_view", "bin_place",
 
 def measure(tree: str, paths) -> dict:
     """One tree's numbers (run in a process of its own) on the workloads of
-    ``paths`` ("bench", "mip", "view", "place", "grad")."""
+    ``paths`` ("bench", "mip", "view", "place", "grad", "prec")."""
     import chip_smoke as cs          # this script's sibling: the helpers
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -94,7 +101,9 @@ def measure(tree: str, paths) -> dict:
     if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(tree)):
         raise RuntimeError(f"imported {pkg.__file__}, not from {tree}")
     report = build.build()
-    rec = {"tree": tree, "ptxas": {
+    rec = {"tree": tree,
+           "build_s": {name: r["seconds"] for name, r in report.items()},
+           "ptxas": {
         name: [ln.strip() for ln in report[name]["log"].splitlines()
                if "registers" in ln or "spill" in ln
                or "Function properties" in ln]
@@ -103,7 +112,7 @@ def measure(tree: str, paths) -> dict:
                      "bin_place", "raster_grad")}}
     pairs = {}
     dev = torch.device("cuda")
-    if {"bench", "view", "place", "grad"} & set(paths):
+    if {"bench", "view", "place", "grad", "prec"} & set(paths):
         wl = build_workload(device=dev)
         H, W, B = wl["H"], wl["W"], wl["B"]
         ph, pw = rc.pad_resolution(H, W)
@@ -139,6 +148,12 @@ def measure(tree: str, paths) -> dict:
                     "slots": tile_ids.numel(), "P": P, "live": live,
                     "K": tile_ids.shape[2], "n_tiles": n_tiles,
                     "largest_bin": largest, "mean_bin": mean}
+            if "prec" in paths:
+                prec = cs.precision_pairs(tex, sstate["k1"],
+                                          sstate["k3"][0], sstate["bins"],
+                                          sstate["gpl"])
+                pairs.update(prec)
+                REPS.update(dict.fromkeys(prec, 20))
             if "grad" in paths:
                 pairs.update(grad_pairs(sstate, B * wl["faces"].shape[0]))
                 rec["fold_entries_design"] = cs.k6_design_bytes(
@@ -167,7 +182,7 @@ def measure(tree: str, paths) -> dict:
                     # gtu, gtv only: gtex and gpyr sum with atomics
                     # (chip_smoke.py checks them)
                     got, want = got[1:], want[1:]
-                if name == "pixel_grad":
+                if name.startswith("pixel_grad"):
                     # rows past the live prefix are unspecified
                     live = int(sstate["bins"].bin_start[-1])
                     got, want = ((got[0][:live], got[1]),
@@ -204,7 +219,7 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--paths", default="bench,mip,view,place,grad",
                     help="kernel sets to time: bench, mip, view, place, "
-                    "grad")
+                    "grad, prec")
     ap.add_argument("--one", help="measure this tree (internal)")
     args = ap.parse_args()
     import torch

@@ -27,7 +27,11 @@
 // a run would serialize on one row. Entries past CAP of an oversized bin
 // take device-memory atomics on their (zeroed) rows,
 // and global-list winners (entry >= gbase) atomics on grad_global: nothing
-// is dropped. Rows past bin_start[-1] are not written.
+// is dropped. Rows past bin_start[-1] are not written. With FAST (the
+// gradient precision "fast", FPC_GRAD_PREC=fast in JAX: the TPU kernel
+// contracts one bf16 plane of the coefficients, raster_grad_tpu.py:89-92)
+// each of a pixel's 27 coefficients is rounded to bf16 (nearest even) and
+// widened back before the sums, which stay f32.
 //
 // K6 replaces raster_grad_tpu.py _fold_kernel (launched by banded_fold),
 // the counterpart of the segment_sum fold the JAX step uses by default; it
@@ -58,6 +62,7 @@
 // tile ids (32 bytes a triangle) and writes the (B*T, 32) rows. The
 // search's dependent loads are latency, hidden by 4 triangles a warp.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,7 +83,9 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int slot(int k) { return k < 12 ? k : k + 1; }
 
-// The 27 live coefficients of one pixel, in live-slot order.
+// The 27 live coefficients of one pixel, in live-slot order; with FAST
+// each rounded to bf16.
+template <bool FAST>
 __device__ __forceinline__ void coefficients(
     const float* __restrict__ u_pl, const float* __restrict__ v_pl,
     const float* __restrict__ extra, const float* __restrict__ gpl,
@@ -119,8 +126,14 @@ __device__ __forceinline__ void coefficients(
   c[19] = gtu * wp; c[20] = gtv * wp;
 #pragma unroll
   for (int k = 0; k < 6; ++k) c[21 + k] = g[5 + k];
+  if (FAST) {
+#pragma unroll
+    for (int k = 0; k < NLIVE; ++k)
+      c[k] = __bfloat162float(__float2bfloat16_rn(c[k]));
+  }
 }
 
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS)
 pixel_grad_kernel(const int* __restrict__ entry,
                   const float* __restrict__ u_pl,
@@ -154,8 +167,8 @@ pixel_grad_kernel(const int* __restrict__ entry,
     const int e = entry[p];
     float c[NLIVE];
     if (e >= 0) {
-      coefficients(u_pl, v_pl, extra, gpl, plane, p, (float)col + 0.5f, y,
-                   c);
+      coefficients<FAST>(u_pl, v_pl, extra, gpl, plane, p,
+                         (float)col + 0.5f, y, c);
     } else {
 #pragma unroll
       for (int k = 0; k < NLIVE; ++k) c[k] = 0.f;
@@ -275,15 +288,20 @@ extern "C" int pixel_grad_launch(const int* entry, const float* u,
                                  const float* gpl, const int* bin_start,
                                  int n_tiles, int gx, int rows, int gbase,
                                  float* grad_entries, float* grad_global,
-                                 int max_global, void* stream) {
+                                 int max_global, int fast, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(
       grad_global, 0, (size_t)max_global * REC * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   const int pw = gx * TILE_W;
-  pixel_grad_kernel<<<n_tiles, THREADS, 0, st>>>(
-      entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw, gbase,
-      grad_entries, grad_global);
+  if (fast)
+    pixel_grad_kernel<true><<<n_tiles, THREADS, 0, st>>>(
+        entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw,
+        gbase, grad_entries, grad_global);
+  else
+    pixel_grad_kernel<false><<<n_tiles, THREADS, 0, st>>>(
+        entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw,
+        gbase, grad_entries, grad_global);
   return (int)cudaGetLastError();
 }
 

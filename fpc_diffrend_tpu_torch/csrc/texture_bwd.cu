@@ -51,7 +51,21 @@
 // gives it a colour cotangent where K2 blended against that colour. gtex
 // is zeroed by this entry point first; its sums take another order from
 // run to run (the stated tolerance, ATOMIC_RTOL in chip_smoke.py).
+//
+// The texture precision (ops/precision.py; JAX's FPC_TEX_PREC,
+// texture_tpu.py:84-102) rounds operands of the TPU kernel's contractions
+// to bf16 (nearest even), bf() below, with f32 sums. FAST: the uv
+// gradients' b = sub @ wx and b2 = sub @ dwx (texture_tpu.py:531-536),
+// with the four texels and the hat weights (1 - fs, fs) rounded (dwx is
+// +-1, exact in bf16), summed over the rows with the f32 weights wy, dwy:
+//   gs = sum_c ((1 - ft) (c01' - c00') + ft (c11' - c10')) g,
+//   gt = sum_c ((c10' w0' + c11' w1') - (c00' w0' + c01' w1')) g.
+// FAST2 also rounds both operands of the texel shares' outer product
+// gsub = (wy g) x wx (:523-526): each share is bf(g wy) bf(wx). The
+// precision is a kernel argument, the same for every thread, not a
+// template parameter: one instance a (mode, channels) serves all three.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +77,11 @@ constexpr int PX = 4;                 // pixels a thread, 32 apart
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { WRAP = 0, WRAP_POW2 = 1, CLAMP = 2 };
+enum Prec { EXACT = 0, FAST = 1, FAST2 = 2 };
+
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ int wrap(int i, int n) {
   const int m = i % n;
@@ -91,12 +110,13 @@ struct Px {
   float a[4][NCH];
 };
 
-// Pixel (u, v) with cotangent g: its taps and shares into q, its uv
-// cotangents into gtu, gtv.
+// Pixel (u, v) with cotangent g at precision prec: its taps and shares
+// into q, its uv cotangents into gtu, gtv.
 template <int MODE, int NCH>
 __device__ __forceinline__ void pixel(const float* __restrict__ tex, float u,
                                       float v, const float* g, int th, int tw,
-                                      Px<NCH>& q, float& gtu, float& gtv) {
+                                      int prec, Px<NCH>& q, float& gtu,
+                                      float& gtv) {
   const float s = u * (float)tw - 0.5f;
   const float t = v * (float)th - 0.5f;
   const float s0f = floorf(s);
@@ -116,16 +136,34 @@ __device__ __forceinline__ void pixel(const float* __restrict__ tex, float u,
     const float c01 = __ldg(&tex[(r0 + c1) * NCH + c]);
     const float c10 = __ldg(&tex[(r1 + c0) * NCH + c]);
     const float c11 = __ldg(&tex[(r1 + c1) * NCH + c]);
-    const float top = c00 * (1.f - fs) + c01 * fs;
-    const float bot = c10 * (1.f - fs) + c11 * fs;
     const float gtop = g[c] * (1.f - ft);
     const float gbot = g[c] * ft;
-    gs = gs + ((gtop * c01 - gtop * c00) + (gbot * c11 - gbot * c10));
-    gt = gt + (g[c] * bot - g[c] * top);
-    q.a[0][c] = gtop * (1.f - fs);
-    q.a[1][c] = gtop * fs;
-    q.a[2][c] = gbot * (1.f - fs);
-    q.a[3][c] = gbot * fs;
+    if (prec == EXACT) {
+      const float top = c00 * (1.f - fs) + c01 * fs;
+      const float bot = c10 * (1.f - fs) + c11 * fs;
+      gs = gs + ((gtop * c01 - gtop * c00) + (gbot * c11 - gbot * c10));
+      gt = gt + (g[c] * bot - g[c] * top);
+    } else {
+      const float w0 = bf(1.f - fs), w1 = bf(fs);
+      const float b00 = bf(c00), b01 = bf(c01), b10 = bf(c10), b11 = bf(c11);
+      const float top = b00 * w0 + b01 * w1;
+      const float bot = b10 * w0 + b11 * w1;
+      gs = gs + ((1.f - ft) * (b01 - b00) + ft * (b11 - b10)) * g[c];
+      gt = gt + (bot - top) * g[c];
+    }
+    if (prec == FAST2) {
+      const float w0 = bf(1.f - fs), w1 = bf(fs);
+      const float t = bf(gtop), b = bf(gbot);
+      q.a[0][c] = t * w0;
+      q.a[1][c] = t * w1;
+      q.a[2][c] = b * w0;
+      q.a[3][c] = b * w1;
+    } else {
+      q.a[0][c] = gtop * (1.f - fs);
+      q.a[1][c] = gtop * fs;
+      q.a[2][c] = gbot * (1.f - fs);
+      q.a[3][c] = gbot * fs;
+    }
   }
   gtu = gs * (float)tw;
   gtv = gt * (float)th;
@@ -148,7 +186,7 @@ __global__ void __launch_bounds__(THREADS)
 texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
                    const float* __restrict__ tv,
                    const float* __restrict__ gcolour, int n_px, int th, int tw,
-                   float* __restrict__ gtex, float* __restrict__ gtu,
+                   int prec, float* __restrict__ gtex, float* __restrict__ gtu,
                    float* __restrict__ gtv) {
   const int lane = threadIdx.x & 31;
   const int base =
@@ -179,7 +217,7 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
 #pragma unroll
       for (int c = 0; c < NCH; ++c) q[j].a[k][c] = 0.f;
     if (q[j].live)
-      pixel<MODE, NCH>(tex, u[j], v[j], g[j], th, tw, q[j], ou, ov);
+      pixel<MODE, NCH>(tex, u[j], v[j], g[j], th, tw, prec, q[j], ou, ov);
     if (p < n_px) {
       gtu[p] = ou;
       gtv[p] = ov;
@@ -256,18 +294,19 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
 template <int MODE>
 void launch(int nchan, cudaStream_t st, const float* tex, const float* tu,
             const float* tv, const float* gcolour, int n, int th, int tw,
-            float* gtex, float* gtu, float* gtv) {
+            int prec, float* gtex, float* gtu, float* gtv) {
   const int warps = (n + 32 * PX - 1) / (32 * PX);
   const unsigned blocks = (unsigned)((warps * 32 + THREADS - 1) / THREADS);
   switch (nchan) {
     case 1: texture_bwd_kernel<MODE, 1><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
     case 2: texture_bwd_kernel<MODE, 2><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
     case 3: texture_bwd_kernel<MODE, 3><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
     default: texture_bwd_kernel<MODE, 4><<<blocks, THREADS, 0, st>>>(
-                 tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv); break;
+                 tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv);
+             break;
   }
 }
 
@@ -278,10 +317,11 @@ bool pow2(int n) { return (n & (n - 1)) == 0; }
 extern "C" int texture_bwd_launch(const float* tex, const float* tu,
                                   const float* tv, const float* gcolour,
                                   int64_t n_px, int th, int tw, int nchan,
-                                  int clamp, float* gtex, float* gtu,
-                                  float* gtv, void* stream) {
+                                  int clamp, int prec, float* gtex,
+                                  float* gtu, float* gtv, void* stream) {
   if (nchan < 1 || nchan > MAX_C || th < 1 || tw < 1 || n_px < 0 ||
-      n_px >= INT32_MAX - 32 * PX || (int64_t)th * tw * nchan >= INT32_MAX)
+      n_px >= INT32_MAX - 32 * PX || (int64_t)th * tw * nchan >= INT32_MAX ||
+      prec < EXACT || prec > FAST2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(
@@ -290,11 +330,13 @@ extern "C" int texture_bwd_launch(const float* tex, const float* tu,
   const int n = (int)n_px;
   if (n == 0) return 0;
   if (clamp)
-    launch<CLAMP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv);
+    launch<CLAMP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu,
+                  gtv);
   else if (pow2(th) && pow2(tw))
-    launch<WRAP_POW2>(nchan, st, tex, tu, tv, gcolour, n, th, tw, gtex, gtu,
-                      gtv);
+    launch<WRAP_POW2>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex,
+                      gtu, gtv);
   else
-    launch<WRAP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, gtex, gtu, gtv);
+    launch<WRAP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu,
+                 gtv);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ Usage: python -m fpc_diffrend_tpu_torch.examples.convergence_study [--cpu]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -131,14 +132,19 @@ def initial_state(study: dict, batch: int):
     return config, init()
 
 
-def fit_batch(study: dict, batch: int) -> dict:
+def fit_batch(study: dict, batch: int, seed: int = 0,
+              tag: str | None = None) -> dict:
     """Fit the take from the identity init at ``batch`` samples a step.
 
+    :param seed: ``FitConfig.seed``, which seeds the fit's sampling.
+    :param tag: the run's name in the printed lines (default "batch N").
     :return: {"curve": [{"step", "loss", "pose_err", "samples"}] after
         each dispatch, "final_pose_err", "final_loss"}.
     """
     args, scene, dev = study["args"], study["scene"], study["device"]
     config, params = initial_state(study, batch)
+    config = dataclasses.replace(config, seed=seed)
+    tag = tag or f"batch {batch}"
     gt_t = torch.tensor(study["gt_t"], device=dev)
     curve = []
 
@@ -149,10 +155,10 @@ def fit_batch(study: dict, batch: int) -> dict:
         curve.append({"step": i, "loss": loss, "pose_err": perr,
                       "samples": (i + 1) * batch})
         if len(curve) % 8 == 1:
-            print(f"  [batch {batch}] step {i} loss {loss:.3f} "
+            print(f"  [{tag}] step {i} loss {loss:.3f} "
                   f"pose_err {perr:.4f}", flush=True)
 
-    print(f"fitting with batch_size={batch}...", flush=True)
+    print(f"fitting {tag} with batch_size={batch}...", flush=True)
     state = state_mod.init_state(config, params)
     state = fit_loop.run_fit(config, scene, study["frames_u8"], args.frames,
                              callbacks=[cb], state=state)
@@ -160,7 +166,7 @@ def fit_batch(study: dict, batch: int) -> dict:
         state.params["per_frame_t"].detach() - gt_t)))
     out = {"curve": curve, "final_pose_err": final_perr,
            "final_loss": curve[-1]["loss"] if curve else None}
-    print(f"batch {batch}: final loss {out['final_loss']:.3f}, pose err "
+    print(f"{tag}: final loss {out['final_loss']:.3f}, pose err "
           f"{final_perr:.4f} (init {np.abs(study['gt_t']).mean():.4f})",
           flush=True)
     return out

@@ -16,6 +16,10 @@ per-triangle rows in the record layout (geometry slots 0-15, aux slots
 finds its window slots' entries in their bins (``Bins.tile_ids``) and adds
 their rows in a fixed order, so it equals its plain version bit for bit.
 
+``fast=True`` is the gradient precision "fast" (``ops.precision``; JAX's
+``FPC_GRAD_PREC=fast``): K5 rounds each coefficient to bf16 before its
+sums. K6 has no fast mode: JAX's default fold is an f32 ``segment_sum``.
+
 Each function runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``) for CPU tensors.
 """
@@ -36,14 +40,15 @@ LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
 WINDOW = WINDOW_Y * WINDOW_X   # window slots a triangle (K)
 _AREA_EPS = 1e-12
 _PTR, _INT = build.PTR, build.INT
-_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 4 + [_PTR] * 2 + [_INT, _PTR]
+_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 4 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 _FOLD_ARGS = [_PTR] * 7 + [_INT] * 2 + [_PTR] * 2
 
 
 def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
-                       x: Tensor, y: Tensor) -> Tensor:
+                       x: Tensor, y: Tensor, fast: bool = False) -> Tensor:
     """The 32 per-pixel gradient coefficients (raster_grad_tpu.py
-    :286-310, in the kernel's order): (32, rows, pw)."""
+    :286-310, in the kernel's order): (32, rows, pw); with ``fast`` each
+    rounded to bf16 (nearest even) and back."""
     D, iw0, iw1, iw2, du02, du12, dv02, dv12 = extra
     gz, gtu, gtv = gpl[2], gpl[3], gpl[4]
     d0 = u * D
@@ -66,18 +71,20 @@ def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
               -gd0 * d0 * iw0, -gd1 * d1 * iw1, -gd2 * d2 * iw2,
               gtu * u, gtv * u, gtu * v, gtv * v, gtu * wp, gtv * wp,
               *gpl[5:11], zero, zero, zero, zero]
-    return torch.stack([p.expand_as(u) for p in planes])
+    out = torch.stack([p.expand_as(u) for p in planes])
+    return out.to(torch.bfloat16).float() if fast else out
 
 
 def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
-                     extra: Tensor, gpl: Tensor):
+                     extra: Tensor, gpl: Tensor, fast: bool = False):
     """Plain PyTorch version of K5 (same arguments as :func:`pixel_grad`);
     its rows past the live prefix are 0."""
     rows, pw = entry.shape
     dev = entry.device
     x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
     y = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
-    coeff = coefficient_planes(u, v, extra, gpl, x, y).reshape(REC, -1).T
+    coeff = coefficient_planes(u, v, extra, gpl, x, y, fast).reshape(
+        REC, -1).T
     e = entry.reshape(-1).long()
     gbase = bins.gbase
     grad_entries = torch.zeros((gbase, REC), device=dev)
@@ -90,7 +97,7 @@ def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
 
 
 def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
-               extra: Tensor, gpl: Tensor):
+               extra: Tensor, gpl: Tensor, fast: bool = False):
     """K5: per-pixel gradient coefficients summed onto each winner entry.
 
     :param bins: the bins K1 rasterized.
@@ -99,6 +106,8 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     :param u, v: (rows, pw) K1 payload planes 0-1.
     :param extra: (8, rows, pw) K1 residual planes.
     :param gpl: (11, rows, pw) cotangents of payload planes 0-10.
+    :param fast: round each coefficient to bf16 first (the gradient
+        precision "fast").
     :return: (grad_entries (gbase, 32): one row per bin entry, rows past
         ``bin_start[-1]`` unspecified; grad_global (MAX_GLOBAL, 32)).
     """
@@ -115,7 +124,7 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     check(gpl, "gpl", torch.float32, (N_GPL, rows, pw), dev)
     check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
     if dev.type == "cpu":
-        return pixel_grad_plain(bins, entry, u, v, extra, gpl)
+        return pixel_grad_plain(bins, entry, u, v, extra, gpl, fast)
     if dev.type != "cuda":
         raise ValueError(f"pixel_grad: unsupported device {dev}")
 
@@ -126,7 +135,7 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     ptr = build.ptr
     status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gpl),
                 ptr(bins.bin_start), n_tiles, pw // TILE_W, rows, bins.gbase,
-                ptr(grad_entries), ptr(grad_global), MAX_GLOBAL,
+                ptr(grad_entries), ptr(grad_global), MAX_GLOBAL, int(fast),
                 build.stream(dev))
     build.check(status, "pixel_grad")
     return grad_entries, grad_global

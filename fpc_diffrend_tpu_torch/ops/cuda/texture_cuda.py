@@ -13,6 +13,12 @@ uv gradient past it, which moves a sample past the high edge by at most
 0.001 of the edge texel step. Its zeroed uv gradient where its texel patch
 clamps is a layout artefact and is not copied either.
 
+K4 takes the texture precision (``tex_prec``, ``ops.precision``; JAX's
+``FPC_TEX_PREC``): "exact" is f32; "fast" rounds the operands of the TPU
+kernel's coordinate-gradient contractions to bf16 (the four texels and the
+hat weights ``1 - fs``, ``fs``) in gtu and gtv; "fast2" also rounds
+``g * wy`` and ``wx`` in the four texel shares of gtex.
+
 ``texture_planes`` and ``texture_planes_bwd`` run their kernels for CUDA
 tensors and their plain PyTorch versions (``*_plain``) for CPU tensors.
 :class:`TextureBilinear` joins them into an autograd Function (K7
@@ -24,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
+from fpc_diffrend_tpu_torch.ops.precision import TEX_MODES
 from fpc_diffrend_tpu_torch.ops.texture import bilinear, wrap_idx
 
 Tensor = torch.Tensor
@@ -32,13 +39,24 @@ BOUNDARY_MODES = ("wrap", "clamp")
 INT32_LIMIT = 1 << 31
 _PTR, _INT, _INT64 = build.PTR, build.INT, build.INT64
 _FWD_ARGS = [_PTR] * 3 + [_INT64] + [_INT] * 4 + [_PTR] * 2
-_BWD_ARGS = [_PTR] * 4 + [_INT64] + [_INT] * 4 + [_PTR] * 4
+_BWD_ARGS = [_PTR] * 4 + [_INT64] + [_INT] * 5 + [_PTR] * 4
 
 
 def _clamp_flag(boundary_mode: str) -> int:
     if boundary_mode not in BOUNDARY_MODES:
         raise ValueError(f"unknown boundary mode {boundary_mode!r}")
     return int(boundary_mode == "clamp")
+
+
+def _prec_code(tex_prec: str) -> int:
+    if tex_prec not in TEX_MODES:
+        raise ValueError(f"unknown texture precision {tex_prec!r}")
+    return TEX_MODES.index(tex_prec)
+
+
+def _bf16(x: Tensor) -> Tensor:
+    """Round to bf16 (nearest even) and back."""
+    return x.to(torch.bfloat16).float()
 
 
 def _check(tex: Tensor, tu: Tensor, tv: Tensor, planes: dict):
@@ -105,10 +123,13 @@ texture_planes.launches = 0
 
 
 def texture_planes_bwd_plain(tex: Tensor, tu: Tensor, tv: Tensor,
-                             gcolour: Tensor, boundary_mode: str = "wrap"):
+                             gcolour: Tensor, boundary_mode: str = "wrap",
+                             tex_prec: str = "exact"):
     """Plain PyTorch version of K4 (same arguments as
     :func:`texture_planes_bwd`): the backward of ``ops.texture.bilinear``
-    with its weight derivatives written out, in the kernel's order."""
+    with its weight derivatives written out, in the kernel's order; gtex
+    summed in float64 and rounded once."""
+    prec = _prec_code(tex_prec)
     th, tw, C = tex.shape
     s = tu * tw - 0.5
     t = tv * th - 0.5
@@ -125,39 +146,59 @@ def texture_planes_bwd_plain(tex: Tensor, tu: Tensor, tv: Tensor,
     idx = [r0 + q0, r0 + q1, r1 + q0, r1 + q1]      # 00 01 10 11
     flat = tex.reshape(-1, C)
     c00, c01, c10, c11 = (flat[i].movedim(-1, 0) for i in idx)
-    top = c00 * (1 - fs) + c01 * fs
-    bot = c10 * (1 - fs) + c11 * fs
     gtop = gcolour * (1 - ft)
     gbot = gcolour * ft
-    gs_c = (gtop * c01 - gtop * c00) + (gbot * c11 - gbot * c10)
-    gt_c = gcolour * bot - gcolour * top
+    if prec == 0:
+        top = c00 * (1 - fs) + c01 * fs
+        bot = c10 * (1 - fs) + c11 * fs
+        gs_c = (gtop * c01 - gtop * c00) + (gbot * c11 - gbot * c10)
+        gt_c = gcolour * bot - gcolour * top
+    else:
+        w0, w1 = _bf16(1 - fs), _bf16(fs)
+        b00, b01, b10, b11 = (_bf16(c) for c in (c00, c01, c10, c11))
+        top = b00 * w0 + b01 * w1
+        bot = b10 * w0 + b11 * w1
+        gs_c = ((1 - ft) * (b01 - b00) + ft * (b11 - b10)) * gcolour
+        gt_c = (bot - top) * gcolour
+    if prec == 2:
+        shares = (_bf16(gtop) * w0, _bf16(gtop) * w1, _bf16(gbot) * w0,
+                  _bf16(gbot) * w1)
+    else:
+        shares = (gtop * (1 - fs), gtop * fs, gbot * (1 - fs), gbot * fs)
     gs = torch.zeros_like(tu)
     gt = torch.zeros_like(tv)
     for c in range(C):
         gs = gs + gs_c[c]
         gt = gt + gt_c[c]
-    gtex = torch.zeros((th * tw, C), device=tex.device)
-    for i, w in zip(idx, (gtop * (1 - fs), gtop * fs, gbot * (1 - fs),
-                          gbot * fs)):
-        gtex.index_add_(0, i.reshape(-1), w.reshape(C, -1).T)
-    return gtex.reshape(th, tw, C), gs * tw, gt * th
+    # gtex summed in float64 and rounded once: a texel that many pixels
+    # share (a clamped edge) takes thousands of terms, and an f32 sum in
+    # atomics' order can err there by more than 1e-5 of their magnitudes
+    gtex = torch.zeros((th * tw, C), dtype=torch.float64, device=tex.device)
+    for i, w in zip(idx, shares):
+        gtex.index_add_(0, i.reshape(-1), w.reshape(C, -1).T.double())
+    return gtex.float().reshape(th, tw, C), gs * tw, gt * th
 
 
 def texture_planes_bwd(tex: Tensor, tu: Tensor, tv: Tensor,
-                       gcolour: Tensor, boundary_mode: str = "wrap"):
+                       gcolour: Tensor, boundary_mode: str = "wrap",
+                       tex_prec: str = "exact"):
     """K4: the backward of K7 and of K1's bilinear wrap texture tail.
 
     :param tex: (TH, TW, C) float32 texture that was sampled.
     :param tu, tv: the sampled uv planes (...) (K1: payload planes 3, 4).
     :param gcolour: (C, ...) cotangent of the sampled colour.
     :param boundary_mode: the forward's, "wrap" or "clamp".
+    :param tex_prec: the texture precision, a key of
+        ``ops.precision.TEX_MODES``.
     :return: (gtex (TH, TW, C) summed over every pixel, gtu (...),
         gtv (...)).
     """
     clamp = _clamp_flag(boundary_mode)
+    prec = _prec_code(tex_prec)
     dev = _check(tex, tu, tv, {"gcolour": gcolour})
     if dev.type == "cpu":
-        return texture_planes_bwd_plain(tex, tu, tv, gcolour, boundary_mode)
+        return texture_planes_bwd_plain(tex, tu, tv, gcolour, boundary_mode,
+                                        tex_prec)
     th, tw, C = tex.shape
     gtex = torch.empty((th, tw, C), device=dev)
     gtu = torch.empty(tu.shape, device=dev)
@@ -166,7 +207,8 @@ def texture_planes_bwd(tex: Tensor, tu: Tensor, tv: Tensor,
     texture_planes_bwd.launches += 1
     ptr = build.ptr
     status = fn(ptr(tex), ptr(tu), ptr(tv), ptr(gcolour), tu.numel(), th, tw,
-                C, clamp, ptr(gtex), ptr(gtu), ptr(gtv), build.stream(dev))
+                C, clamp, prec, ptr(gtex), ptr(gtu), ptr(gtv),
+                build.stream(dev))
     build.check(status, "texture_bwd")
     return gtex, gtu, gtv
 
@@ -175,13 +217,16 @@ texture_planes_bwd.launches = 0
 
 
 class TextureBilinear(torch.autograd.Function):
-    """K7 forward, K4 backward: ``apply(tex, tu, tv, boundary_mode)`` ->
-    (C, ...) samples, differentiable with respect to ``tex``, ``tu`` and
-    ``tv``."""
+    """K7 forward, K4 backward: ``apply(tex, tu, tv, boundary_mode,
+    tex_prec="exact")`` -> (C, ...) samples, differentiable with respect to
+    ``tex``, ``tu`` and ``tv``; the backward takes the forward's
+    ``tex_prec``."""
 
     @staticmethod
-    def forward(ctx, tex, tu, tv, boundary_mode):
+    def forward(ctx, tex, tu, tv, boundary_mode, tex_prec="exact"):
+        _prec_code(tex_prec)
         ctx.boundary_mode = boundary_mode
+        ctx.tex_prec = tex_prec
         ctx.save_for_backward(tex, tu, tv)
         return texture_planes(tex, tu, tv, boundary_mode)
 
@@ -189,5 +234,5 @@ class TextureBilinear(torch.autograd.Function):
     def backward(ctx, g):
         tex, tu, tv = ctx.saved_tensors
         gtex, gtu, gtv = texture_planes_bwd(tex, tu, tv, g.contiguous(),
-                                            ctx.boundary_mode)
-        return gtex, gtu, gtv, None
+                                            ctx.boundary_mode, ctx.tex_prec)
+        return gtex, gtu, gtv, None, None

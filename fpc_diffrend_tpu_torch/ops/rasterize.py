@@ -37,6 +37,10 @@ first and last image rows of the pre-antialias colour and of u, v, z as
 two more outputs, whose cotangents join the backward before the sampler's
 kernel and K5: the sharded band render's seam (``parallel.spatial``).
 
+Every Function here reads the gradient precision (``ops.precision``) in
+its forward and keeps it, so that its backward launches K4 and K5 in the
+forward's modes (K9 has none).
+
 The nvdiffrast-style primitive (JAX's public ``rasterize`` and
 ``rasterize_with_uv``) has two routes. The kernel route is the same pass
 at B = 1 with K1 in its texture-free mode, under
@@ -63,6 +67,7 @@ from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
 from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
     mip_sample, mip_sample_bwd)
 from fpc_diffrend_tpu_torch.ops.interpolate import gather_rows, interpolate
+from fpc_diffrend_tpu_torch.ops.precision import get_precision
 from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
 
 Tensor = torch.Tensor
@@ -70,11 +75,13 @@ Tensor = torch.Tensor
 
 def _raster(ctx, data_s, bins, tex, sample_ph, height, width, aa=False):
     """K1 over the stacked image (``tex`` None: no texture tail); with
-    ``aa``, K10 (K1's outputs and the antialiased colour)."""
+    ``aa``, K10 (K1's outputs and the antialiased colour). Keeps the
+    gradient precision for the backward in ``ctx.prec``."""
     B, T = data_s.shape[:2]
     _, pw = pad_resolution(height, width)
     ctx.bins = bins
     ctx.dims = (B, T, sample_ph, height, width)
+    ctx.prec = get_precision()
     if aa:
         return fused_raster_aa(bins, tex, B * sample_ph, pw, height, width,
                                sample_ph)
@@ -95,10 +102,17 @@ def _antialias_bwd(ctx, idbuf, payload, colour, g_aa):
                                 height, width, sample_ph)
 
 
+def _texture_bwd(ctx, tex, payload, gcolour):
+    """K4 on K1's uv planes, at the forward's texture precision."""
+    return texture_planes_bwd(tex, payload[3], payload[4], gcolour, "wrap",
+                              ctx.prec.tex)
+
+
 def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
     """K5 -> K6: the cotangents of the payload's u, v, z (``guvz`` (3,
     rows, pw); None: zero), of the sampled uv and of the screen corners
-    into the (B, T, 16) data and aux records."""
+    into the (B, T, 16) data and aux records; K5 at the forward's gradient
+    precision."""
     B, T = ctx.dims[:2]
     # the 11 cotangent planes of payload 0-10 [gu gv gz gtu gtv
     # g(x0..y2)]; the render Functions' u, v and z never leave the op
@@ -107,7 +121,8 @@ def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
         guvz = torch.zeros((3,) + gtu.shape, device=gtu.device)
     gpl = torch.cat([guvz, gtu[None], gtv[None], gverts])
     grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[0],
-                                           payload[1], extra, gpl)
+                                           payload[1], extra, gpl,
+                                           ctx.prec.grad == "fast")
     grad = fold_entries(grad_entries, grad_global, ctx.bins, B * T)
     return grad[:, :16].reshape(B, T, 16), grad[:, 16:].reshape(B, T, 16)
 
@@ -138,8 +153,7 @@ class RasterizeTexturedSepaaStacked(torch.autograd.Function):
     def backward(ctx, _g_id, g_aa):
         idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
         gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
-        gtex, gtu, gtv = texture_planes_bwd(tex, payload[3], payload[4],
-                                            gcolour)
+        gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
         return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts),
                 gtex, None, None, None, None)
 
@@ -266,8 +280,7 @@ class RasterizeTexturedSepaaBand(torch.autograd.Function):
         gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
         gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
                                         g_uvz_rows)
-        gtex, gtu, gtv = texture_planes_bwd(tex, payload[3], payload[4],
-                                            gcolour)
+        gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
         return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts,
                               guvz),
                 gtex, None, None, None, None)

@@ -9,7 +9,9 @@ Laplacian weight 1.0. The binning's entry cap is autotuned from the scene
 face-order flip it also runs there serves only the TPU's banded fold and is
 left out. Sizes are arguments, so tests build it tiny. ``mip=True`` is
 ``bench.py`` with ``FPC_BENCH_MIP=1``: trilinear mipmap sampling with
-``max_mip_level=6``, the same draws.
+``max_mip_level=6``, the same draws. ``weight_temporal`` and ``impl`` are
+its ``FPC_BENCH_TEMPORAL`` and ``FPC_BENCH_IMPL`` (the temporal smoothness
+weight and ``FitConfig.raster_impl``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from fpc_diffrend_tpu_torch.models import camera
 def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
                    batch: int = 8, tex_size: int = 1024, n_cams: int = 3,
                    n_frames: int = 4, mip: bool = False,
+                   weight_temporal: float = 0.0, impl: str = "auto",
                    device=None) -> dict:
     """:return: dict with config, scene, params, state (the initial
     TrainState over those params), frames_u8 (C, F, H, W) uint8 on the
@@ -71,7 +74,8 @@ def build_workload(height: int = 1600, width: int = 1200, grid: int = 123,
     config = FitConfig(max_iter=1000, resolution=(height, width),
                        texshape=(tex_size, tex_size, 1), mode="free",
                        cam_idxs=tuple(range(n_cams)), batch_size=batch,
-                       weight_laplacian=1.0, enable_mip=mip,
+                       raster_impl=impl, weight_laplacian=1.0,
+                       weight_temporal=weight_temporal, enable_mip=mip,
                        max_mip_level=6 if mip else 0, log_interval=0)
     tex = rng.uniform(size=(tex_size, tex_size, 1)).astype(np.float32)
     params = state_mod.init_params(config, n_frames, scene.v_base.shape[0],

@@ -312,3 +312,51 @@ def test_jax_order_calls_match_jax(rng, tmp_path, capsys, monkeypatch):
             assert printed == capsys.readouterr().out
             assert printed == ("Blendshape 0/3\nBlendshape 2/3\n"
                                if fallback and every else "")
+
+
+# The JAX package's environment knobs that are the port's arguments (the
+# port reads no environment variable; ROADMAP.md §3): port callable, its
+# parameter, the JAX file that reads the knob, the knob, and whether the
+# defaults agree. The precision modes default to exact in the port, where
+# JAX's default to fast (FPC_GRAD_PREC) and fast2 (FPC_TEX_PREC).
+KNOB_ARGUMENTS = [
+    ("ops.cuda.raster_grad_cuda.pixel_grad", "fast",
+     "fpc_diffrend_tpu/ops/pallas/raster_grad_tpu.py", "FPC_GRAD_PREC",
+     False),
+    ("ops.cuda.raster_grad_cuda.pixel_grad_plain", "fast",
+     "fpc_diffrend_tpu/ops/pallas/raster_grad_tpu.py", "FPC_GRAD_PREC",
+     False),
+    ("ops.cuda.texture_cuda.texture_planes_bwd", "tex_prec",
+     "fpc_diffrend_tpu/ops/pallas/texture_tpu.py", "FPC_TEX_PREC", False),
+    ("ops.cuda.texture_cuda.texture_planes_bwd_plain", "tex_prec",
+     "fpc_diffrend_tpu/ops/pallas/texture_tpu.py", "FPC_TEX_PREC", False),
+    ("workload.build_workload", "weight_temporal", "bench.py",
+     "FPC_BENCH_TEMPORAL", True),
+    ("workload.build_workload", "impl", "bench.py", "FPC_BENCH_IMPL", True),
+]
+
+
+def test_jax_environment_knobs_are_port_arguments():
+    """Each knob named in KNOB_ARGUMENTS is read by its JAX file and is a
+    parameter of the port's callable; the defaults agree where the table
+    says so, and the precision arguments default to exact."""
+    import importlib
+    import inspect
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for key, param, jfile, knob, same in KNOB_ARGUMENTS:
+        mod, name = key.rsplit(".", 1)
+        obj = getattr(importlib.import_module("fpc_diffrend_tpu_torch."
+                                              + mod), name)
+        default = inspect.signature(obj).parameters[param].default
+        src = open(os.path.join(repo, jfile)).read()
+        found = re.findall(r'environ\.get\(\s*"' + knob + r'",\s*"([^"]*)"',
+                           src)
+        assert len(found) == 1, (jfile, knob)
+        if same:
+            assert type(default)(found[0]) == default, (key, param)
+        else:
+            assert default in (False, "exact") and found[0] in (
+                "fast", "fast2"), (key, param, found)

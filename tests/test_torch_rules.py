@@ -529,3 +529,27 @@ def test_gathered_antialias_matches_plain_version_on_the_card(card, impl):
     errs = chip_smoke.check_gathered_antialias(colour, rast, pc[0], s.faces,
                                                s.face_neighbors, g, impl)
     assert errs["K2 gathered"] <= chip_smoke.K2_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pixel_grad_fast", "texture_bwd_fast",
+                                     "texture_bwd_fast2"])
+def test_precision_variants_match_plain_versions_on_the_card(card, variant):
+    """K5 "fast", K4 "fast" and "fast2" (wrap and clamp) on a small step's
+    inputs against their plain versions at chip_smoke's limits, each
+    unlike the exact kernel's output (``chip_smoke.check_precision``)."""
+    from fpc_diffrend_tpu_torch.profile_forward import step_stages
+
+    wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
+    state = {}
+    for _, fn in step_stages(wl, state):
+        fn()
+    tex = wl["params"]["tex"].detach()
+    args = (tex, state["k1"], state["k3"][0], state["bins"], state["gpl"])
+    pairs = chip_smoke.precision_pairs(*args)
+    names = [n for n in pairs if n.startswith(variant)
+             and n[len(variant):] in ("", "_wrap", "_clamp")]
+    with torch.no_grad():
+        checked = chip_smoke.check_precision(pairs, *args, variant,
+                                             names=names)
+    assert sorted(checked) == sorted(names) and names

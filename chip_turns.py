@@ -42,8 +42,10 @@ the same count on either tree: it reads only the bins).
 At the bench batch, on the step's own inputs ("prec"): K4 wrap and clamp
 in each texture precision and K5 in each gradient precision
 (``chip_smoke.precision_pairs``: ``texture_bwd_<exact|fast|fast2>_<wrap|
-clamp>``, ``pixel_grad_<exact|fast>``), 20-call windows. A tree whose
-wrappers take no precision argument cannot run this set.
+clamp>``, ``pixel_grad_<exact|fast>``), 20-call windows, and K4's gtex
+against its plain version over 5 calls (``gtex_rel``, of the summed
+magnitudes as ``chip_smoke.py`` holds it). A tree whose wrappers take no
+precision argument cannot run this set.
 
 On the bench-mip workload, after its step's stages have run once
 (``chip_smoke.mip_kernel_pairs``; "mip"): K8 (``mip_sample``) and K9
@@ -111,6 +113,7 @@ def measure(tree: str, paths) -> dict:
                      "texture_fwd", "texture_mip", "fused_raster",
                      "bin_place", "raster_grad")}}
     pairs = {}
+    prec_names = ()
     dev = torch.device("cuda")
     if {"bench", "view", "place", "grad", "prec"} & set(paths):
         wl = build_workload(device=dev)
@@ -153,7 +156,10 @@ def measure(tree: str, paths) -> dict:
                                           sstate["k3"][0], sstate["bins"],
                                           sstate["gpl"])
                 pairs.update(prec)
+                prec_names = tuple(prec)
                 REPS.update(dict.fromkeys(prec, 20))
+                payload = sstate["k1"][2]
+                gtex_inputs = (tex, payload[3], payload[4], sstate["k3"][0])
             if "grad" in paths:
                 pairs.update(grad_pairs(sstate, B * wl["faces"].shape[0]))
                 rec["fold_entries_design"] = cs.k6_design_bytes(
@@ -177,6 +183,8 @@ def measure(tree: str, paths) -> dict:
                 got, want = fn(), plain()
                 got, want = ((got,), (want,)) if torch.is_tensor(got) else (
                     got, want)
+                if name in prec_names and name.startswith("texture_bwd"):
+                    r["gtex_rel"] = gtex_rel(name, fn, want[0], *gtex_inputs)
                 if name.startswith("texture_bwd") or name.endswith(
                         "mip_sample_bwd"):
                     # gtu, gtv only: gtex and gpyr sum with atomics
@@ -195,6 +203,19 @@ def measure(tree: str, paths) -> dict:
                 r["device_kernels_ms"] = cs.device_kernels_ms(fn, reps)
             rec[name] = r
     return rec
+
+
+def gtex_rel(name, fn, want, tex, tu, tv, gcolour, calls: int = 5):
+    """The largest of ``calls`` K4 calls' gtex errors against its plain
+    version ``want`` (``chip_smoke.atomic_err``: of the summed magnitudes
+    of the shares), for a ``texture_bwd_<prec>_<wrap|clamp>`` pair."""
+    import chip_smoke as cs
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    prec, bmode = name.split("_")[2:]
+    mag = tc.texture_planes_bwd_plain(tex, tu, tv, gcolour.abs(), bmode,
+                                      prec)[0]
+    return max(cs.atomic_err(fn()[0], want, mag) for _ in range(calls))
 
 
 def grad_pairs(sstate, n_tris) -> dict:

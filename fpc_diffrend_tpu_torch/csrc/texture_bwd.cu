@@ -48,9 +48,17 @@
 //    (chip_smoke.py k4_design_reductions counts them).
 // A pixel whose cotangent is 0 adds nothing and writes gtu = gtv = 0.
 // Pixels are not masked by id: a missed pixel samples uv (0, 0), and K3
-// gives it a colour cotangent where K2 blended against that colour. gtex
-// is zeroed by this entry point first; its sums take another order from
-// run to run (the stated tolerance, ATOMIC_RTOL in chip_smoke.py).
+// gives it a colour cotangent where K2 blended against that colour.
+// 4. The reductions go into a float64 copy of gtex, which this entry point
+//    zeroes first and rounds once into gtex at the end (to_float). An f32
+//    reduction lets a texel that thousands of pixels share (a clamped edge,
+//    where all four taps of a pixel past it land on one texel) lose the
+//    small shares that arrive after its sum has grown (on an H100, at the
+//    bench batch in clamp mode, by up to 1.3e-5 of the summed magnitudes,
+//    past ATOMIC_RTOL in chip_smoke.py, and by another amount each run).
+//    The f32 shares add exactly in float64 unless their exponents span more
+//    than about 29 bits, so gtex does not depend on the reductions' order;
+//    it costs K4 about a third of its time on the H100 (PERF.md).
 //
 // The texture precision (ops/precision.py; JAX's FPC_TEX_PREC,
 // texture_tpu.py:84-102) rounds operands of the TPU kernel's contractions
@@ -171,12 +179,12 @@ __device__ __forceinline__ void pixel(const float* __restrict__ tex, float u,
 
 // Add shares a to tap k (texel row t0 + k / 2, column s0 + k % 2) of gtex.
 template <int MODE, int NCH>
-__device__ __forceinline__ void emit(float* __restrict__ gtex, int t0, int s0,
+__device__ __forceinline__ void emit(double* __restrict__ gacc, int t0, int s0,
                                      int k, const float* a, int th, int tw) {
   const int i = tex_idx<MODE>(k >> 1 ? plus1(t0) : t0, th) * tw +
                 tex_idx<MODE>(k & 1 ? plus1(s0) : s0, tw);
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) atomicAdd(&gtex[i * NCH + c], a[c]);
+  for (int c = 0; c < NCH; ++c) atomicAdd(&gacc[i * NCH + c], (double)a[c]);
 }
 
 // Pixel j of lane l in the thread's warp w is w * 32 * PX + j * 32 + l:
@@ -186,8 +194,8 @@ __global__ void __launch_bounds__(THREADS)
 texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
                    const float* __restrict__ tv,
                    const float* __restrict__ gcolour, int n_px, int th, int tw,
-                   int prec, float* __restrict__ gtex, float* __restrict__ gtu,
-                   float* __restrict__ gtv) {
+                   int prec, double* __restrict__ gacc,
+                   float* __restrict__ gtu, float* __restrict__ gtv) {
   const int lane = threadIdx.x & 31;
   const int base =
       ((blockIdx.x * THREADS + threadIdx.x) >> 5) * 32 * PX + lane;
@@ -244,7 +252,7 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
           for (int o = 16; o; o >>= 1)
             a[c] += __shfl_xor_sync(FULL, a[c], o);
         }
-        if (lane == lead) emit<MODE, NCH>(gtex, lt, ls, k, a, th, tw);
+        if (lane == lead) emit<MODE, NCH>(gacc, lt, ls, k, a, th, tw);
       }
       continue;
     }
@@ -271,7 +279,7 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (!left || (k & 1))
-          emit<MODE, NCH>(gtex, q[j].t0, q[j].s0, k, q[j].a[k], th, tw);
+          emit<MODE, NCH>(gacc, q[j].t0, q[j].s0, k, q[j].a[k], th, tw);
     } else {
       const bool row = olive && ot == q[j].t0;
 #pragma unroll
@@ -286,26 +294,35 @@ texture_bwd_kernel(const float* __restrict__ tex, const float* __restrict__ tu,
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        emit<MODE, NCH>(gtex, q[j].t0, q[j].s0, k, q[j].a[k], th, tw);
+        emit<MODE, NCH>(gacc, q[j].t0, q[j].s0, k, q[j].a[k], th, tw);
     }
   }
+}
+
+// 4. gtex = gacc rounded to f32 (nearest even), n values; after the
+// reductions, in stream order
+__global__ void __launch_bounds__(THREADS)
+to_float(const double* __restrict__ gacc, int n, float* __restrict__ gtex) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < n) gtex[i] = __double2float_rn(gacc[i]);
 }
 
 template <int MODE>
 void launch(int nchan, cudaStream_t st, const float* tex, const float* tu,
             const float* tv, const float* gcolour, int n, int th, int tw,
-            int prec, float* gtex, float* gtu, float* gtv) {
+            int prec, double* gacc, float* gtu, float* gtv) {
+  if (n == 0) return;
   const int warps = (n + 32 * PX - 1) / (32 * PX);
   const unsigned blocks = (unsigned)((warps * 32 + THREADS - 1) / THREADS);
   switch (nchan) {
     case 1: texture_bwd_kernel<MODE, 1><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu, gtv); break;
     case 2: texture_bwd_kernel<MODE, 2><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu, gtv); break;
     case 3: texture_bwd_kernel<MODE, 3><<<blocks, THREADS, 0, st>>>(
-                tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv); break;
+                tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu, gtv); break;
     default: texture_bwd_kernel<MODE, 4><<<blocks, THREADS, 0, st>>>(
-                 tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu, gtv);
+                 tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu, gtv);
              break;
   }
 }
@@ -314,29 +331,33 @@ bool pow2(int n) { return (n & (n - 1)) == 0; }
 
 }  // namespace
 
+// gacc: scratch of th * tw * nchan float64, the sums before rounding.
 extern "C" int texture_bwd_launch(const float* tex, const float* tu,
                                   const float* tv, const float* gcolour,
                                   int64_t n_px, int th, int tw, int nchan,
-                                  int clamp, int prec, float* gtex,
-                                  float* gtu, float* gtv, void* stream) {
+                                  int clamp, int prec, double* gacc,
+                                  float* gtex, float* gtu, float* gtv,
+                                  void* stream) {
   if (nchan < 1 || nchan > MAX_C || th < 1 || tw < 1 || n_px < 0 ||
       n_px >= INT32_MAX - 32 * PX || (int64_t)th * tw * nchan >= INT32_MAX ||
       prec < EXACT || prec > FAST2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = cudaMemsetAsync(
-      gtex, 0, (size_t)th * tw * nchan * sizeof(float), st);
+  const int n_tex = th * tw * nchan;
+  const cudaError_t err =
+      cudaMemsetAsync(gacc, 0, (size_t)n_tex * sizeof(double), st);
   if (err != cudaSuccess) return (int)err;
   const int n = (int)n_px;
-  if (n == 0) return 0;
   if (clamp)
-    launch<CLAMP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu,
+    launch<CLAMP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu,
                   gtv);
   else if (pow2(th) && pow2(tw))
-    launch<WRAP_POW2>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex,
+    launch<WRAP_POW2>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gacc,
                       gtu, gtv);
   else
-    launch<WRAP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gtex, gtu,
+    launch<WRAP>(nchan, st, tex, tu, tv, gcolour, n, th, tw, prec, gacc, gtu,
                  gtv);
+  to_float<<<(unsigned)((n_tex + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      gacc, n_tex, gtex);
   return (int)cudaGetLastError();
 }

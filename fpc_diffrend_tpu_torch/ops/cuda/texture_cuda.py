@@ -39,7 +39,7 @@ BOUNDARY_MODES = ("wrap", "clamp")
 INT32_LIMIT = 1 << 31
 _PTR, _INT, _INT64 = build.PTR, build.INT, build.INT64
 _FWD_ARGS = [_PTR] * 3 + [_INT64] + [_INT] * 4 + [_PTR] * 2
-_BWD_ARGS = [_PTR] * 4 + [_INT64] + [_INT] * 5 + [_PTR] * 4
+_BWD_ARGS = [_PTR] * 4 + [_INT64] + [_INT] * 5 + [_PTR] * 5
 
 
 def _clamp_flag(boundary_mode: str) -> int:
@@ -190,8 +190,8 @@ def texture_planes_bwd(tex: Tensor, tu: Tensor, tv: Tensor,
     :param boundary_mode: the forward's, "wrap" or "clamp".
     :param tex_prec: the texture precision, a key of
         ``ops.precision.TEX_MODES``.
-    :return: (gtex (TH, TW, C) summed over every pixel, gtu (...),
-        gtv (...)).
+    :return: (gtex (TH, TW, C) summed over every pixel in float64 and
+        rounded once, gtu (...), gtv (...)).
     """
     clamp = _clamp_flag(boundary_mode)
     prec = _prec_code(tex_prec)
@@ -200,6 +200,7 @@ def texture_planes_bwd(tex: Tensor, tu: Tensor, tv: Tensor,
         return texture_planes_bwd_plain(tex, tu, tv, gcolour, boundary_mode,
                                         tex_prec)
     th, tw, C = tex.shape
+    gacc = torch.empty(th * tw * C, dtype=torch.float64, device=dev)
     gtex = torch.empty((th, tw, C), device=dev)
     gtu = torch.empty(tu.shape, device=dev)
     gtv = torch.empty(tu.shape, device=dev)
@@ -207,7 +208,7 @@ def texture_planes_bwd(tex: Tensor, tu: Tensor, tv: Tensor,
     texture_planes_bwd.launches += 1
     ptr = build.ptr
     status = fn(ptr(tex), ptr(tu), ptr(tv), ptr(gcolour), tu.numel(), th, tw,
-                C, clamp, prec, ptr(gtex), ptr(gtu), ptr(gtv),
+                C, clamp, prec, ptr(gacc), ptr(gtex), ptr(gtu), ptr(gtv),
                 build.stream(dev))
     build.check(status, "texture_bwd")
     return gtex, gtu, gtv

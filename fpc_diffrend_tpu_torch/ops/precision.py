@@ -17,6 +17,12 @@ The port reads no environment variable: the mode is a process-wide setting,
   ``tex="fast2"`` also rounds ``g * wy`` and ``wx`` in the four texel
   shares (the texel-gradient contraction).
 
+The forward has no mode: JAX's ``FPC_TEX_FWD_PREC=fast`` (the forward
+sampler's contraction in bf16) and ``FPC_FWD_SPLITS=2`` (K1's gathered
+record from two bf16 splits) are opt-in savings of MXU passes on the TPU
+that make the render inexact, and the port computes their default, the
+exact forward.
+
 The port's ``exact`` is plain f32; JAX's is a three-way bf16 split of each
 f32 operand, within a few ulp of it. JAX defaults to ``fast``/``fast2``.
 The modes are kept to reproduce what the JAX package computes by default:

@@ -336,6 +336,40 @@ KNOB_ARGUMENTS = [
 ]
 
 
+# The JAX package's forward-precision knobs, which the port leaves out
+# (ROADMAP.md §3): opt-in TPU savings of MXU passes that make the render
+# inexact. The port always computes JAX's default forward, the exact one:
+# the JAX file that reads the knob, the knob, and its default.
+LEFT_OUT_KNOBS = [
+    ("fpc_diffrend_tpu/ops/pallas/rasterize_tpu.py", "FPC_FWD_SPLITS", "3"),
+    ("fpc_diffrend_tpu/ops/pallas/texture_tpu.py", "FPC_TEX_FWD_PREC",
+     "exact"),
+]
+
+
+def test_forward_precision_knobs_are_left_out_at_jax_defaults():
+    """Each knob of LEFT_OUT_KNOBS is read by its JAX file with the exact
+    default, the JAX modules the parity tests compare with run at that
+    default, and the port's precision setting has no forward field."""
+    import os
+    import re
+
+    import jax
+    from fpc_diffrend_tpu.ops.pallas import rasterize_tpu as jr
+    from fpc_diffrend_tpu.ops.pallas import texture_tpu as jtt
+    from fpc_diffrend_tpu_torch.ops import precision as prec
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for jfile, knob, default in LEFT_OUT_KNOBS:
+        src = open(os.path.join(repo, jfile)).read()
+        found = re.findall(r'environ\.get\(\s*"' + knob + r'",\s*"([^"]*)"',
+                           src)
+        assert found == [default], (jfile, knob, found)
+    assert jr._FWD_SPLITS == 3
+    assert jtt.FWD_PRECISION == jax.lax.Precision.HIGHEST
+    assert prec.Precision._fields == ("grad", "tex")
+
+
 def test_jax_environment_knobs_are_port_arguments():
     """Each knob named in KNOB_ARGUMENTS is read by its JAX file and is a
     parameter of the port's callable; the defaults agree where the table

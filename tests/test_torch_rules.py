@@ -453,6 +453,34 @@ def test_k4_edges_match_plain_version_on_the_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["wrap", "clamp"])
+def test_k4_texture_gradient_is_order_independent_on_the_card(card, mode):
+    """K4 adds its texel shares in float64 and rounds once: on a hot spot
+    (a quarter of a 1024 x 1024 plane at uv (0, 0), the rest random and
+    partly past the edges) two calls give one gtex bit for bit, within
+    1e-6 of the summed magnitudes of its plain version (f32 reductions
+    lose the late small shares of a texel that many pixels share)."""
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    n = 1024
+    tu = torch.rand((n, n), generator=gen, device=card) * 1.2 - 0.1
+    tv = torch.rand((n, n), generator=gen, device=card) * 1.2 - 0.1
+    hot = torch.rand((n, n), generator=gen, device=card) < 0.25
+    tu[hot] = 0.0
+    tv[hot] = 0.0
+    g = torch.randn((1, n, n), generator=gen, device=card)
+    tex = torch.rand((64, 64, 1), generator=gen, device=card)
+    first = tc.texture_planes_bwd(tex, tu, tv, g, mode)[0]
+    second = tc.texture_planes_bwd(tex, tu, tv, g, mode)[0]
+    assert torch.equal(first, second)
+    want = tc.texture_planes_bwd_plain(tex, tu, tv, g, mode)[0]
+    mag = tc.texture_planes_bwd_plain(tex, tu, tv, g.abs(), mode)[0]
+    assert chip_smoke.atomic_err(first, want, mag) <= 1e-6
+
+
+@pytest.mark.cuda
 def test_mip_edges_match_plain_versions_on_the_card(card):
     """K8 and K9 against their plain versions where the bench-mip batch
     does not take them (K8 and K9's gtu/gtv within 1e-6, the gradient

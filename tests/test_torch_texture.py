@@ -21,6 +21,10 @@ Function against the JAX package.
   within 1e-5 of its largest magnitude, the uv cotangents within the JAX
   package's own tolerance for that kernel (``tests/test_texture_pallas.py
   :65``: the subgradient at a texel centre differs there).
+* The TPU sampler clamps a pixel row's texel footprint to ``SUB_H - 9``
+  rows (``texture_tpu.py:56-63``), a layout limit the port does not copy:
+  on a row whose footprint spans more, ``texture_pallas`` (interpret)
+  departs from the XLA sampler and K7's plain version does not.
 """
 
 import numpy as np
@@ -174,3 +178,28 @@ def test_boundary_mode_is_checked():
         ttc.texture_planes(tex, u, u, "mirror")
     with pytest.raises(ValueError, match="boundary mode"):
         ttc.texture_planes_bwd(tex, u, u, torch.zeros((1, 2, 3)), "border")
+
+
+def test_k7_plain_equals_xla_where_the_tpu_sampler_clamps_a_row(rng):
+    """Pixel row 3 of the first tile spans texel rows 2 to 50 (its v
+    climbs across the row), more than the TPU sampler's ``SUB_H - 9``: the
+    interpreted ``texture_pallas`` departs from the XLA sampler there and
+    agrees elsewhere; K7's plain version equals the XLA sampler on every
+    pixel."""
+    assert jtt.SUB_H - 9 < 48
+    tex = rng.uniform(size=(64, 64, 1)).astype(np.float32)
+    u = np.tile(np.linspace(0.2, 0.4, 128, dtype=np.float32), (8, 1))
+    v = np.repeat(np.linspace(0.3, 0.34, 8, dtype=np.float32)[:, None],
+                  128, 1)
+    v[3] = np.linspace(2.5 / 64, 50.5 / 64, 128, dtype=np.float32)
+    uv = np.stack([u, v], -1)
+    xla = np.asarray(jtexture(jnp.asarray(tex), jnp.asarray(uv)))
+    tpu = np.asarray(jtt.texture_pallas(jnp.asarray(tex), jnp.asarray(uv),
+                                        "wrap", interpret=True))
+    port = ttc.texture_planes(torch.as_tensor(tex), torch.as_tensor(u),
+                              torch.as_tensor(v)).movedim(0, -1).numpy()
+    np.testing.assert_allclose(port, xla, atol=1e-6, rtol=0)
+    row = np.zeros(8, bool)
+    row[3] = True
+    assert np.abs(tpu[row] - xla[row]).max() > 0.05
+    np.testing.assert_allclose(tpu[~row], xla[~row], atol=1e-5, rtol=0)

@@ -25,11 +25,12 @@ Phases, each fatal on failure:
    with the real LOD and with a random LOD plane past both clamps (K8 and
    K9's gtu/gtv within 1e-6: each pixel's own sums, in the plain
    version's order; only the gradient pyramid sums across pixels), K4's
-   gtex, K9's gradient pyramid and K5's rows, whose atomics sum in
-   another order, each element within 1e-5 of the sum of the magnitudes
-   it adds up, K6 (the fold) equal to its plain version exactly and bit
-   for bit over two calls; and K11 (bin placement) equal to its plain
-   version exactly
+   gtex (its texel shares summed in float64 and rounded once) each
+   element within 1e-6 of the sum of the magnitudes it adds up, K9's
+   gradient pyramid and K5's rows, whose atomics sum in another order,
+   within 1e-5 of it, K6 (the fold) equal to its plain version exactly
+   and bit for bit over two calls; and K11 (bin placement) equal to its
+   plain version exactly
    (``bin_start``, ``sorted_tri``) uncapped, at the autotuned entry cap and
    at a cap of half the live entries, which drops entries; then K11, K6,
    K2, K10, K4, K8 and K9 where the bench's shapes do not take them
@@ -84,10 +85,11 @@ Phases, each fatal on failure:
    K1 -> K2; "aa_fused": K10; "separate": K1 -> K7 -> K2), forward and
    then forward + backward to the vertices and the texture (the first
    backward of each route under sync-debug "error"); the routes' images
-   within 1e-6 of each other, their texture gradients within 1e-5 of the
-   largest magnitude and their vertex gradients, and each route's against
-   itself, within ``GRAD_SPREAD_RTOL`` of it (atomics reorder the sums:
-   the limit of phase 7); K10 launched once per
+   within 1e-6 of each other, their texture gradients, and each route's
+   against itself, within ``K4_GTEX_RTOL`` (1e-6) of the largest
+   magnitude, their vertex gradients, and each route's against itself,
+   within ``GRAD_SPREAD_RTOL`` of it (atomics reorder the sums: the limit
+   of phase 7); K10 launched once per
    render on "aa_fused" only, K7 on "separate" only; ms per render (CUDA
    events, host clock, and the device's work by the profiler); then
    ``tools.render_result`` over 5c's fitted take (4 frames, a grid of the
@@ -160,8 +162,10 @@ Phases, each fatal on failure:
    K9's time with its reductions left out);
 7. one bench step's forward and backward three times from the same state
    on the same batch: every parameter gradient must spread by at most
-   ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order;
-   checked after the record is written);
+   ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order:
+   K5's, the setup chain's), and the texture's, K4's float64 sums rounded
+   once on a deterministic cotangent, must be bit-equal (checked after
+   the record is written);
 8. the sharded fit step (``fpc_diffrend_tpu_torch/parallel``) at the
    bench workload's full width (``sharded_phase``): 8a, world size 1 on
    NCCL, mesh (1, 1, 1): the sharded step and ``fit.loop.train_step``
@@ -227,12 +231,16 @@ K3_ATOL = 1e-6                 # deterministic, the plain version's order
 K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 K8_ATOL = 1e-6                 # each pixel in the plain version's order
 K9_ATOL = 1e-6                 # gtu, gtv: each pixel's own sums, in order
-ATOMIC_RTOL = 1e-5             # gtex, gpyr, K5 rows: atomics reorder sums
+ATOMIC_RTOL = 1e-5             # gpyr, K5 rows: atomics reorder sums
+# K4's gtex, of the summed magnitudes: its texel shares add in float64 and
+# round once, so their order moves the result by far less than an ulp
+K4_GTEX_RTOL = 1e-6
 K10_ATOL = 1e-6                # aa against K2 on the same planes
 MAX_MIP_LEVEL = 6              # the mip path's chain: 1024^2 .. 16^2
 # gradients from run to run (phases 5d and 7): the sums that atomics take
-# in another order each run (K4's texture, K5, the setup chain's index
-# backward) may spread by this much of a gradient's largest magnitude.
+# in another order each run (K5, the setup chain's index backward; K4's
+# texel sums are float64, rounded once) may spread by this much of a
+# gradient's largest magnitude.
 # Screen-space terms cancel, so an element's rounding reaches 1e-3 to
 # 1.5e-3 of the largest in some runs on the H100 (a vertex gradient, the
 # free mode's m3); the limit is ~7x that. The reference nvdiffrast sums
@@ -418,7 +426,7 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
                  "K4 gtv": max_err(k4[2], p4[2]),
                  "K4 gtex rel": atomic_err(k4[0], p4[0], m4)})
     if not (max(errs["K4 gtu"], errs["K4 gtv"]) <= K4_ATOL
-            and errs["K4 gtex rel"] <= ATOMIC_RTOL):
+            and errs["K4 gtex rel"] <= K4_GTEX_RTOL):
         fail(f"{label}: K4 differs from the plain version: {errs}")
     gpl = torch.cat([gtuv, k4[1][None], k4[2][None], gverts])
     k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
@@ -434,7 +442,8 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
         fail(f"{label}: K5 differs from the plain version: {errs}")
     k6 = check_fold(k5, bins, n_tris, label)
     errs["K6"] = 0.0                   # check_fold fails unless exact
-    print(f"check {label}: backward max err {errs}", flush=True)
+    print(f"check {label}: backward max err {errs} (K4 gtex rel limit "
+          f"{K4_GTEX_RTOL})", flush=True)
     abs_errs = {
         "antialias_bwd": max(errs["K3 gcolour"], errs["K3 gverts"]),
         "texture_bwd": max(errs["K4 gtu"], errs["K4 gtv"],
@@ -699,10 +708,11 @@ def check_texture(k1, tex, g, gen, label):
     e4 = max(v for k, v in errs.items()
              if k.startswith("K4") and "rel" not in k)
     e4_rel = max(v for k, v in errs.items() if "rel" in k)
-    if e7 != 0 or e4 > K4_ATOL or e4_rel > ATOMIC_RTOL:
+    if e7 != 0 or e4 > K4_ATOL or e4_rel > K4_GTEX_RTOL:
         fail(f"{label}: K7/K4 clamp differ from the plain versions: {errs}")
     print(f"check {label}: K7 equals its plain version and K1's colour "
-          f"exactly; K4 clamp max err {errs}", flush=True)
+          f"exactly; K4 clamp max err {errs} (gtex rel limit "
+          f"{K4_GTEX_RTOL})", flush=True)
     return errs, e7
 
 
@@ -889,13 +899,14 @@ def check_k4_edges(dev, gen):
                     fail(f"K4 edge case {name}, {rows}x{pw}, C {C}: a zero "
                          "cotangent gave non-zero outputs")
     bad = {k: e for k, e in errs.items()
-           if not e <= (ATOMIC_RTOL if "rel" in k else K4_ATOL)}
+           if not e <= (K4_GTEX_RTOL if "rel" in k else K4_ATOL)}
     if bad:
         fail(f"K4 edge cases differ from the plain version: {bad}")
     print(f"check K4 edges: 36x84 and 37x83 uv, wrap and clamp, C 1 and 3, "
           f"zero cotangent exact; max err gtu/gtv "
           f"{max(e for k, e in errs.items() if 'rel' not in k)}, gtex rel "
-          f"{max(e for k, e in errs.items() if 'rel' in k)}", flush=True)
+          f"{max(e for k, e in errs.items() if 'rel' in k)} (limit "
+          f"{K4_GTEX_RTOL})", flush=True)
     return errs
 
 
@@ -1401,17 +1412,21 @@ def single_view(wl, counters, gen, take):
         rec["ms"][route] = {"forward": fwd, "forward_backward": both,
                             "forward_host": host, "forward_device": busy}
     # The routes' planes are equal bit for bit (phase 3), so their
-    # gradients differ only by the order of the atomic sums (K4, K5,
-    # the index backward of the setup chain). The texture's sums have
-    # terms of one size: within ATOMIC_RTOL of the largest magnitude. The
-    # vertex gradient sums terms of screen-coordinate size that cancel:
-    # within the stated spread of a sum taken with atomics,
+    # gradients differ only by the order of the atomic sums (K5, the
+    # index backward of the setup chain). The texture gradient is K4's
+    # alone, on equal planes and K3's deterministic cotangent, and K4's
+    # texel sums are float64, rounded once: within K4_GTEX_RTOL of the
+    # largest magnitude, route against route and each route against
+    # itself. The vertex gradient sums terms of screen-coordinate size
+    # that cancel: within the stated spread of a sum taken with atomics,
     # GRAD_SPREAD_RTOL of the largest magnitude, as is each route against
     # itself.
     pos_tol = GRAD_SPREAD_RTOL
-    if not max(v[0] for v in spread.values()) <= pos_tol:
-        fail(f"single view: a route's vertex gradients spread past "
-             f"{pos_tol} against itself: {spread}")
+    if not (max(v[0] for v in spread.values()) <= pos_tol
+            and max(v[1] for v in spread.values()) <= K4_GTEX_RTOL):
+        fail(f"single view: a route's gradients spread past {pos_tol} "
+             f"(vertex) or {K4_GTEX_RTOL} (texture) against itself: "
+             f"{spread}")
     errs = {}
     for route in ROUTES[1:]:
         (imgs, grads), (ref_imgs, ref_grads) = out[route], out[ROUTES[0]]
@@ -1420,11 +1435,16 @@ def single_view(wl, counters, gen, take):
         e_tex = max(_rel_err(a[1], b[1]) for a, b in zip(grads, ref_grads))
         errs[route] = {"image": e_img, "vertex grad rel": e_pos,
                        "texture grad rel": e_tex}
-        if e_img > 1e-6 or e_pos > pos_tol or e_tex > ATOMIC_RTOL:
+        if e_img > 1e-6 or e_pos > pos_tol or e_tex > K4_GTEX_RTOL:
             fail(f"single view: route {route} differs from sepaa: "
                  f"{errs[route]} (vertex tolerance {pos_tol}; spread of "
                  f"each route against itself {spread})")
     rec.update(route_errs=errs, grad_spread=spread)
+    tex_routes = {r: e["texture grad rel"] for r, e in errs.items()}
+    tex_self = {r: v[1] for r, v in spread.items()}
+    print(f"single view: texture gradient rel, route against sepaa "
+          f"{tex_routes}, each route against itself {tex_self} (limit "
+          f"{K4_GTEX_RTOL})", flush=True)
     print(f"single view ({N_VIEWS} cameras, {H}x{W}): routes agree with "
           f"sepaa {errs}; each route against itself (vertex, texture "
           f"gradient) {spread}; launches {rec['launches']}; ms per render "
@@ -1543,8 +1563,8 @@ def primitive_views(wl, counters, gen):
     per-element limits are recorded: see the texel flips below); the same
     chain on K1's uv (``rasterize_with_uv``) within
     phase 5d's limits between routes (image 1e-6, vertex gradients
-    GRAD_SPREAD_RTOL, texture ATOMIC_RTOL of the largest magnitude); K5 on the
-    composition's own cotangents against its plain version (ATOMIC_RTOL
+    GRAD_SPREAD_RTOL, texture K4_GTEX_RTOL of the largest magnitude); K5 on
+    the composition's own cotangents against its plain version (ATOMIC_RTOL
     of the summed magnitudes); K2 and K3 on the gathered planes against
     the plain per-pair ``_pair_blend`` over every pair (K2_ATOL, K3_ATOL
     for the colour's gradient; the vertices' within 1e-5 of the largest
@@ -1671,8 +1691,11 @@ def primitive_views(wl, counters, gen):
             and errs["texture_grad_l2"] <= 5e-2
             and errs["k1_uv_image"] <= 1e-6
             and errs["k1_uv_vertex_grad_rel"] <= GRAD_SPREAD_RTOL
-            and errs["k1_uv_texture_grad_rel"] <= ATOMIC_RTOL):
+            and errs["k1_uv_texture_grad_rel"] <= K4_GTEX_RTOL):
         fail(f"primitives differ from render(route='separate'): {errs}")
+    print(f"primitives: texture gradient rel on K1's uv against "
+          f"render(route='separate') {errs['k1_uv_texture_grad_rel']} "
+          f"(limit {K4_GTEX_RTOL})", flush=True)
 
     # K5 on the composition's own cotangents (u, v, z live), view 0
     mvp, pos = views[0]
@@ -1752,8 +1775,9 @@ def scan_card_vs_cpu(scene, pc, tex, g, height, width):
     positions and the texture on the card against the same call on the
     CPU, from the same inputs: the image within 1e-6 (the scan is the same
     torch ops on both; K7 and K2 equal their plain versions), the
-    gradients within 1e-5 of their largest magnitude (K4's texture sums and
-    the gathers' backward add with atomics on the card).
+    gradients within 1e-5 of their largest magnitude (the gathers' backward
+    adds with atomics on the card, which moves the vertex gradient; K4's
+    texel sums are float64, rounded once).
 
     :return: the errors.
     """
@@ -2313,11 +2337,12 @@ def bin_sizes(tile_ids, n_tiles):
 def grad_spread(wl, n_runs: int = 3):
     """Phase 7: one bench step's forward and backward, ``n_runs`` times from
     the same state on the same batch (no optimizer update between them).
-    The sums taken with atomics (K4's texture, K5, the setup chain's
-    index backward) add in another order each run.
+    The sums taken with atomics (K5, the setup chain's index backward) add
+    in another order each run; K4's texel sums are float64, rounded once.
 
-    :return: parameter name -> the largest |g_run - g_first| over the runs,
-        over the largest magnitude of g_first.
+    :return: (parameter name -> the largest |g_run - g_first| over the
+        runs, over the largest magnitude of g_first; parameter name ->
+        whether every run's gradient equals the first bit for bit).
     """
     import torch
 
@@ -2347,8 +2372,10 @@ def grad_spread(wl, n_runs: int = 3):
     torch.cuda.synchronize()
     for p in params.values():
         p.grad = None
-    return {k: max(_rel_err(r[k], runs[0][k]) for r in runs[1:])
-            for k in runs[0]}
+    return ({k: max(_rel_err(r[k], runs[0][k]) for r in runs[1:])
+             for k in runs[0]},
+            {k: all(torch.equal(r[k], runs[0][k]) for r in runs[1:])
+             for k in runs[0]})
 
 
 # ----------------------------------------------------------------------------
@@ -2392,11 +2419,12 @@ def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
                     names=None):
     """Each fast variant of :func:`precision_pairs` (or those in
     ``names``) against its plain version at phase 3's limits: K4's gtu and
-    gtv within ``K4_ATOL``, its gtex and K5's live rows within
-    ``ATOMIC_RTOL`` of the summed magnitudes. Each must also differ from
-    the exact kernel's output by more than that (the mode took effect):
-    gtu, gtv and K5's rows in every fast mode, gtex in "fast2" only; in
-    "fast" gtex stays the exact one, within ``ATOMIC_RTOL``.
+    gtv within ``K4_ATOL``, its gtex within ``K4_GTEX_RTOL`` and K5's live
+    rows within ``ATOMIC_RTOL`` of the summed magnitudes. Each must also
+    differ from the exact kernel's output (the mode took effect): gtu, gtv
+    by more than ``K4_ATOL`` and K5's rows by more than ``ATOMIC_RTOL`` in
+    every fast mode, gtex by more than ``ATOMIC_RTOL`` in "fast2" only; in
+    "fast" gtex stays the exact one, within ``K4_GTEX_RTOL``.
 
     :return: {name: its errors}.
     """
@@ -2427,10 +2455,10 @@ def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
                  "gtex rel vs exact": atomic_err(got[0], ex[0], mag),
                  "max_abs_err": max(max_err(a, b) for a, b in zip(got,
                                                                   want))}
-            ok = e["gtu/gtv"] <= K4_ATOL and e["gtex rel"] <= ATOMIC_RTOL
-            took = (e["gtu/gtv vs exact"] > K4_ATOL
-                    and (e["gtex rel vs exact"] > ATOMIC_RTOL) == (
-                        prec == "fast2"))
+            ok = e["gtu/gtv"] <= K4_ATOL and e["gtex rel"] <= K4_GTEX_RTOL
+            took = e["gtu/gtv vs exact"] > K4_ATOL and (
+                e["gtex rel vs exact"] > ATOMIC_RTOL if prec == "fast2"
+                else e["gtex rel vs exact"] <= K4_GTEX_RTOL)
         else:
             ex = pairs["pixel_grad_exact"][0]()
             mag = k5_magnitudes(bins, entry, payload[0], payload[1], extra,
@@ -2450,7 +2478,8 @@ def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
         if not took:
             fail(f"{label}: {name} is not its mode against exact: {e}")
         out[name] = e
-    print(f"check {label}: precision modes {out}", flush=True)
+    print(f"check {label}: precision modes {out} (K4 gtex rel limit "
+          f"{K4_GTEX_RTOL})", flush=True)
     return out
 
 
@@ -4303,9 +4332,11 @@ def main() -> int:
                                               mode)[0]
             e_uv = max(max_err(got[1], want[1]), max_err(got[2], want[2]))
             e_tex = atomic_err(got[0], want[0], mag)
-            if not (e_uv <= K4_ATOL and e_tex <= ATOMIC_RTOL):
+            if not (e_uv <= K4_ATOL and e_tex <= K4_GTEX_RTOL):
                 fail(f"K4 {mode} on the missed pixels' hot spot differs "
                      f"from its plain version: gtu/gtv {e_uv}, gtex {e_tex}")
+            print(f"K4 {mode} on the missed pixels' hot spot: gtex rel "
+                  f"{e_tex} (limit {K4_GTEX_RTOL})", flush=True)
             k4_diag[f"hot_spot_{mode}"] = {
                 "px": int((g_hot != 0).any(dim=0).sum()),
                 "ms": cuda_ms(k4_hot, 20), "device_ms": device_ms(k4_hot, 20),
@@ -4466,10 +4497,11 @@ def main() -> int:
     phase_done("6")
 
     # ---- 7. the step's gradients from run to run ----
-    spread = grad_spread(wl)
-    record["grad_spread"] = spread
+    spread, equal = grad_spread(wl)
+    record.update(grad_spread=spread, grad_bit_equal=equal)
     print(f"step gradients, 3 runs from one state: spread over the largest "
-          f"magnitude {spread} (limit {GRAD_SPREAD_RTOL})", flush=True)
+          f"magnitude {spread} (limit {GRAD_SPREAD_RTOL}); bit-equal to the "
+          f"first run {equal}", flush=True)
     phase_done("7")
 
     # ---- 8. the sharded fit step at full width ----
@@ -4493,6 +4525,9 @@ def main() -> int:
                for v in spread.values()):
         fail(f"the step's gradients spread past {GRAD_SPREAD_RTOL} of their "
              f"largest magnitude from run to run: {spread}")
+    if not equal["tex"]:
+        fail(f"the step's texture gradient is not bit-equal from run to "
+             f"run: spread {spread['tex']}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -187,8 +187,8 @@ def measure(tree: str, paths) -> dict:
                     r["gtex_rel"] = gtex_rel(name, fn, want[0], *gtex_inputs)
                 if name.startswith("texture_bwd") or name.endswith(
                         "mip_sample_bwd"):
-                    # gtu, gtv only: gtex and gpyr sum with atomics
-                    # (chip_smoke.py checks them)
+                    # gtu, gtv only: gtex and gpyr are held relative to
+                    # their summed magnitudes (chip_smoke.py checks them)
                     got, want = got[1:], want[1:]
                 if name.startswith("pixel_grad"):
                     # rows past the live prefix are unspecified

@@ -70,7 +70,8 @@ def render_batch_stacked(pos_clip_b: Tensor, pos_idx: Tensor, uv: Tensor,
     """
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip_b, pos_idx, uv, uv_idx, tex, face_neighbors, resolution,
-        enable_mip, max_mip_level, pair_cap or 0)
+        pair_cap=pair_cap, enable_mip=enable_mip,
+        max_mip_level=max_mip_level)
     return composite_stacked(idbuf, aa, pos_clip_b.shape[0], resolution,
                              background)
 
@@ -148,7 +149,8 @@ def render_from_clip(pos_clip: Tensor, pos_idx: Tensor, uv: Tensor,
                             max_mip_level, background, aa_max_pairs)
     idbuf, aa = rasterize_textured_sepaa_stacked(
         pos_clip[None], pos_idx, uv, uv_idx, tex3, face_neighbors,
-        tuple(resolution), enable_mip, max_mip_level, pair_cap or 0, route)
+        tuple(resolution), pair_cap=pair_cap, enable_mip=enable_mip,
+        max_mip_level=max_mip_level, route=route)
     return composite_stacked(idbuf, aa, 1, tuple(resolution), background)[0]
 
 

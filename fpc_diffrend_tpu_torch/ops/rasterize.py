@@ -338,19 +338,19 @@ def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
 def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
                                      uv: Tensor, uv_idx: Tensor, tex: Tensor,
                                      face_neighbors: Tensor, resolution,
+                                     pair_cap: int | None = None,
                                      enable_mip: bool = False,
                                      max_mip_level: int = 0,
-                                     pair_cap: int = 0,
                                      route: str = "sepaa"):
     """Render B samples through one pass of each kernel.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
     :param tex: (TH, TW, C) texture.
+    :param pair_cap: per-sample bin-entry cap (``FitConfig.pair_cap``;
+        None or 0: uncapped).
     :param enable_mip: sample trilinearly across the mip chain of up to
         ``max_mip_level`` levels below the texture (K8, K9) instead of
         bilinearly (K1's tail, K4).
-    :param pair_cap: per-sample bin-entry cap (``FitConfig.pair_cap``;
-        0: uncapped).
     :param route: the bilinear path's kernels, a key of :data:`ROUTES`
         ("sepaa": K1 -> K2; "aa_fused": K10; "separate": K1 -> K7 -> K2);
         the mip path has one route.
@@ -363,7 +363,8 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     height, width = resolution
     ph, _ = pad_resolution(height, width)
     data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
-                                      face_neighbors, resolution, pair_cap)
+                                      face_neighbors, resolution,
+                                      pair_cap or 0)
     if enable_mip:
         pyramid, sizes = mip_pyramid(tex, max_mip_level)
         return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid, sizes,

@@ -116,7 +116,8 @@ def render_band_stacked(band_clip: Tensor, pos_idx: Tensor, uv: Tensor,
     if not seam:
         idbuf, aa = rasterize_textured_sepaa_stacked(
             band_clip, pos_idx, uv, uv_idx, tex, face_neighbors, (hb, w),
-            enable_mip, max_mip_level, pair_cap or 0)
+            pair_cap=pair_cap, enable_mip=enable_mip,
+            max_mip_level=max_mip_level)
         return composite_stacked(idbuf, aa, B, (hb, w))
     ph, pw = pad_resolution(hb, w)
     data_s, aux_s, bins = bin_stacked(band_clip, pos_idx, uv, uv_idx,

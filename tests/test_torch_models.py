@@ -149,9 +149,11 @@ def test_build_mvp_and_clip_positions_match(rng):
 # ------------------------------------------------------- signatures ----
 
 # The port's deliberate differences from the JAX package's public
-# signatures (ROADMAP.md §3). RENAMED: JAX name -> torch name. DROPPED:
-# JAX parameters the port has no counterpart of (TPU switches). ADDED:
-# the port's own parameters, after JAX's.
+# signatures (ROADMAP.md §3), keyed by JAX's "module.name" (a function
+# the port renamed is keyed by its JAX name, test_torch_surface.SURFACE).
+# RENAMED: JAX parameter name -> torch name. DROPPED: JAX parameters the
+# port has no counterpart of (TPU switches). ADDED: the port's own
+# parameters, after JAX's.
 RENAMED = {
     "fit.loop.sample_batches": {"rng": "generator"},
     "fit.loop.train_steps": {"rng_key": "generator"},
@@ -167,6 +169,8 @@ DROPPED = {
     "ops.pipeline.render_batch_stacked": ("inc", "interpret"),
     "ops.rasterize.rasterize": ("interpret",),
     "ops.rasterize.rasterize_with_uv": ("interpret",),
+    "ops.rasterize.rasterize_pallas_textured_sepaa_stacked": ("interpret",
+                                                              "inc"),
 }
 ADDED = {
     "fit.api.fit_take": ("device",),
@@ -180,11 +184,14 @@ ADDED = {
     "ops.pipeline.render": ("route", "device"),
     "ops.pipeline.render_from_clip": ("route",),
     "ops.pipeline.render_batch_stacked": ("enable_mip", "max_mip_level"),
+    "ops.rasterize.rasterize_pallas_textured_sepaa_stacked": (
+        "enable_mip", "max_mip_level", "route"),
     "parallel.multihost.initialize": ("backend",),
     "parallel.multihost.make_pod_mesh": ("device_type",),
     "parallel.spatial.band_window_matrix": ("device",),
     "parallel.spatial.render_band": ("device",),
     "tools.undistort.undistort_map": ("device",),
+    "tools.undistort.undistort_image_jax": ("device",),
     "tools.undistort.undistort_take": ("device",),
     "tools.render_result.render_result": ("route", "device"),
     "tools.simple_render.simple_render": ("route", "device"),
@@ -202,12 +209,14 @@ PRIVATE = ("ops.rasterize._tri_screen", "ops.rasterize._pixel_db_from_data",
 def _shared_callables():
     """{"module.name": (torch object, JAX object)} for every public
     callable a port module defines that the JAX module of the same name
-    has, and the PRIVATE ones."""
+    has, the PRIVATE ones, and the renamed pairs of
+    ``test_torch_surface.SURFACE`` under their JAX names."""
     import importlib
     import inspect
     import pkgutil
 
     import fpc_diffrend_tpu_torch
+    from test_torch_surface import SURFACE
 
     out = {}
     for info in pkgutil.walk_packages(fpc_diffrend_tpu_torch.__path__,
@@ -229,6 +238,16 @@ def _shared_callables():
             except (TypeError, ValueError):
                 continue
             out[key] = (obj, getattr(jmod, attr))
+    for key, row in SURFACE.items():
+        if row.kind == "renamed":
+            (tkey,) = row.port
+            tmod, tname = tkey.rsplit(".", 1)
+            jmod, jname = key.rsplit(".", 1)
+            out[key] = (
+                getattr(importlib.import_module("fpc_diffrend_tpu_torch."
+                                                + tmod), tname),
+                getattr(importlib.import_module("fpc_diffrend_tpu."
+                                                + jmod), jname))
     return out
 
 
@@ -252,7 +271,9 @@ def test_shared_signatures_follow_jax():
                 "parallel.train.make_sharded_train_step",
                 "parallel.train.sample_stratified", "data.seq.SeqReader",
                 "tools.undistort.undistort_map",
-                "tools.calibrate.calibrate_camera", *PRIVATE):
+                "tools.calibrate.calibrate_camera",
+                "ops.rasterize.rasterize_pallas_textured_sepaa_stacked",
+                "tools.undistort.undistort_image_jax", *PRIVATE):
         assert key in shared, key
     assert len(shared) > 80
     for key in set(RENAMED) | set(DROPPED) | set(ADDED) | set(DEFAULTS):

@@ -16,10 +16,17 @@ device value on the host, so steps queue on the card without waiting.
 With ``raster_impl="scan"`` the batch renders sample by sample through
 ``render_sample`` (the JAX package's ``vmap`` fallback), over the
 O(T·H·W) reference rasterizer.
+
+The step's layers are spans of ``utils.profiling`` (``fit.dispatch``,
+``fit.sample``, ``fit.step``, ``fit.forward``, ``model.prologue``,
+``fit.loss``, ``fit.backward``, ``fit.optimizer``, ``fit.callbacks``;
+a view is ``view.render``), which cost nothing unless
+``profiling.recording()`` is on.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +42,7 @@ from fpc_diffrend_tpu_torch.ops import mesh_ops
 from fpc_diffrend_tpu_torch.ops.pipeline import (render_batch_stacked,
                                                  render_from_clip)
 from fpc_diffrend_tpu_torch.ops.rasterize import check_impl
+from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -62,12 +70,14 @@ def sample_clip_positions(config: FitConfig, scene: Scene, params: dict,
 
     :return: (pos_clip (B, V, 4), verts3 (B, V, 3)).
     """
-    vtx = blendshape.blend(config.mode, {**params, "deltas": scene.deltas},
-                           scene.v_base, frame_idx,
-                           config.combined_corrective_coefficient)
-    verts3 = vtx.reshape(frame_idx.shape[0], -1, 3)
-    mvp = build_mvp(scene, params, cam_idx, frame_idx)
-    return transform_clip(mvp, verts3), verts3
+    with span("model.prologue"):
+        vtx = blendshape.blend(config.mode,
+                               {**params, "deltas": scene.deltas},
+                               scene.v_base, frame_idx,
+                               config.combined_corrective_coefficient)
+        verts3 = vtx.reshape(frame_idx.shape[0], -1, 3)
+        mvp = build_mvp(scene, params, cam_idx, frame_idx)
+        return transform_clip(mvp, verts3), verts3
 
 
 def resolve_aa_max_pairs(config: FitConfig) -> int | None:
@@ -81,6 +91,9 @@ def resolve_aa_max_pairs(config: FitConfig) -> int | None:
     return config.aa_max_pairs
 
 
+_view_ids = itertools.count().__next__      # the views' request ids
+
+
 def render_sample(config: FitConfig, scene: Scene, params: dict, cam_idx,
                   frame_idx):
     """Blend, pose and render one (camera, frame) sample through
@@ -89,18 +102,20 @@ def render_sample(config: FitConfig, scene: Scene, params: dict, cam_idx,
     :param cam_idx, frame_idx: ints or 0-d integer tensors.
     :return: (image (H, W, C), verts3 (V, 3)).
     """
-    cam, frame = (torch.as_tensor(i, device=scene.device).reshape(1)
-                  for i in (cam_idx, frame_idx))
-    pos_clip, verts3 = sample_clip_positions(config, scene, params, cam,
-                                             frame)
-    img = render_from_clip(pos_clip[0], scene.faces, scene.uv, scene.uv_idx,
-                           params["tex"], tuple(config.resolution),
-                           scene.face_neighbors, enable_mip=config.enable_mip,
-                           max_mip_level=config.max_mip_level,
-                           impl=config.raster_impl,
-                           aa_max_pairs=resolve_aa_max_pairs(config),
-                           pair_cap=config.pair_cap or None)
-    return img, verts3[0]
+    with span("view.render", request=_view_ids):
+        cam, frame = (torch.as_tensor(i, device=scene.device).reshape(1)
+                      for i in (cam_idx, frame_idx))
+        pos_clip, verts3 = sample_clip_positions(config, scene, params, cam,
+                                                 frame)
+        img = render_from_clip(pos_clip[0], scene.faces, scene.uv,
+                               scene.uv_idx, params["tex"],
+                               tuple(config.resolution), scene.face_neighbors,
+                               enable_mip=config.enable_mip,
+                               max_mip_level=config.max_mip_level,
+                               impl=config.raster_impl,
+                               aa_max_pairs=resolve_aa_max_pairs(config),
+                               pair_cap=config.pair_cap or None)
+        return img, verts3[0]
 
 
 def render_batch(config: FitConfig, scene: Scene, params: dict,
@@ -142,28 +157,29 @@ def loss_from_render(config: FitConfig, scene: Scene, params: dict,
 
     :return: (total, metrics dict of scalar tensors).
     """
-    pix = losses_mod.photometric_loss(batch.ref, imgs).mean()
-    zero = torch.zeros((), dtype=torch.float32, device=imgs.device)
-    mel_m = lap_m = mnc_m = zero
-    if config.weight_meshedge:
-        mel = mesh_ops.mesh_edge_loss(verts3, scene.edges,
-                                      config.meshedge_target)
-        mel_m = config.weight_meshedge * mel.mean()
-    if config.weight_laplacian:
-        lap = mesh_ops.mesh_laplacian_smoothing_padded(
-            verts3, scene.nbr_idx, scene.nbr_mask, scene.degree)
-        lap_m = config.weight_laplacian * (lap ** 2).mean()
-    if config.weight_normalconsistency:
-        mnc = mesh_ops.mesh_normal_consistency(verts3, scene.faces,
-                                               scene.edge_face_pairs)
-        mnc_m = config.weight_normalconsistency * mnc.mean()
-    extra = (losses_mod.staging_regularizers(config, params,
-                                             batch.frame_idx, step)
-             + losses_mod.temporal_smoothness(config, params,
-                                              batch.frame_idx))
-    total = pix + (mel_m + lap_m + mnc_m) + extra
-    return total, {"loss": total, "pix": pix, "mel": mel_m, "lap": lap_m,
-                   "mnc": mnc_m}
+    with span("fit.loss"):
+        pix = losses_mod.photometric_loss(batch.ref, imgs).mean()
+        zero = torch.zeros((), dtype=torch.float32, device=imgs.device)
+        mel_m = lap_m = mnc_m = zero
+        if config.weight_meshedge:
+            mel = mesh_ops.mesh_edge_loss(verts3, scene.edges,
+                                          config.meshedge_target)
+            mel_m = config.weight_meshedge * mel.mean()
+        if config.weight_laplacian:
+            lap = mesh_ops.mesh_laplacian_smoothing_padded(
+                verts3, scene.nbr_idx, scene.nbr_mask, scene.degree)
+            lap_m = config.weight_laplacian * (lap ** 2).mean()
+        if config.weight_normalconsistency:
+            mnc = mesh_ops.mesh_normal_consistency(verts3, scene.faces,
+                                                   scene.edge_face_pairs)
+            mnc_m = config.weight_normalconsistency * mnc.mean()
+        extra = (losses_mod.staging_regularizers(config, params,
+                                                 batch.frame_idx, step)
+                 + losses_mod.temporal_smoothness(config, params,
+                                                  batch.frame_idx))
+        total = pix + (mel_m + lap_m + mnc_m) + extra
+        return total, {"loss": total, "pix": pix, "mel": mel_m, "lap": lap_m,
+                       "mnc": mnc_m}
 
 
 def loss_fn(params: dict, config: FitConfig, scene: Scene, batch: Batch,
@@ -226,18 +242,23 @@ def train_step(config: FitConfig, scene: Scene, state: state_mod.TrainState,
 
     :return: metric name -> scalar tensor on the device.
     """
-    params = state.params
-    for p in params.values():
-        p.requires_grad_(True)
-    state.optimizer.zero_grad(set_to_none=False)
-    with torch.enable_grad():
-        total, metrics = loss_fn(params, config, scene, batch, state.step)
-        total.backward()
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    state_mod.optimizer_step(config, state)
-    return {k: v.detach() for k, v in metrics.items()}
+    with span("fit.step", request=state.step):
+        params = state.params
+        for p in params.values():
+            p.requires_grad_(True)
+        state.optimizer.zero_grad(set_to_none=False)
+        with torch.enable_grad():
+            with span("fit.forward"):
+                total, metrics = loss_fn(params, config, scene, batch,
+                                         state.step)
+            with span("fit.backward"):
+                total.backward()
+        with span("fit.optimizer"):
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state_mod.optimizer_step(config, state)
+        return {k: v.detach() for k, v in metrics.items()}
 
 
 def train_steps(config: FitConfig, scene: Scene, state: state_mod.TrainState,
@@ -248,20 +269,23 @@ def train_steps(config: FitConfig, scene: Scene, state: state_mod.TrainState,
 
     :return: (state, metric name -> (k,) tensor on the device).
     """
-    dev = scene.device
-    cams = torch.tensor(config.cam_idxs, dtype=torch.int64).to(
-        dev, non_blocking=True)
-    B = config.batch_size
-    rows = []
-    for _ in range(k):
-        pick = torch.randint(0, cams.shape[0], (B,), generator=generator,
-                             device=dev)
-        frame = torch.randint(0, n_frames, (B,), generator=generator,
-                              device=dev)
-        cam = cams[pick]
-        batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
-        rows.append(train_step(config, scene, state, batch))
-    return state, {m: torch.stack([r[m] for r in rows]) for m in rows[0]}
+    with span("fit.dispatch"):
+        dev = scene.device
+        cams = torch.tensor(config.cam_idxs, dtype=torch.int64).to(
+            dev, non_blocking=True)
+        B = config.batch_size
+        rows = []
+        for _ in range(k):
+            with span("fit.sample"):
+                pick = torch.randint(0, cams.shape[0], (B,),
+                                     generator=generator, device=dev)
+                frame = torch.randint(0, n_frames, (B,), generator=generator,
+                                      device=dev)
+                cam = cams[pick]
+                batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
+            rows.append(train_step(config, scene, state, batch))
+        return state, {m: torch.stack([r[m] for r in rows])
+                       for m in rows[0]}
 
 
 def run_fit(config: FitConfig, scene: Scene, frames_u8: Tensor,
@@ -301,6 +325,7 @@ def run_fit(config: FitConfig, scene: Scene, frames_u8: Tensor,
         state, metrics = train_steps(config, scene, state, frames_u8,
                                      generator, kk, n_frames)
         i += kk
-        for cb in callbacks or ():
-            cb(i - 1, state, {m: v[-1] for m, v in metrics.items()})
+        with span("fit.callbacks"):
+            for cb in callbacks or ():
+                cb(i - 1, state, {m: v[-1] for m, v in metrics.items()})
     return state

@@ -11,8 +11,8 @@ entries. The result equals the kept prefix of one sort of the keys
 ``torch.searchsorted``.
 
 ``place_pairs`` runs the kernels for CUDA tensors and the plain version for
-CPU tensors. Its launches sit in a ``record_function`` range named
-``PROFILE_LABEL``, so a profile of the binning shows K11 as its own stage.
+CPU tensors, inside the span ``PROFILE_LABEL`` (``utils.profiling.span``),
+so that a recorded profile of the binning shows K11 as its own stage.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
+from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -118,6 +119,11 @@ def place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
         sorted_tri (P,) int32 stacked triangle ids, grouped by tile and
         ascending inside each bin, B*T past the live prefix).
     """
+    with span(PROFILE_LABEL):
+        return _place_pairs(tile_ids, n_tiles, P)
+
+
+def _place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
     _check_args(tile_ids, n_tiles, P)
     dev = tile_ids.device
     if dev.type == "cpu":
@@ -135,19 +141,17 @@ def place_pairs(tile_ids: Tensor, n_tiles: int, P: int):
     # as the outputs, which are views of the allocation)
     sizes = [n_tiles, G * n_tiles, G * n_tiles if in_dev else 0, np_slots]
     n_out = n_tiles + 1 + P
-    with torch.profiler.record_function(PROFILE_LABEL):
-        place_pairs.launches += 1
-        buf = torch.empty((n_out + sum(sizes),), dtype=torch.int32,
-                          device=dev)
-        base = buf.data_ptr()
-        tot, rows, cur, stage = (base + 4 * (n_out + sum(sizes[:i]))
-                                 for i in range(4))
-        place = build.entry("bin_place", "bin_place_launch", _PLACE_ARGS)
-        build.check(place(build.ptr(tile_ids), np_slots, K, n_tiles, G, run,
-                          int(in_dev), rows, tot, cur, stage, P, B * T, base,
-                          base + 4 * (n_tiles + 1), build.stream(dev)),
-                    "bin_place")
-        return buf[:n_tiles + 1], buf[n_tiles + 1:n_out]
+    place_pairs.launches += 1
+    buf = torch.empty((n_out + sum(sizes),), dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    tot, rows, cur, stage = (base + 4 * (n_out + sum(sizes[:i]))
+                             for i in range(4))
+    place = build.entry("bin_place", "bin_place_launch", _PLACE_ARGS)
+    build.check(place(build.ptr(tile_ids), np_slots, K, n_tiles, G, run,
+                      int(in_dev), rows, tot, cur, stage, P, B * T, base,
+                      base + 4 * (n_tiles + 1), build.stream(dev)),
+                "bin_place")
+    return buf[:n_tiles + 1], buf[n_tiles + 1:n_out]
 
 
 place_pairs.launches = 0

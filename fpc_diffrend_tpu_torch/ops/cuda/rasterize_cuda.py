@@ -41,6 +41,7 @@ import torch
 from fpc_diffrend_tpu_torch.kernels import build
 from fpc_diffrend_tpu_torch.ops.cuda.bin_place_cuda import place_pairs
 from fpc_diffrend_tpu_torch.ops.texture import bilinear
+from fpc_diffrend_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -331,6 +332,11 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     # a stacked tile holds one sample's triangles, so ordering a bin by the
     # stacked id b*T + t orders it by t, as the key tile * T + t does
     bin_start, sorted_tri = place_pairs(tile_ids, n_tiles, P)
+    # the bins' fill while recording (utils.profiling): the live pair
+    # slots, those kept (the rest were cut at the cap) and the entries
+    profiling.count("bin.live_pairs", lambda: (tile_ids < n_tiles).sum())
+    profiling.count("bin.kept", lambda: bin_start[-1])
+    profiling.count("bin.capacity", P)
 
     rec = torch.cat([data_s.detach(), aux_s.detach()],
                     dim=-1).reshape(B * T, REC)

@@ -32,6 +32,7 @@ from fpc_diffrend_tpu_torch.ops.rasterize import (
     check_impl, rasterize, rasterize_textured_sepaa_stacked,
     rasterize_with_uv)
 from fpc_diffrend_tpu_torch.ops.texture import texture
+from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -47,10 +48,12 @@ def composite_stacked(idbuf: Tensor, aa: Tensor, batch: int,
     :return: (B, H, W, C) images.
     """
     h, w = resolution
-    img = torch.where(idbuf >= 0, aa, background)
-    ph = idbuf.shape[0] // batch
-    img = img.reshape(aa.shape[0], batch, ph, idbuf.shape[1])[:, :, :h, :w]
-    return img.movedim(0, -1)
+    with span("raster.composite"):
+        img = torch.where(idbuf >= 0, aa, background)
+        ph = idbuf.shape[0] // batch
+        img = img.reshape(aa.shape[0], batch, ph,
+                          idbuf.shape[1])[:, :, :h, :w]
+        return img.movedim(0, -1)
 
 
 def render_batch_stacked(pos_clip_b: Tensor, pos_idx: Tensor, uv: Tensor,

@@ -37,6 +37,11 @@ first and last image rows of the pre-antialias colour and of u, v, z as
 two more outputs, whose cotangents join the backward before the sampler's
 kernel and K5: the sharded band render's seam (``parallel.spatial``).
 
+The layers are spans of ``utils.profiling``: ``raster.bin`` (records and
+binning), ``raster.fwd`` (a render Function's forward, with the mip
+pyramid's build on the mip route) and ``raster.bwd`` (its backward, on
+autograd's device thread on CUDA).
+
 Every Function here reads the gradient precision (``ops.precision``) in
 its forward and keeps it, so that its backward launches K4 and K5 in the
 forward's modes (K9 has none).
@@ -69,6 +74,7 @@ from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
 from fpc_diffrend_tpu_torch.ops.interpolate import gather_rows, interpolate
 from fpc_diffrend_tpu_torch.ops.precision import get_precision
 from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
+from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -151,11 +157,14 @@ class RasterizeTexturedSepaaStacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_id, g_aa):
-        idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
-        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
-        gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
-        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts),
-                gtex, None, None, None, None)
+        with span("raster.bwd"):
+            idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
+            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
+                                             g_aa)
+            gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
+            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
+                                  gverts),
+                    gtex, None, None, None, None)
 
 
 class RasterizeTexturedAaFused(RasterizeTexturedSepaaStacked):
@@ -220,12 +229,16 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_id, g_aa):
-        idbuf, entry, payload, extra, colour, pyramid, lam = ctx.saved_tensors
-        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
-        gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
-                                        payload[4], lam, gcolour)
-        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts),
-                gpyr, None, None, None, None, None)
+        with span("raster.bwd"):
+            (idbuf, entry, payload, extra, colour, pyramid,
+             lam) = ctx.saved_tensors
+            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
+                                             g_aa)
+            gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
+                                            payload[4], lam, gcolour)
+            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
+                                  gverts),
+                    gpyr, None, None, None, None, None)
 
 
 def _edge_rows(ctx, payload, colour):
@@ -276,14 +289,16 @@ class RasterizeTexturedSepaaBand(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
-        idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
-        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
-        gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
-                                        g_uvz_rows)
-        gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
-        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts,
-                              guvz),
-                gtex, None, None, None, None)
+        with span("raster.bwd"):
+            idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
+            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
+                                             g_aa)
+            gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
+                                            g_uvz_rows)
+            gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
+            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
+                                  gverts, guvz),
+                    gtex, None, None, None, None)
 
 
 class RasterizeMipSepaaBand(torch.autograd.Function):
@@ -308,15 +323,18 @@ class RasterizeMipSepaaBand(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
-        idbuf, entry, payload, extra, colour, pyramid, lam = ctx.saved_tensors
-        gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour, g_aa)
-        gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
-                                        g_uvz_rows)
-        gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
-                                        payload[4], lam, gcolour)
-        return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts,
-                              guvz),
-                gpyr, None, None, None, None, None)
+        with span("raster.bwd"):
+            (idbuf, entry, payload, extra, colour, pyramid,
+             lam) = ctx.saved_tensors
+            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
+                                             g_aa)
+            gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
+                                            g_uvz_rows)
+            gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
+                                            payload[4], lam, gcolour)
+            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
+                                  gverts, guvz),
+                    gpyr, None, None, None, None, None)
 
 
 def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
@@ -329,10 +347,11 @@ def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
         Bins over the (B * ph, pw) stacked image).
     """
     height, width = resolution
-    aux_b = aux_records(uv, uv_idx, pos_clip_b, faces, face_neighbors,
-                        height, width)
-    return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b,
-                             entry_cap)
+    with span("raster.bin"):
+        aux_b = aux_records(uv, uv_idx, pos_clip_b, faces, face_neighbors,
+                            height, width)
+        return bin_scene_stacked(pos_clip_b, faces, height, width, aux_b,
+                                 entry_cap)
 
 
 def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
@@ -365,11 +384,14 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
                                       face_neighbors, resolution,
                                       pair_cap or 0)
-    if enable_mip:
-        pyramid, sizes = mip_pyramid(tex, max_mip_level)
-        return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid, sizes,
-                                              bins, ph, height, width)
-    return ROUTES[route].apply(data_s, aux_s, tex, bins, ph, height, width)
+    with span("raster.fwd"):
+        if enable_mip:
+            pyramid, sizes = mip_pyramid(tex, max_mip_level)
+            return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid,
+                                                  sizes, bins, ph, height,
+                                                  width)
+        return ROUTES[route].apply(data_s, aux_s, tex, bins, ph, height,
+                                   width)
 
 
 # ----------------------------------------------------------------------------
@@ -542,11 +564,12 @@ class RasterizeKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_id, g_payload):
-        entry, payload, extra = ctx.saved_tensors
-        g = g_payload.contiguous()
-        return (*_records_bwd(ctx, entry, payload, extra, g[3], g[4],
-                              g[5:11], g[:3]),
-                None, None, None, None)
+        with span("raster.bwd"):
+            entry, payload, extra = ctx.saved_tensors
+            g = g_payload.contiguous()
+            return (*_records_bwd(ctx, entry, payload, extra, g[3], g[4],
+                                  g[5:11], g[:3]),
+                    None, None, None, None)
 
 
 def check_impl(impl: str) -> str:
@@ -576,11 +599,11 @@ def _rasterize_kernel(pos_clip: Tensor, faces: Tensor, uv, uv_idx,
         uv = torch.zeros((1, 2), device=pos_clip.device)
         uv_idx = torch.zeros_like(faces)
     ph, _ = pad_resolution(height, width)
-    aux = aux_records(uv, uv_idx, pos_clip[None], faces, None, height, width)
-    data_s, aux_s, bins = bin_scene_stacked(pos_clip[None], faces, height,
-                                            width, aux)
-    idbuf_p, payload_p = RasterizeKernel.apply(data_s, aux_s, bins, ph,
-                                               height, width)
+    data_s, aux_s, bins = bin_stacked(pos_clip[None], faces, uv, uv_idx,
+                                      None, resolution)
+    with span("raster.fwd"):
+        idbuf_p, payload_p = RasterizeKernel.apply(data_s, aux_s, bins, ph,
+                                                   height, width)
     idbuf = idbuf_p[:height, :width]
     payload = payload_p[:, :height, :width]
     idf = torch.where(idbuf >= 0, (idbuf + 1).to(torch.float32), 0.0)

@@ -39,6 +39,7 @@ from fpc_diffrend_tpu_torch.ops.rasterize import (
 from fpc_diffrend_tpu_torch.ops.texture import texture
 from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
 from fpc_diffrend_tpu_torch.parallel.mesh import exchange
+from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -122,13 +123,15 @@ def render_band_stacked(band_clip: Tensor, pos_idx: Tensor, uv: Tensor,
     ph, pw = pad_resolution(hb, w)
     data_s, aux_s, bins = bin_stacked(band_clip, pos_idx, uv, uv_idx,
                                       face_neighbors, (hb, w), pair_cap or 0)
-    if enable_mip:
-        pyramid, sizes = mip_pyramid(tex, max_mip_level)
-        idbuf, aa, colour_rows, uvz_rows = RasterizeMipSepaaBand.apply(
-            data_s, aux_s, pyramid, sizes, bins, ph, hb, w)
-    else:
-        idbuf, aa, colour_rows, uvz_rows = RasterizeTexturedSepaaBand.apply(
-            data_s, aux_s, tex, bins, ph, hb, w)
+    with span("raster.fwd"):
+        if enable_mip:
+            pyramid, sizes = mip_pyramid(tex, max_mip_level)
+            idbuf, aa, colour_rows, uvz_rows = RasterizeMipSepaaBand.apply(
+                data_s, aux_s, pyramid, sizes, bins, ph, hb, w)
+        else:
+            idbuf, aa, colour_rows, uvz_rows = (
+                RasterizeTexturedSepaaBand.apply(data_s, aux_s, tex, bins,
+                                                 ph, hb, w))
     first = torch.arange(B, device=idbuf.device) * ph
     rows = torch.stack([first, first + hb - 1], 1).reshape(-1)
     ids = idbuf[rows].reshape(B, 2, pw)[..., :w]

@@ -6,43 +6,40 @@ bench workload.
 
 Needs a CUDA device. Traces ``fit.loop.evaluate`` and ``fit.loop.
 train_steps`` with ``torch.profiler`` (CPU and CUDA activities) on the
-bench workload (``--mip``: its trilinear-mipmap variant) and prints for
-each:
+bench workload (``--mip``: its trilinear-mipmap variant), inside
+``utils.profiling.recording()``, and prints for each:
 
 * the device busy share of the traced window: the summed time of the CUDA
   kernels and copies over the window's wall time (one stream, so device
   work does not overlap);
 * the kernels with the most device time;
+* per span of the program (``fit.step``, ``raster.bin``, ``K11
+  bin_place``, ``fit.backward``, ``raster.bwd``, ...: the layers of the
+  very step it traced), its host time and self time per iteration and
+  the device time of the kernels launched inside it on any thread (the
+  backward launches from autograd's thread while ``fit.backward`` waits).
 
-and the device time per stage of one step (prologue, binning with K11's
-count and place launches as a stage of their own inside it, K1, K2,
-composite + loss with its backward, K3, K4, K5, K6, the setup chain's
-backward, the gate + Adam + renorm; on the mip path K1 without its
-texture tail, the pyramid build, the LOD and K8 before K2, and K9 in
-place of K4 with the pyramid's backward after the setup chain's), each
-stage traced under its own ``record_function`` label. Kernels that
-autograd's engine launches from its own thread (the backward of the loss
-and of the setup chain) fall outside those labels; ``chip_smoke.py``'s
-CUDA-event spans time them. The record goes to
-``chiprun_out/profile_forward.json`` (``profile_forward_mip.json`` with
-``--mip``).
+The record goes to ``chiprun_out/profile_forward.json``
+(``profile_forward_mip.json`` with ``--mip``). ``forward_stages`` and
+``step_stages`` give the step's stages as functions to run one by one
+(``chip_smoke.py`` and ``chip_turns.py`` time them with CUDA events).
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from fpc_diffrend_tpu_torch.fit import loop
 from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
 from fpc_diffrend_tpu_torch.fit import state as state_mod
-from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
@@ -50,6 +47,7 @@ from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
 from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
 from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
+from fpc_diffrend_tpu_torch.utils import profiling
 from fpc_diffrend_tpu_torch.workload import build_workload
 
 _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -224,20 +222,50 @@ def step_stages(wl: dict, state: dict):
                   ("Adam", adam)]
 
 
-def _stages(stages):
-    for name, fn in stages:
-        with record_function("stage:" + name):
-            fn()
+def span_device_us(trace_path: str) -> dict:
+    """span name -> summed device time (us) of the kernels whose launch
+    (the runtime or driver call of the kernel's correlation id) began
+    inside one of the span's intervals, on any thread, from a Chrome
+    trace of ``torch.profiler``."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans, launched, kernels = {}, {}, []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat = e.get("cat")
+        corr = e.get("args", {}).get("correlation")
+        if cat == "user_annotation":
+            spans.setdefault(e["name"], []).append((e["ts"],
+                                                    e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            launched[corr] = e["ts"]
+        elif cat == "kernel":
+            kernels.append((corr, e["dur"]))
+    ts = sorted((launched[c], d) for c, d in kernels if c in launched)
+    starts = [t for t, _ in ts]
+    prefix = [0.0]
+    for _, d in ts:
+        prefix.append(prefix[-1] + d)
+    return {name: sum(prefix[bisect.bisect_right(starts, b)]
+                      - prefix[bisect.bisect_left(starts, a)]
+                      for a, b in ivs)
+            for name, ivs in spans.items()}
 
 
-def _traced(fn):
-    """(wall ms, device kernels) of fn() under the profiler."""
+def _traced(fn, trace_path: str):
+    """(wall ms, device kernels, span name -> device us) of fn() under the
+    profiler; its Chrome trace is written to ``trace_path`` and removed."""
     with profile(activities=_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, device_kernels(prof)
+    prof.export_chrome_trace(trace_path)
+    try:
+        return wall_ms, device_kernels(prof), span_device_us(trace_path)
+    finally:
+        os.remove(trace_path)
 
 
 def main() -> None:
@@ -263,41 +291,35 @@ def main() -> None:
         loop.train_steps(config, scene, wl["state"], wl["frames_u8"], dgen,
                          args.steps, wl["n_frames"])
 
+    out = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    stem = "profile_forward_mip" if args.mip else "profile_forward"
     record = {"card": torch.cuda.get_device_name(0), "mip": args.mip}
     for name, fn, n in (("evaluate", evaluate, args.batches),
                         ("train_steps", steps, args.steps)):
         fn()                                            # warm-up
         torch.cuda.synchronize()
-        wall_ms, kernels = _traced(fn)
+        with profiling.recording() as log:
+            wall_ms, kernels, span_us = _traced(
+                fn, os.path.join(out, f"{stem}.{name}.trace.json"))
         busy_ms = sum(r[1] for r in kernels)
+        spans = {k: {"count": c, "host_ms": 1e3 * t / n,
+                     "self_host_ms": 1e3 * own / n,
+                     "device_ms": span_us.get(k, 0.0) / 1e3 / n}
+                 for k, (c, t, own) in log.totals().items()}
         record[name] = {"n": n, "wall_ms": wall_ms, "busy_ms": busy_ms,
-                        "kernels": kernels[:40]}
+                        "kernels": kernels[:40], "spans": spans}
         if busy_ms == 0:
             print("the profiler recorded no device time: use CUDA events")
         print(f"{name} x{n}: wall {wall_ms:.3f} ms, device busy "
               f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
         for kname, ms, cnt in kernels[:15]:
             print(f"  {ms / n:9.3f} ms/iter  x{cnt // n:<4d} {kname[:100]}")
-
-    stages = step_stages(wl, {})
-    _stages(stages)                                     # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=_ACTIVITIES) as sprof:
-        _stages(stages)
-        torch.cuda.synchronize()
-    # K11's range lies inside the binning stage, whose time includes it
-    record["stage_device_ms"] = {
-        ("  " + e.key + " (in binning)" if e.key == bp.PROFILE_LABEL
-         else e.key[len("stage:"):]): e.device_time_total / 1e3
-        for e in sprof.key_averages()
-        if e.key.startswith("stage:") or e.key == bp.PROFILE_LABEL}
-    print("stage device ms (one step): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in record["stage_device_ms"].items()))
-    out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    name = "profile_forward_mip.json" if args.mip else "profile_forward.json"
-    with open(os.path.join(out, name), "w") as f:
+        print("  spans per iter (host ms, self, device ms): " + ", ".join(
+            f"{k} {v['host_ms']:.3f} {v['self_host_ms']:.3f} "
+            f"{v['device_ms']:.3f}" for k, v in spans.items()))
+    with open(os.path.join(out, stem + ".json"), "w") as f:
         json.dump(record, f, indent=1)
 
 

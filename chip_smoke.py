@@ -59,23 +59,29 @@ Phases, each fatal on failure:
 5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
    dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
    (a host sync on the step's path fails it), then 2 timed dispatches of 5
-   with the launch counters set to 0 just before; every loss term and
-   parameter must be finite and each of K1-K6 and K11 launched once per
-   step (K8, K9 never); the same steps uncapped, for information; then
+   with the launch counters set to 0 just before, which must launch
+   nothing from the host (every step a replay of the step's CUDA graph),
+   and one more dispatch whose kernels ``ops.cuda.device_launches``
+   measures on the device; every loss term and parameter must be finite
+   and each of K1-K6 and K11 run once per step (K8, K9 never); the same
+   steps uncapped, for information; then
    per-stage CUDA-event times of one batch's forward and one step;
 5b. the mip path at full width: the same workload with trilinear mipmap
    sampling (``enable_mip``, ``max_mip_level=6``: 7 levels, 1024..16),
    5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch) and
    2 timed dispatches of 5 steps through ``fit.loop.train_steps`` after a
-   warm-up dispatch under sync-debug "error" (K1, K2, K3, K5, K6, K8, K9,
-   K11 once per step, K4 never), finite; then its stage times;
+   warm-up dispatch under sync-debug "error", replays all, then one
+   measured as in 5 (K1, K2, K3, K5, K6, K8, K9, K11 once per step on the
+   device, K4 never), finite; then its stage times;
 5c. ``fit.api.fit_take`` at full width: the bench dome, eight blendshapes,
    the three cameras' calibration and 3 x 4 frames of 1600x1200 as
    uncompressed TIFFs written to a temporary take; a prior-mode fit of 20
    steps (batch 8, 1024^2 texture, log every 5, checkpoint every 10) must
    read its data through the native runtime, load the frames back clipped
-   and flipped, autotune the cap, run K1-K6 and K11 once per step, keep a
-   finite loss and write metrics.jsonl, result/{0..3}.obj, texture.png,
+   and flipped, autotune the cap, run K1-K6 and K11 once per step on the
+   device (measured as in 5), return its state without the step's CUDA
+   graph, keep a finite loss and write metrics.jsonl, result/{0..3}.obj,
+   texture.png,
    pose.json and config.txt that parse; a second fit_take to 25 steps must
    resume from the checkpoint, end at step 25 and write them again, and
    with ``mp4_interval=2`` write three progress frames (camera 0, frame 0
@@ -119,7 +125,8 @@ Phases, each fatal on failure:
    the result files parse) and the convergence study (512^2, 9 cameras, 4
    frames, 2,000 steps at batch 8 and at batch 1; each batch's logged
    losses finite, its final loss below its first logged one, its pose
-   error below its start); K1-K6 and K11 once a step in each fit; after
+   error below its start); K1-K6 and K11 launched from the host once in
+   each eager step and capture of each fit, the other steps replays; after
    each fit, one step's inputs of it (the cube's and the rig's fitted
    parameters, the study's init at batch 8 and at batch 1, each at its
    own entry cap, with the batch its first step samples and the step's
@@ -2021,8 +2028,12 @@ def examples_phase(counters, card):
     (512^2, 9 cameras, 4 frames, 25 steps a dispatch) at batch 8 and at
     batch 1, the full 2,000 steps each (~40 s a batch on the H100): every
     logged loss finite, the final loss below the first logged, the final
-    pose error below its start. Each fit runs K1-K6 and K11 once a step
-    (and the ground-truth renders K11, K1, K2 once each). After each fit
+    pose error below its start. Each fit launches K1-K6 and K11 from the
+    host once in each of its eager steps and captures of the step's CUDA
+    graph, every other step a replay (``fit.eager_steps`` +
+    ``fit.graph_replays`` its steps; phases 5, 5b and 5c measure what a
+    replay runs on the device), and the ground-truth renders K11, K1, K2
+    once each. After each fit
     (each batch of the study), :func:`check_fit_step` holds K1-K6 and K11
     against their plain versions on one step's inputs of it, the cube's
     with triangles in the global list; the counters are set to 0 after
@@ -2044,6 +2055,7 @@ def examples_phase(counters, card):
                                                  fit_cube, fit_rig_synthetic)
     from fpc_diffrend_tpu_torch.fit.api import (measure_raster_health,
                                                 setup_from_config)
+    from fpc_diffrend_tpu_torch.utils.profiling import recording
 
     t_phase = time.perf_counter()
     rec = {}
@@ -2058,18 +2070,33 @@ def examples_phase(counters, card):
         return n_global
 
     def counted(fn):
+        """(fn's result, its seconds, the launches of its wrappers, its
+        ``fit.eager_steps``, ``fit.graph_captures`` and
+        ``fit.graph_replays``)."""
         zero()
         t0 = time.perf_counter()
-        out = fn()
+        with recording() as log:
+            out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, {k: f.launches
-                                               for k, f in counters.items()}
+        sec = time.perf_counter() - t0
+        n = {k: log.counters.get(f"fit.{k}", 0)
+             for k in ("eager_steps", "graph_captures", "graph_replays")}
+        return (out, sec, {k: f.launches for k, f in counters.items()}, n)
+
+    def host_steps(n, steps, label):
+        """The steps of a fit that launched from the host, its eager steps
+        and captures of the step's CUDA graph (a replay launches from no
+        wrapper), where each of its ``steps`` ran eagerly or replayed."""
+        if n["eager_steps"] + n["graph_replays"] != steps:
+            fail(f"{label}: {n} do not add up to its {steps} steps")
+        return n["eager_steps"] + n["graph_captures"]
 
     # ---- fit_cube ----
-    cube, cube_s, launches = counted(
+    cube, cube_s, launches, n = counted(
         lambda: fit_cube.run(fit_cube.parse_args([])))
     steps = cube["config"].max_iter
-    want = example_launches(counters, steps, cube["renders"])
+    want = example_launches(counters, host_steps(n, steps, "fit_cube"),
+                            cube["renders"])
     losses = cube["losses"]
     if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
         fail(f"fit_cube: {len(losses)} losses, not all finite")
@@ -2086,20 +2113,25 @@ def examples_phase(counters, card):
     rec["fit_cube"] = {"ms_per_step": cube["seconds"] / steps * 1e3,
                        "loss_first": losses[0], "loss_last": losses[-1],
                        "n_global": health["n_global"], "launches": launches,
-                       "gt_t": cube["gt_t"], "fit_t": cube["fit_t"]}
+                       "steps": n, "gt_t": cube["gt_t"],
+                       "fit_t": cube["fit_t"]}
     print(f"fit_cube: {steps} steps at 128^2, "
           f"{rec['fit_cube']['ms_per_step']:.3f} ms/step (host clock, a "
           f"loss read each step); loss {losses[0]:.2f} -> {losses[-1]:.2f} "
           f"(CONVERGED); {health['n_global']} of 12 triangles in the "
-          f"global list; launches {launches}", flush=True)
+          f"global list; launches from the host {launches}, steps {n}",
+          flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
         # ---- fit_rig_synthetic: the take on disk, fitted by fit_take ----
         work = os.path.join(tmp, "rig")
-        rig_out, rig_s, launches = counted(lambda: fit_rig_synthetic.run(
-            fit_rig_synthetic.parse_args(["--workdir", work])))
+        rig_out, rig_s, launches, n = counted(
+            lambda: fit_rig_synthetic.run(
+                fit_rig_synthetic.parse_args(["--workdir", work])))
         cfg = rig_out["config"]
-        want = example_launches(counters, cfg.max_iter, rig_out["renders"])
+        want = example_launches(
+            counters, host_steps(n, cfg.max_iter, "fit_rig_synthetic"),
+            rig_out["renders"])
         if launches != want or rig_out["state"].step != cfg.max_iter:
             fail(f"fit_rig_synthetic: {rig_out['state'].step} steps, "
                  f"launches {launches} != {want}")
@@ -2124,14 +2156,16 @@ def examples_phase(counters, card):
             "ms_per_step": rig_ms, "seconds": rig_s, "coverage": cov,
             "pose_err_init": rig_out["err0"], "pose_err": rig_out["err"],
             "losses": [r["loss"] for r in records],
-            "pair_cap": records[0]["pair_cap"], "launches": launches}
+            "pair_cap": records[0]["pair_cap"], "launches": launches,
+            "steps": n}
         print(f"fit_rig_synthetic: fit_take of a 9-camera take on disk "
               f"(256^2, 2 frames, batch 8, 3,072 tris) in {rig_s:.1f} s "
               f"with set-up, renders and results; {rig_ms:.3f} ms/step over "
               f"steps {lo}-{hi} (host clock); coverage {min(cov):.3f}-"
               f"{max(cov):.3f}; pose error {rig_out['err0']:.4f} -> "
               f"{rig_out['err']:.4f} (RECOVERING); pair_cap "
-              f"{records[0]['pair_cap']}; launches {launches}", flush=True)
+              f"{records[0]['pair_cap']}; launches from the host "
+              f"{launches}, steps {n}", flush=True)
 
         # ---- the convergence study, batch 8 then batch 1 ----
         args = convergence_study.parse_args(["--out",
@@ -2140,14 +2174,16 @@ def examples_phase(counters, card):
         init_err = float(np.abs(study["gt_t"]).mean())
         results, rec["convergence"] = {}, {}
         for batch in convergence_study.BATCHES:
-            res, sec, launches = counted(
+            res, sec, launches, n = counted(
                 lambda: convergence_study.fit_batch(study, batch))
             results[f"batch{batch}"] = res
             config, params = convergence_study.initial_state(study, batch)
             checked(config, study["scene"], params, study["frames_u8"],
                     f"convergence batch {batch} step")
             curve = res["curve"]
-            want = example_launches(counters, args.steps, 0)
+            want = example_launches(
+                counters, host_steps(n, args.steps,
+                                     f"convergence batch {batch}"), 0)
             if launches != want:
                 fail(f"convergence batch {batch}: launches {launches} != "
                      f"{want}")
@@ -2167,14 +2203,14 @@ def examples_phase(counters, card):
                 res["final_loss"], "pose_err_first": curve[0]["pose_err"],
                 "pose_err_final": res["final_pose_err"],
                 "min_pose_err": min(p["pose_err"] for p in curve),
-                "launches": launches}
+                "launches": launches, "steps": n}
             print(f"convergence batch {batch}: {args.steps} steps at 512^2 "
                   f"in {sec:.1f} s ({sec / args.steps * 1e3:.3f} ms/step, "
                   f"host clock, autotune and a loss read every 25 steps); "
                   f"loss {curve[0]['loss']:.3f} (step {curve[0]['step']}) "
                   f"-> {res['final_loss']:.3f}; pose error {init_err:.4f} "
-                  f"-> {res['final_pose_err']:.4f}; launches {launches}",
-                  flush=True)
+                  f"-> {res['final_pose_err']:.4f}; launches from the host "
+                  f"{launches}, steps {n}", flush=True)
         converged = convergence_study.write_report(study, results)
         with open(os.path.join(args.out, "convergence.md")) as f:
             table = f.read()
@@ -2498,19 +2534,21 @@ def precision_turns(pairs, turns: int = 2) -> dict:
 
 def bench_gates(rec, label):
     """Phase 10b's gates on one ``bench`` record: it survives a JSON round
-    trip with a finite Mpix/s; K11 and K1-K6 launched once a timed step
-    (K8 and K9 in place of K4 on the mip row), K7 and K10 never; the
-    temporal term nonzero exactly where its weight is."""
+    trip with a finite Mpix/s; K11 and K1-K6 ran on the device once a
+    step of its measured launches (K8 and K9 in place of K4 on the mip
+    row), K7 and K10 never; the temporal term nonzero exactly where its
+    weight is."""
+    from fpc_diffrend_tpu_torch.ops.cuda import device_want
+
     line = json.loads(json.dumps(rec))
     if not (math.isfinite(line["value"]) and line["value"] > 0
             and math.isfinite(line["step_ms"])):
         fail(f"{label}: bench line without a finite Mpix/s: {line}")
     steps, mip = line["steps"], "mip" in label
-    want = dict.fromkeys(line["launches"], 0)
-    for k in STEP_KERNELS:
-        want[k] = steps
+    want = dict.fromkeys(STEP_KERNELS, steps)
     if mip:
         want.update(texture_bwd=0, mip_sample=steps, mip_sample_bwd=steps)
+    want = device_want(want)
     if line["launches"] != want:
         fail(f"{label}: launches {line['launches']} != {want}")
     if (line["temporal"] > 0) != ("temporal" in label):
@@ -2545,6 +2583,7 @@ def precision_phase(tex, sstate, card):
     from fpc_diffrend_tpu_torch import bench, bench_matrix
     from fpc_diffrend_tpu_torch.examples import (convergence_study,
                                                  precision_study)
+    from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
 
     t_phase = time.perf_counter()
     rec = {}
@@ -2568,7 +2607,7 @@ def precision_phase(tex, sstate, card):
             return
         check_fit_step(wl["config"], wl["scene"], wl["state"].params,
                        wl["frames_u8"], f"{name} step")
-        for f in bench.KERNELS.values():
+        for f in counters.values():
             f.launches = 0
 
     rows = bench_matrix.run(quick=True, check=check_row)
@@ -2596,7 +2635,7 @@ def precision_phase(tex, sstate, card):
     check_fit_step(config, study["study"]["scene"], params,
                    study["study"]["frames_u8"], "precision study step",
                    modes=True)
-    for f in bench.KERNELS.values():
+    for f in counters.values():
         f.launches = 0
     rec["study"] = {}
     for tag, r in study["runs"].items():
@@ -2696,7 +2735,7 @@ def sharded_rank_main(argv) -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
+    from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
     from fpc_diffrend_tpu_torch.models.camera import transform_clip
@@ -2849,7 +2888,7 @@ def sharded_phase(wl, card):
     import torch
     import torch.distributed as dist
 
-    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
+    from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
     from fpc_diffrend_tpu_torch.kernels import build
@@ -2963,7 +3002,7 @@ def sharded_ranks(dev, depth, card, gate):
 
     import torch
 
-    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
+    from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit import state as state_mod
 
@@ -3761,12 +3800,14 @@ def main() -> int:
     import numpy as np
 
     from fpc_diffrend_tpu_torch.data import frames as frames_mod
-    from fpc_diffrend_tpu_torch.bench import KERNELS as counters
     from fpc_diffrend_tpu_torch.fit import api as fit_api
     from fpc_diffrend_tpu_torch.fit import checkpoint as ckpt_mod
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.fit.config import FitConfig
     from fpc_diffrend_tpu_torch.kernels import build
+    from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
+    from fpc_diffrend_tpu_torch.ops.cuda import (DEVICE_KERNELS,
+                                                 device_launches, device_want)
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
@@ -3914,23 +3955,29 @@ def main() -> int:
     torch.cuda.synchronize()
     n_steps = k * n_dispatch
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    launches = {k: f.launches for k, f in counters.items()}
+    host = {k: f.launches for k, f in counters.items()}
+    # one more dispatch, its kernels measured on the device
+    with device_launches() as launches:
+        runs.append(loop.train_steps(config, scene, state, wl["frames_u8"],
+                                     gen, k, wl["n_frames"])[1])
     losses = {m: torch.cat([r[m] for r in runs]).tolist() for m in runs[0]}
     mpix = B * H * W / step_ms / 1e3
     print(f"train_steps: {n_dispatch} x {k} steps, {step_ms:.3f} ms/step "
-          f"(host clock, synchronized), {mpix:.1f} Mpix/s; launches "
-          f"{launches}; loss first {losses['loss'][0]} last "
-          f"{losses['loss'][-1]}", flush=True)
+          f"(host clock, synchronized), {mpix:.1f} Mpix/s; then {k} steps "
+          f"launched on the device {launches}; loss first "
+          f"{losses['loss'][0]} last {losses['loss'][-1]}", flush=True)
     for m, v in losses.items():
         if not all(math.isfinite(x) for x in v):
             fail(f"non-finite step {m}: {v}")
     for name, p in params.items():
         if not bool(torch.isfinite(p).all()):
             fail(f"non-finite parameter {name} after the steps")
-    want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY else n_steps
-            for k in counters}
+    if any(host.values()):
+        fail(f"the timed steps launched from the host {host}: not every "
+             "step replayed the step's CUDA graph")
+    want = device_want(dict.fromkeys(STEP_KERNELS, k))
     if launches != want:
-        fail(f"kernel launches {launches} != {want}")
+        fail(f"kernel launches on the device {launches} != {want}")
     record.update(step_ms=step_ms, mpix_per_s=mpix, step_losses=losses,
                   launches=launches, steps_taken=state.step)
 
@@ -4010,23 +4057,29 @@ def main() -> int:
                              wlm["n_frames"])[1] for _ in range(n_dispatch)]
     torch.cuda.synchronize()
     mip_step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    mip_launches = {k: f.launches for k, f in counters.items()}
+    host = {k: f.launches for k, f in counters.items()}
+    with device_launches() as mip_launches:
+        runs.append(loop.train_steps(cm, scm, mstate, wlm["frames_u8"], gen,
+                                     k, wlm["n_frames"])[1])
     mlosses = {m: torch.cat([r[m] for r in runs]).tolist() for m in runs[0]}
     print(f"mip train_steps: {n_dispatch} x {k} steps, {mip_step_ms:.3f} "
           f"ms/step (host clock, synchronized), "
-          f"{B * H * W / mip_step_ms / 1e3:.1f} Mpix/s; launches "
-          f"{mip_launches}; loss first {mlosses['loss'][0]} last "
-          f"{mlosses['loss'][-1]}", flush=True)
+          f"{B * H * W / mip_step_ms / 1e3:.1f} Mpix/s; then {k} steps "
+          f"launched on the device {mip_launches}; loss first "
+          f"{mlosses['loss'][0]} last {mlosses['loss'][-1]}", flush=True)
     for m, v in mlosses.items():
         if not all(math.isfinite(x) for x in v):
             fail(f"mip: non-finite step {m}: {v}")
     for name, p in pm.items():
         if not bool(torch.isfinite(p).all()):
             fail(f"mip: non-finite parameter {name} after the steps")
-    want = {k: 0 if k == "texture_bwd" or k in SINGLE_VIEW_ONLY else n_steps
-            for k in counters}
+    if any(host.values()):
+        fail(f"mip: the timed steps launched from the host {host}: not "
+             "every step replayed the step's CUDA graph")
+    want = device_want(dict(dict.fromkeys(STEP_KERNELS, k), texture_bwd=0,
+                            mip_sample=k, mip_sample_bwd=k))
     if mip_launches != want:
-        fail(f"mip: kernel launches {mip_launches} != {want}")
+        fail(f"mip: kernel launches on the device {mip_launches} != {want}")
     with torch.no_grad():
         mip_stages = {name: cuda_ms(fn, 5)
                       for name, fn in forward_stages(wlm, {})}
@@ -4057,13 +4110,10 @@ def main() -> int:
             checkpoint_dir=os.path.join(tmp, "ckpt"),
             out_dir=os.path.join(tmp, "out"), **paths)
         native.load_tiffs.files = native.parse_obj_vertices.files = 0
-        for f in counters.values():
-            f.launches = 0
         t0 = time.perf_counter()
-        fstate = fit_api.fit_take(fcfg)
-        torch.cuda.synchronize()
+        with device_launches() as fit_launches:
+            fstate = fit_api.fit_take(fcfg)
         fit_s = time.perf_counter() - t0
-        fit_launches = {k: f.launches for k, f in counters.items()}
         read = (native.load_tiffs.files, native.parse_obj_vertices.files)
         if read != (12, 8):
             fail(f"fit_take read {read} TIFFs and blendshapes through the "
@@ -4074,11 +4124,12 @@ def main() -> int:
                               np.clip(written, 0, 140)[:, :, ::-1, :]):
             fail("the take's frames loaded back differ from those written, "
                  "clipped to 140 and flipped")
-        want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY
-                else n_fit for k in counters}
+        want = device_want(dict.fromkeys(STEP_KERNELS, n_fit))
         if fit_launches != want or fstate.step != n_fit:
-            fail(f"fit_take ran {fstate.step} steps with launches "
-                 f"{fit_launches} != {want}")
+            fail(f"fit_take ran {fstate.step} steps with launches on the "
+                 f"device {fit_launches} != {want}")
+        if fstate.graph is not None:
+            fail("fit_take returned its state with the step's CUDA graph")
         nv, nt = scene.n_vertices, T
         records = check_fit_outputs(fcfg, nv, nt, 4, "fit_take")
         if [r["step"] for r in records] != [1, 6, 11, 16]:
@@ -4120,20 +4171,17 @@ def main() -> int:
 
         shutil.rmtree(os.path.join(fcfg.out_dir, "result"))
         os.remove(os.path.join(fcfg.out_dir, "config.txt"))
-        for f in counters.values():
-            f.launches = 0
-        rstate = fit_api.fit_take(dataclasses.replace(
-            fcfg, max_iter=n_fit + 5, mp4_interval=2))
-        torch.cuda.synchronize()
-        resumed = {k: f.launches for k, f in counters.items()}
+        with device_launches() as resumed:
+            rstate = fit_api.fit_take(dataclasses.replace(
+                fcfg, max_iter=n_fit + 5, mp4_interval=2))
         n_prog = 3                      # after the resumed run's steps 0, 2, 4
-        want = {k: 0 if k.startswith("mip") or k in SINGLE_VIEW_ONLY else 5
-                for k in counters}
+        want = dict.fromkeys(STEP_KERNELS, 5)
         for k in ("fused_raster", "antialias", "bin_place"):
             want[k] += n_prog
+        want = device_want(want)
         if rstate.step != n_fit + 5 or resumed != want:
             fail(f"the resumed fit_take ended at step {rstate.step} with "
-                 f"launches {resumed} != {want}")
+                 f"launches on the device {resumed} != {want}")
         check_fit_outputs(fcfg, nv, nt, 4, "resumed fit_take")
         if not ckpt_mod.latest_checkpoint(fcfg.checkpoint_dir).endswith(
                 f"step_{n_fit + 5:09d}.pt"):
@@ -4479,10 +4527,13 @@ def main() -> int:
                "texture_fwd": single["grid_sample_ms"],
                "texture_bwd": single["grid_sampler_2d_backward_ms"]}
     sv_launches = record["single_view"]["launches"]
-    launches = {**launches, "mip_sample": mip_launches["mip_sample"],
-                "mip_sample_bwd": mip_launches["mip_sample_bwd"],
-                "texture_fwd": sv_launches["separate"]["texture_fwd"],
-                "fused_raster_aa": sv_launches["aa_fused"]["fused_raster_aa"]}
+    # the step's kernels as phases 5 and 5b measured them on the device
+    launches = {k: launches[DEVICE_KERNELS[k][0]] for k in STEP_KERNELS}
+    launches.update({k: mip_launches[DEVICE_KERNELS[k][0]]
+                     for k in ("mip_sample", "mip_sample_bwd")})
+    launches.update(
+        texture_fwd=sv_launches["separate"]["texture_fwd"],
+        fused_raster_aa=sv_launches["aa_fused"]["fused_raster_aa"])
     kernels = []
     for name, (src_file, tpu) in KERNELS.items():
         ms, plain = times[name]

@@ -26,8 +26,10 @@ Prints ONE JSON line: bench.py's keys ``metric``, ``value`` (Mpix/s fwd+bwd
 nvdiffrast-on-A100 proxy), and ``row``, ``step_ms``, ``tris``,
 ``grad_prec``, ``tex_prec``, the card's ``name`` and ``power_limit`` (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-them), ``steps`` (timed), ``launches`` (each kernel's launches over the
-timed steps), ``loss`` (the last step's) and ``temporal`` (the temporal
+them), ``steps`` (timed), ``launches`` (each device kernel's launches over as
+many steps again after the timed ones, measured in a ``torch.profiler``
+trace: ``ops.cuda.device_launches``, a CUDA graph's replays included),
+``loss`` (the last step's) and ``temporal`` (the temporal
 term over every frame of the final pose).
 
 Usage: python -m fpc_diffrend_tpu_torch.bench [--res-h 1600] [--res-w 1200]
@@ -49,28 +51,12 @@ import torch
 from fpc_diffrend_tpu_torch.device import resolve_device
 from fpc_diffrend_tpu_torch.fit import losses as losses_mod
 from fpc_diffrend_tpu_torch.fit import loop as fit_loop
-from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
-from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
-from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
-from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+from fpc_diffrend_tpu_torch.ops.cuda import device_launches
 from fpc_diffrend_tpu_torch.ops.precision import (GRAD_MODES, TEX_MODES,
                                                   precision)
 from fpc_diffrend_tpu_torch.workload import build_workload
 
 BASELINE_MPIX_S = 500.0
-
-# the kernel wrappers, by the name of their launch counter
-KERNELS = {"bin_place": bp.place_pairs, "fused_raster": rc.fused_raster,
-           "antialias": ac.antialias_planes,
-           "antialias_bwd": ac.antialias_planes_bwd,
-           "texture_bwd": tc.texture_planes_bwd,
-           "pixel_grad": gc.pixel_grad, "fold_entries": gc.fold_entries,
-           "mip_sample": tmc.mip_sample,
-           "mip_sample_bwd": tmc.mip_sample_bwd,
-           "texture_fwd": tc.texture_planes,
-           "fused_raster_aa": rc.fused_raster_aa}
 
 
 def parse_args(argv=None):
@@ -111,10 +97,6 @@ def card(dev: torch.device) -> tuple[str, str | None]:
     return name.strip(), limit.strip()
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
-
-
 def run(args) -> tuple[dict, dict]:
     """Build the workload, time the step.
 
@@ -145,14 +127,16 @@ def run(args) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         float(call())
         warmup_s = time.perf_counter() - t0
-        before = launch_counts()
         t0 = time.perf_counter()
         for _ in range(args.iters):
             loss = call()
         loss = float(loss)
         elapsed = time.perf_counter() - t0
+        # the profiler stays out of the timed steps
+        with device_launches() as launches:
+            for _ in range(args.iters):
+                call()
     steps = args.iters * max(k, 1)
-    launches = {n: c - before[n] for n, c in launch_counts().items()}
     dt = elapsed / steps
     with torch.no_grad():
         temporal = float(losses_mod.temporal_smoothness(

@@ -166,7 +166,8 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
     results, then re-raises an exception.
 
     :param device: default CUDA; ``"cpu"`` runs the plain versions.
-    :return: the final TrainState.
+    :return: the final TrainState, without the CUDA graph of its step
+        (its memory freed).
     :raises ValueError: ``config.raster_impl`` names no rasterizer
         (:func:`ops.rasterize.check_impl`).
     """
@@ -243,6 +244,7 @@ def fit_take(config: FitConfig, resume: bool = True, device=None):
     except KeyboardInterrupt:
         print("Interrupted — saving partial results...")
     finally:
+        state.graph = None      # the step's CUDA graph and its memory pool
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
         metrics_file.close()

@@ -51,14 +51,16 @@ def restore_checkpoint(path: str, reference: state_mod.TrainState
     """The saved TrainState, in ``reference``'s tensors.
 
     :param reference: a TrainState of the same config and shapes; its
-        parameters are overwritten in place and its optimizer loads the
-        saved state.
+        parameters are overwritten in place, its optimizer loads the saved
+        state and its CUDA graph of the step, which read the optimizer's
+        old tensors, is dropped.
     """
+    reference.graph = None
     saved = torch.load(path, map_location="cpu", weights_only=True)
     with torch.no_grad():
         for k, v in reference.params.items():
             v.copy_(saved["params"][k])
-    reference.optimizer.load_state_dict(saved["opt_state"])
+    state_mod.load_optimizer_state(reference.optimizer, saved["opt_state"])
     return state_mod.TrainState(step=int(saved["step"]),
                                 params=reference.params,
                                 optimizer=reference.optimizer)

@@ -17,11 +17,20 @@ With ``raster_impl="scan"`` the batch renders sample by sample through
 ``render_sample`` (the JAX package's ``vmap`` fallback), over the
 O(T·H·W) reference rasterizer.
 
+On a CUDA device on the kernel route, ``train_steps`` captures
+``train_step`` as a CUDA graph once per state (:class:`StepGraph`) and
+replays it, so that a step costs the host a few launches and one replay
+in place of ~960 launches; the sampling stays eager and in the same
+order. The CPU and the scan route run every step eagerly.
+
 The step's layers are spans of ``utils.profiling`` (``fit.dispatch``,
 ``fit.sample``, ``fit.step``, ``fit.forward``, ``model.prologue``,
-``fit.loss``, ``fit.backward``, ``fit.optimizer``, ``fit.callbacks``;
-a view is ``view.render``), which cost nothing unless
-``profiling.recording()`` is on.
+``fit.loss``, ``fit.backward``, ``fit.optimizer``, ``fit.replay``,
+``fit.callbacks``; a view is ``view.render``), which cost nothing unless
+``profiling.recording()`` is on; a replayed step records only
+``fit.replay``, the step's inner spans are those of the step that
+captured it. Counters: ``fit.eager_steps``, ``fit.graph_captures``,
+``fit.graph_replays``.
 """
 
 from __future__ import annotations
@@ -41,8 +50,9 @@ from fpc_diffrend_tpu_torch.models.camera import transform_clip
 from fpc_diffrend_tpu_torch.ops import mesh_ops
 from fpc_diffrend_tpu_torch.ops.pipeline import (render_batch_stacked,
                                                  render_from_clip)
+from fpc_diffrend_tpu_torch.ops.precision import get_precision
 from fpc_diffrend_tpu_torch.ops.rasterize import check_impl
-from fpc_diffrend_tpu_torch.utils.profiling import span
+from fpc_diffrend_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -261,29 +271,182 @@ def train_step(config: FitConfig, scene: Scene, state: state_mod.TrainState,
         return {k: v.detach() for k, v in metrics.items()}
 
 
+def graph_engaged(config: FitConfig, state: state_mod.TrainState) -> bool:
+    """Whether :func:`train_steps` runs the state's steps through a CUDA
+    graph: its parameters are on a CUDA device, ``config.raster_impl`` is
+    the kernel route (the scan route's ``render_sample`` copies each
+    sample's indices from the host) and its optimizer is capturable
+    (``fit.state.make_optimizer`` on CUDA)."""
+    return (next(iter(state.params.values())).is_cuda
+            and check_impl(config.raster_impl) == "pallas"
+            and state_mod.is_capturable(state.optimizer))
+
+
+def _graph_key(config: FitConfig, scene: Scene, state: state_mod.TrainState,
+               frames_u8: Tensor) -> tuple:
+    """What a captured step bakes in or reads by address: the config, the
+    scene and the frames, every parameter, gradient, optimizer state and
+    rate tensor (a checkpoint's restore replaces the optimizer's), the
+    corrective gate (in combined mode the staging gate flips with it) and
+    the precision modes."""
+    opt = state.optimizer
+    ptrs = []
+    for p in state.params.values():
+        ptrs.append(p.data_ptr())
+        ptrs.append(0 if p.grad is None else p.grad.data_ptr())
+        ptrs.extend(t.data_ptr() for t in opt.state.get(p, {}).values())
+    ptrs.extend(g["lr"].data_ptr() for g in opt.param_groups)
+    return (config, id(scene), id(frames_u8), frames_u8.data_ptr(),
+            tuple(ptrs), state_mod.corrective_gate(config, state.step),
+            get_precision())
+
+
+class StepGraph:
+    """A state's training step as a CUDA graph: :func:`train_step` on a
+    batch whose camera and frame indices it reads from static buffers
+    (``decode_refs`` inside), its metrics left in one static tensor.
+
+    Kept in ``TrainState.graph`` with its memory pool, under the key
+    (:func:`_graph_key`) of the state it was made for. A state's first
+    step, and the first after its key changed, runs eagerly on the graph's
+    side stream (the warm-up: kernel builds, Adam's state, the stream's
+    cuBLAS workspace); the next step is captured on that stream and
+    replayed, later steps replay. The kernel wrappers' ``.launches`` count
+    the capture once and no replay (``ops.cuda.device_launches`` measures
+    what a replay ran).
+    """
+
+    def __init__(self, key: tuple, config: FitConfig, stream, keep: tuple):
+        self.key = key
+        self.stream = stream
+        self.keep = keep            # read by address: alive with the graph
+        dev = stream.device
+        self.cams = _cams(config, dev)
+        self.cam = torch.empty((config.batch_size,), dtype=torch.int64,
+                               device=dev)
+        self.frame = torch.empty_like(self.cam)
+        self.graph = self.out = None
+        self.names = ()
+
+    def capture(self, config: FitConfig, scene: Scene,
+                state: state_mod.TrainState, frames_u8: Tensor) -> None:
+        """Capture one step of ``state`` (its host step count is left as it
+        was: the capture runs nothing). A capture that fails drops the
+        state's graph."""
+        step = state.step
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                batch = Batch(self.cam, self.frame,
+                              decode_refs(frames_u8, self.cam, self.frame))
+                metrics = train_step(config, scene, state, batch)
+                self.out = torch.stack(list(metrics.values()))
+            state.step = step
+            if _graph_key(config, scene, state, frames_u8) != self.key:
+                raise RuntimeError(
+                    "the captured step replaced a tensor it reads")
+        except BaseException:
+            state.graph = None
+            raise
+        finally:
+            state.step = step
+        self.names = tuple(metrics)
+        self.graph = graph
+
+
+def _cams(config: FitConfig, dev) -> Tensor:
+    """``config.cam_idxs`` on the device (an asynchronous copy: no host
+    sync)."""
+    return torch.tensor(config.cam_idxs, dtype=torch.int64).to(
+        dev, non_blocking=True)
+
+
+def _sample(cams: Tensor, generator: torch.Generator, B: int, n_frames: int,
+            cam=None, frame=None):
+    """A step's (camera, frame) indices from ``generator``: the camera
+    pick, then the frame (the order a checkpoint's resume replays), written
+    into ``cam`` and ``frame`` where given."""
+    pick = torch.randint(0, cams.shape[0], (B,), generator=generator,
+                         device=cams.device)
+    cam = torch.index_select(cams, 0, pick, out=cam)
+    frame = torch.randint(0, n_frames, (B,), generator=generator,
+                          device=cams.device, out=frame)
+    return cam, frame
+
+
+def _graph_steps(config: FitConfig, scene: Scene,
+                 state: state_mod.TrainState, frames_u8: Tensor,
+                 generator: torch.Generator, k: int, n_frames: int) -> dict:
+    """:func:`train_steps` on the state's :class:`StepGraph`: each step a
+    replay, sampled straight into the graph's index buffers (the graph is
+    captured first where it is new), or eager (and a new graph) where
+    there is none for the state's key. Each step's metrics are copied out
+    of the graph's static tensor into a row of its own.
+
+    :return: metric name -> (k,) tensor on the device.
+    """
+    dev = scene.device
+    B = config.batch_size
+    rows = names = None
+    for i in range(k):
+        rec = state.graph
+        if rec is not None and rec.key == _graph_key(config, scene, state,
+                                                     frames_u8):
+            with span("fit.sample"):
+                _sample(rec.cams, generator, B, n_frames, rec.cam, rec.frame)
+            if rec.graph is None:
+                rec.capture(config, scene, state, frames_u8)
+                count("fit.graph_captures", 1)
+            with span("fit.replay", request=state.step):
+                rec.graph.replay()
+            state.step += 1
+            count("fit.graph_replays", 1)
+            row, names = rec.out, rec.names
+        else:
+            state.graph = None          # a stale graph's pool goes first
+            stream = torch.cuda.Stream(dev)
+            with span("fit.sample"):
+                cam, frame = _sample(_cams(config, dev), generator, B,
+                                     n_frames)
+            main = torch.cuda.current_stream(dev)
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                metrics = train_step(config, scene, state, Batch(
+                    cam, frame, decode_refs(frames_u8, cam, frame)))
+            main.wait_stream(stream)
+            state.graph = StepGraph(
+                _graph_key(config, scene, state, frames_u8), config, stream,
+                (scene, frames_u8))
+            count("fit.eager_steps", 1)
+            row, names = torch.stack(list(metrics.values())), tuple(metrics)
+        if rows is None:
+            rows = torch.empty((k, len(names)), device=dev)
+        rows[i].copy_(row)
+    return {m: rows[:, j] for j, m in enumerate(names)}
+
+
 def train_steps(config: FitConfig, scene: Scene, state: state_mod.TrainState,
                 frames_u8: Tensor, generator: torch.Generator, k: int,
                 n_frames: int):
     """``k`` train steps, each on a (camera, frame) batch sampled on the
-    device from ``generator`` (a generator of the scene's device).
+    device from ``generator`` (a generator of the scene's device): through
+    the state's CUDA graph where :func:`graph_engaged`, else eagerly.
 
     :return: (state, metric name -> (k,) tensor on the device).
     """
     with span("fit.dispatch"):
-        dev = scene.device
-        cams = torch.tensor(config.cam_idxs, dtype=torch.int64).to(
-            dev, non_blocking=True)
+        if graph_engaged(config, state):
+            return state, _graph_steps(config, scene, state, frames_u8,
+                                       generator, k, n_frames)
+        cams = _cams(config, scene.device)
         B = config.batch_size
         rows = []
         for _ in range(k):
             with span("fit.sample"):
-                pick = torch.randint(0, cams.shape[0], (B,),
-                                     generator=generator, device=dev)
-                frame = torch.randint(0, n_frames, (B,), generator=generator,
-                                      device=dev)
-                cam = cams[pick]
+                cam, frame = _sample(cams, generator, B, n_frames)
                 batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
             rows.append(train_step(config, scene, state, batch))
+            count("fit.eager_steps", 1)
         return state, {m: torch.stack([r[m] for r in rows])
                        for m in rows[0]}
 

@@ -9,6 +9,11 @@ scaled by the shared ramp ``lr_ramp ** (count / max_iter)``, where
 ``count`` is the number of updates before this one (optax
 ``scale_by_schedule``). The optimizer updates the parameter tensors in
 place.
+
+On CUDA the optimizer is capturable: its step counts and its groups'
+rates are device tensors, and the ramp reads the count on the device, so
+an update reads nothing on the host and a CUDA graph of the step
+(``fit.loop.train_steps``) ramps the rates at every replay.
 """
 
 from __future__ import annotations
@@ -83,27 +88,86 @@ GROUPS = {
 @dataclasses.dataclass
 class TrainState:
     """The fit's state: ``step`` counts the updates taken; ``params`` are
-    leaf tensors that ``optimizer`` updates in place."""
+    leaf tensors that ``optimizer`` updates in place. ``graph`` holds the
+    CUDA graph of the step that ``fit.loop.train_steps`` replays for this
+    state (None: not captured yet)."""
 
     step: int
     params: dict
     optimizer: torch.optim.Adam
+    graph: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
 
 def make_optimizer(config: FitConfig, params: dict) -> torch.optim.Adam:
     """Adam over five parameter groups at their base learning rates; call
-    :func:`apply_lr_ramp` before each step."""
-    groups = [{"params": [params[k] for k in names], "lr": lr(config),
+    :func:`apply_lr_ramp` before each step. On CUDA it is capturable, with
+    each group's rate a float32 device tensor."""
+    dev = params[PARAM_NAMES[0]].device
+    capturable = dev.type == "cuda"
+
+    def rate(lr):
+        return (torch.tensor(lr, dtype=torch.float32, device=dev)
+                if capturable else lr)
+
+    groups = [{"params": [params[k] for k in names], "lr": rate(lr(config)),
                "base_lr": lr(config)} for names, lr in GROUPS.values()]
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
+
+
+def is_capturable(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether every group keeps its step counts and its rate on the device
+    (:func:`make_optimizer` on CUDA), so that a CUDA graph can replay the
+    update."""
+    return all(g.get("capturable") and isinstance(g["lr"], torch.Tensor)
+               for g in optimizer.param_groups)
+
+
+def update_count(state: TrainState):
+    """The number of updates before this one: a capturable optimizer's own
+    step count (a device tensor, read where it lies) once it has taken a
+    step, else ``state.step``. The two agree for a state from
+    :func:`init_state` or a checkpoint, which saves both."""
+    opt = state.optimizer
+    if is_capturable(opt):
+        first = opt.state.get(opt.param_groups[0]["params"][0])
+        if first:
+            return first["step"]
+    return state.step
 
 
 def apply_lr_ramp(config: FitConfig, optimizer: torch.optim.Adam,
-                  count: int) -> None:
-    """Set each group's rate to base * lr_ramp ** (count / max_iter)."""
-    ramp = config.lr_ramp ** (count / config.max_iter)
+                  count) -> None:
+    """Set each group's rate to base * lr_ramp ** (count / max_iter).
+
+    :param count: an int, or a tensor whose ramp is taken in float64 on its
+        device; a rate held as a tensor is written in place.
+    """
+    if isinstance(count, torch.Tensor):
+        ramp = torch.pow(config.lr_ramp,
+                         count.to(torch.float64) / config.max_iter)
+    else:
+        ramp = config.lr_ramp ** (count / config.max_iter)
     for group in optimizer.param_groups:
-        group["lr"] = group["base_lr"] * ramp
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(group["base_lr"] * ramp)
+        else:
+            group["lr"] = group["base_lr"] * ramp
+
+
+def load_optimizer_state(optimizer: torch.optim.Adam, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)``, keeping the optimizer's own
+    device policy: a state saved on another device loads capturable (or
+    not) as this optimizer is, its rates tensors (or floats) as this
+    optimizer's are."""
+    groups = []
+    for group, got in zip(optimizer.param_groups, saved["param_groups"]):
+        rate = float(got["lr"])
+        if isinstance(group["lr"], torch.Tensor):
+            rate = torch.full_like(group["lr"], rate)
+        groups.append(dict(got, capturable=group["capturable"], lr=rate))
+    optimizer.load_state_dict(dict(saved, param_groups=groups))
 
 
 def init_state(config: FitConfig, params: dict) -> TrainState:
@@ -132,9 +196,10 @@ def apply_corrective_gate(config: FitConfig, step: int,
 
 def optimizer_step(config: FitConfig, state: TrainState) -> None:
     """The update after a backward: corrective gate, Adam at the ramped
-    rates, quaternion renorm, ``state.step += 1`` (all in place)."""
+    rates (from :func:`update_count`), quaternion renorm, ``state.step +=
+    1`` (all in place)."""
     apply_corrective_gate(config, state.step, state.params)
-    apply_lr_ramp(config, state.optimizer, state.step)
+    apply_lr_ramp(config, state.optimizer, update_count(state))
     state.optimizer.step()
     normalize_quaternions(state.params)
     state.step += 1

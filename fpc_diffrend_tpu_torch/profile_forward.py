@@ -17,7 +17,11 @@ bench workload (``--mip``: its trilinear-mipmap variant), inside
   bin_place``, ``fit.backward``, ``raster.bwd``, ...: the layers of the
   very step it traced), its host time and self time per iteration and
   the device time of the kernels launched inside it on any thread (the
-  backward launches from autograd's thread while ``fit.backward`` waits).
+  backward launches from autograd's thread while ``fit.backward`` waits);
+* for ``train_steps``, the share of the traced steps that replayed the
+  state's CUDA graph (``fit.graph_replays`` ÷ steps): a replayed step
+  records only ``fit.replay``, and its kernels' device time falls under
+  that span.
 
 The record goes to ``chiprun_out/profile_forward.json``
 (``profile_forward_mip.json`` with ``--mip``). ``forward_stages`` and
@@ -308,12 +312,17 @@ def main() -> None:
                      "self_host_ms": 1e3 * own / n,
                      "device_ms": span_us.get(k, 0.0) / 1e3 / n}
                  for k, (c, t, own) in log.totals().items()}
+        replays = log.counters.get("fit.graph_replays", 0)
         record[name] = {"n": n, "wall_ms": wall_ms, "busy_ms": busy_ms,
-                        "kernels": kernels[:40], "spans": spans}
+                        "kernels": kernels[:40], "spans": spans,
+                        "counters": log.counters}
         if busy_ms == 0:
             print("the profiler recorded no device time: use CUDA events")
         print(f"{name} x{n}: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)"
+              + (f"; CUDA graph replays {replays} of {n} steps "
+                 f"({100 * replays / n:.1f} %)"
+                 if name == "train_steps" else ""))
         for kname, ms, cnt in kernels[:15]:
             print(f"  {ms / n:9.3f} ms/iter  x{cnt // n:<4d} {kname[:100]}")
         print("  spans per iter (host ms, self, device ms): " + ", ".join(

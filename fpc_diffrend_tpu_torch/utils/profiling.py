@@ -7,7 +7,8 @@ device with ``torch.profiler`` and writes a Chrome trace.
 The program's own spans and counters (port-only): ``span(name)`` marks a
 layer of the fit step or the view (``fit.step``, ``raster.bin``, ...) and
 ``count(name, value)`` adds to a counter (``bin.kept``, ...). Both do
-nothing until ``recording()`` turns them on for its scope; then each span
+nothing until ``recording()`` turns them on for its scope (counters stay
+off while a CUDA graph is captured); then each span
 takes the host clock at entry and exit, with its thread, its parent span
 and its request (the fit step's number or the view's), and enters
 ``annotate(name)``, so that a ``torch.profiler`` trace of the scope holds
@@ -220,14 +221,17 @@ def span(name: str, request=None):
 
 
 def count(name: str, value) -> None:
-    """Add ``value`` to the counter ``name`` while recording; off, nothing.
+    """Add ``value`` to the counter ``name`` while recording; off, or while
+    a CUDA graph is being captured (its counter launches would be replayed
+    with the graph), nothing.
 
     :param value: an int, a tensor (summed on its device), or a callable
         that gives one, called only while recording (so that a device
         counter launches nothing when off).
     """
     log = _ACTIVE
-    if log is None:
+    if log is None or (torch.cuda.is_available()
+                       and torch.cuda.is_current_stream_capturing()):
         return
     log.add(name, value() if callable(value) else value)
 

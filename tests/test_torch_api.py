@@ -397,6 +397,27 @@ def test_fit_take_end_to_end(take_dirs, tmp_path):
     assert state2.step == 8
 
 
+def test_fit_take_returns_no_step_graph(take_dirs, tmp_path, monkeypatch):
+    """The state ``fit_take`` returns holds no CUDA graph of its step: the
+    graph, its memory pool and what it keeps alive (the scene, the take)
+    go when the fit ends, before the results are saved."""
+    run_fit = tapi.loop_mod.run_fit
+    seen = []
+
+    def fit_with_graph(*args, **kw):
+        state = run_fit(*args, **kw)
+        state.graph = object()      # stands in for the step's CUDA graph
+        seen.append(state)
+        return state
+
+    monkeypatch.setattr(tapi.loop_mod, "run_fit", fit_with_graph)
+    state = tapi.fit_take(_config(take_dirs, tmp_path, max_iter=2,
+                                  out_dir=str(tmp_path / "out")),
+                          device="cpu")
+    assert len(seen) == 1 and seen[0] is state
+    assert state.step == 2 and state.graph is None
+
+
 def test_fit_take_rejects_bad_mode(take_dirs, tmp_path):
     with pytest.raises(ValueError, match="bogus"):
         FitConfig(mode="bogus").validate()

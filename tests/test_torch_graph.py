@@ -1,0 +1,520 @@
+"""The fit step as a CUDA graph (``fit.loop.train_steps``, ``StepGraph``).
+
+On the CPU (Tier 1): the graph engages only for CUDA parameters on the
+kernel route with a capturable optimizer; the device-side learning-rate
+ramp equals ``apply_lr_ramp``'s float rates; ``run_fit`` on the CPU is
+the eager loop of ``train_step`` bit for bit; a checkpoint loads under
+the optimizer's own device policy, and a restore drops the reference's
+graph; a failed capture leaves the host step as it was and no graph;
+``ops.cuda.KERNELS`` names every kernel wrapper and ``DEVICE_KERNELS``
+the kernels each launches, which ``device_launches`` counts by name.
+
+On the card (marked ``cuda``): steps through the graph against eager
+steps from copies of one state on the same capturable Adam, at
+``face9-linear``'s shapes (``benchmark/configs``; 8 frames of the take)
+at B = 1 and 2 and on the mip path; combined mode across the gate flip
+(two captures); a checkpoint restore in the middle of a fit against an
+eager resume; the counters of a fresh fit, its wrappers' launches (the
+eager step and the capture) and its kernels measured on the device
+(every step, replays included). This file
+imports no JAX, so the card runs it: ``python -m pytest --noconftest -m
+cuda tests/test_torch_graph.py``.
+"""
+
+import copy
+import dataclasses
+import importlib
+import inspect
+import json
+import os
+import pkgutil
+import re
+import statistics
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from fpc_diffrend_tpu_torch.fit import checkpoint as ckpt_mod
+from fpc_diffrend_tpu_torch.fit import loop
+from fpc_diffrend_tpu_torch.fit import state as state_mod
+from fpc_diffrend_tpu_torch.fit.config import FitConfig
+from fpc_diffrend_tpu_torch.ops import cuda as ops_cuda
+from fpc_diffrend_tpu_torch.utils import profiling
+from fpc_diffrend_tpu_torch.workload import build_workload
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEP_KERNELS = ("fused_raster", "antialias", "antialias_bwd", "texture_bwd",
+                "pixel_grad", "fold_entries", "bin_place")
+
+
+# ---------------------------------------------------------------- CPU ----
+
+def _fit_counters(log):
+    return {k: v for k, v in log.counters.items() if k.startswith("fit.")}
+
+
+def _fake_state(capturable=True, cuda=True):
+    """A state whose parameters look like CUDA tensors to the decision."""
+    lr = torch.tensor(1e-3) if capturable else 1e-3
+    opt = types.SimpleNamespace(param_groups=[{"capturable": capturable,
+                                               "lr": lr}])
+    return types.SimpleNamespace(
+        params={"m1": types.SimpleNamespace(is_cuda=cuda)}, optimizer=opt)
+
+
+def test_graph_engages_only_on_cuda_kernel_route():
+    tw = build_workload(32, 24, grid=4, batch=1, tex_size=16, device="cpu")
+    cfg = tw["config"]
+    assert not loop.graph_engaged(cfg, tw["state"])     # CPU tensors
+    assert not state_mod.is_capturable(tw["state"].optimizer)
+    for impl, want in (("auto", True), ("pallas", True), ("scan", False)):
+        c = dataclasses.replace(cfg, raster_impl=impl)
+        assert loop.graph_engaged(c, _fake_state()) is want, impl
+    assert not loop.graph_engaged(cfg, _fake_state(capturable=False))
+    assert not loop.graph_engaged(cfg, _fake_state(cuda=False))
+
+
+@pytest.mark.parametrize("where", ["start", "first", "half", "end"])
+def test_device_lr_ramp_matches_float_rates(where):
+    """The ramp from a count tensor (as a captured step takes it from
+    Adam's device step count) into float32 rate tensors equals
+    ``apply_lr_ramp``'s float rates to 1e-7 relative."""
+    config = FitConfig(max_iter=80000, lr_ramp=0.005, mode="combined")
+    count = {"start": 0, "first": 1, "half": config.max_iter // 2,
+             "end": config.max_iter}[where]
+    params = {k: torch.zeros(2, requires_grad=True)
+              for k in state_mod.PARAM_NAMES}
+    floats = state_mod.make_optimizer(config, params)
+    tensors = state_mod.make_optimizer(config, params)
+    for g in tensors.param_groups:
+        g["lr"] = torch.tensor(g["lr"], dtype=torch.float32)
+    state_mod.apply_lr_ramp(config, floats, count)
+    state_mod.apply_lr_ramp(config, tensors,
+                            torch.tensor(float(count), dtype=torch.float32))
+    for f, t in zip(floats.param_groups, tensors.param_groups):
+        assert t["lr"].dtype == torch.float32
+        assert abs(float(t["lr"]) - f["lr"]) <= 1e-7 * f["lr"], (where, f)
+
+
+def _eager_loop(config, scene, state, frames_u8, seed, n, n_frames):
+    """``run_fit``'s sampling and steps, spelt out with ``train_step``."""
+    gen = torch.Generator(device=scene.device)
+    gen.manual_seed(seed)
+    cams = torch.tensor(config.cam_idxs, dtype=torch.int64,
+                        device=scene.device)
+    B = config.batch_size
+    losses = []
+    for _ in range(n):
+        pick = torch.randint(0, cams.shape[0], (B,), generator=gen,
+                             device=scene.device)
+        frame = torch.randint(0, n_frames, (B,), generator=gen,
+                              device=scene.device)
+        cam = cams[pick]
+        batch = loop.Batch(cam, frame, loop.decode_refs(frames_u8, cam,
+                                                        frame))
+        losses.append(loop.train_step(config, scene, state, batch)["loss"])
+    return torch.stack(losses)
+
+
+def test_run_fit_on_cpu_is_the_eager_loop():
+    """On the CPU every step is eager: ``run_fit`` gives the plain loop of
+    ``train_step`` bit for bit, and records no graph."""
+    kw = dict(height=48, width=32, grid=5, batch=2, tex_size=16,
+              device="cpu")
+    a, b = build_workload(**kw), build_workload(**kw)
+    config = dataclasses.replace(a["config"], steps_per_dispatch=2, seed=3)
+    seen = []
+    with profiling.recording() as log:
+        state = loop.run_fit(config, a["scene"], a["frames_u8"],
+                             a["n_frames"], state=a["state"], n_steps=3,
+                             callbacks=[lambda i, s, m: seen.append(
+                                 m["loss"])])
+    assert state.graph is None and state.step == 3
+    assert _fit_counters(log) == {"fit.eager_steps": 3}
+    losses = _eager_loop(config, b["scene"], b["state"], b["frames_u8"],
+                         config.seed, 3, b["n_frames"])
+    assert torch.equal(torch.stack(seen), losses[[1, 2]])
+    for k, v in state.params.items():
+        assert torch.equal(v, b["state"].params[k]), k
+    for p, q in zip(state.params.values(), b["state"].params.values()):
+        sa, sb = state.optimizer.state[p], b["state"].optimizer.state[q]
+        assert all(torch.equal(sa[n], sb[n]) for n in sb)
+
+
+def test_checkpoint_loads_under_the_optimizers_policy():
+    """A state saved by a capturable optimizer (CUDA: device step counts,
+    tensor rates) loads into a CPU optimizer as a CPU one's: not
+    capturable, float rates of the saved values."""
+    config = FitConfig(max_iter=10, mode="free")
+    params = {k: torch.ones(3, requires_grad=True)
+              for k in state_mod.PARAM_NAMES}
+    src = state_mod.make_optimizer(config, params)
+    for p in params.values():
+        p.grad = torch.full_like(p, 0.5)
+    state = state_mod.TrainState(0, params, src)
+    for _ in range(2):
+        state_mod.optimizer_step(config, state)
+    saved = copy.deepcopy(src.state_dict())
+    for g in saved["param_groups"]:           # as CUDA's make_optimizer has
+        g["capturable"] = True
+        g["lr"] = torch.tensor(g["lr"], dtype=torch.float32)
+    dst = state_mod.make_optimizer(config, {k: torch.zeros(3) for k in
+                                            state_mod.PARAM_NAMES})
+    state_mod.load_optimizer_state(dst, saved)
+    for g, want in zip(dst.param_groups, src.param_groups):
+        assert g["capturable"] is False
+        assert isinstance(g["lr"], float)
+        assert g["lr"] == float(torch.tensor(want["lr"],
+                                             dtype=torch.float32))
+    for i, s in src.state_dict()["state"].items():
+        got = dst.state_dict()["state"][i]
+        assert all(torch.equal(got[n], t) for n, t in s.items())
+
+
+def test_kernel_registry_names_every_wrapper():
+    """``ops.cuda.KERNELS`` holds every wrapper with a launch counter, and
+    ``DEVICE_KERNELS`` names for each the kernels it launches, each a
+    ``__global__`` function of ``csrc``."""
+    found = set()
+    for info in pkgutil.iter_modules(ops_cuda.__path__):
+        mod = importlib.import_module(f"{ops_cuda.__name__}.{info.name}")
+        found |= {f for f in vars(mod).values()
+                  if inspect.isfunction(f) and hasattr(f, "launches")}
+    assert found == set(ops_cuda.KERNELS.values())
+    assert len(found) == 11
+    assert set(ops_cuda.DEVICE_KERNELS) == set(ops_cuda.KERNELS)
+    csrc = os.path.join(REPO, "fpc_diffrend_tpu_torch", "csrc")
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+    for names in ops_cuda.DEVICE_KERNELS.values():
+        for k in names:
+            assert re.search(rf"__global__[^;{{]*\b{k}\(", src), k
+
+
+def test_device_launches_count_kernels_by_name():
+    """A trace's device events counted by kernel: qualified and templated
+    names count, other kernels (a fork's ``count_kernel``, PyTorch's own)
+    do not; ``device_want`` maps wrapper calls to the kernels they run
+    (K10 to K1's and K2's)."""
+    events = [
+        ("(anonymous namespace)::count_rows_kernel(int const*, long)", 3),
+        ("void pixel_grad_kernel<true>(int const*, float const*)", 2),
+        ("void pixel_grad_kernel<false>(int const*, float const*)", 1),
+        ("void (anonymous namespace)::antialias_kernel<3>(int const*)", 5),
+        ("antialias_bwd_kernel<3>(int const*)", 4), ("fold_kernel", 1),
+        ("count_kernel(int const*, long, int, int*)", 7),
+        ("void at::native::vectorized_elementwise_kernel<4>(int)", 9)]
+    got = ops_cuda.count_kernels(events)
+    assert got == dict(ops_cuda.device_want({}), count_rows_kernel=3,
+                       pixel_grad_kernel=3, antialias_kernel=5,
+                       antialias_bwd_kernel=4, fold_kernel=1)
+    want = ops_cuda.device_want({"fused_raster_aa": 2, "antialias": 1,
+                                 "fused_raster": 4})
+    assert (want["fused_raster_kernel"], want["antialias_kernel"]) == (6, 3)
+    assert sum(want.values()) == 9
+    with ops_cuda.device_launches() as measured:      # no kernel ran
+        torch.ones(3).sum()
+    assert measured == ops_cuda.device_want({})
+
+
+def test_restore_drops_the_references_graph(tmp_path):
+    """A checkpoint's restore replaces the optimizer's state that the
+    reference's step graph read: the graph goes with it."""
+    tw = build_workload(32, 24, grid=4, batch=1, tex_size=16, device="cpu")
+    state = tw["state"]
+    path = ckpt_mod.save_checkpoint(str(tmp_path / "ck"), state)
+    state.graph = object()          # stands in for the step's CUDA graph
+    restored = ckpt_mod.restore_checkpoint(path, state)
+    assert state.graph is None and restored.graph is None
+
+
+def test_failed_capture_leaves_the_step_and_drops_the_graph(monkeypatch):
+    """A capture that raises after the captured step counted itself puts
+    the host step back and leaves the state without a half-made graph."""
+    import contextlib
+
+    tw = build_workload(32, 24, grid=4, batch=1, tex_size=16, device="cpu")
+    config, state = tw["config"], tw["state"]
+    state.step = 5
+
+    def failing_step(config, scene, state, batch):
+        state.step += 1
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(loop, "train_step", failing_step)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    rec = loop.StepGraph(None, config,
+                         types.SimpleNamespace(device=torch.device("cpu")),
+                         ())
+    rec.cam.zero_(), rec.frame.zero_()      # as the step's sampling writes
+    state.graph = rec
+    with pytest.raises(RuntimeError, match="capturing"):
+        rec.capture(config, tw["scene"], state, tw["frames_u8"])
+    assert state.step == 5 and state.graph is None and rec.graph is None
+
+
+def test_update_count_is_the_host_step_without_a_capturable_optimizer():
+    tw = build_workload(32, 24, grid=4, batch=1, tex_size=16, device="cpu")
+    state = tw["state"]
+    state.step = 7
+    assert state_mod.update_count(state) == 7
+
+
+# --------------------------------------------------------------- card ----
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU machine")
+    return torch.device("cuda")
+
+
+def _face9(device, config_name="face9-linear", batch=1, n_frames=8,
+           seed=2147484001, **fit):
+    """A fit at ``config_name``'s shapes (its take cut to ``n_frames``):
+    the benchmark's own set-up (``benchmark.programs.FitDriver``), with
+    ``fit`` FitConfig settings on top."""
+    from benchmark import inputs as inputs_mod
+    from benchmark import programs
+
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           f"{config_name}.json")) as f:
+        config = json.load(f)
+    config["n_frames"] = n_frames
+    inputs = inputs_mod.make_inputs(config, "fit", seed, device)
+    drv = programs.FitDriver(config, {"fit": {"batch_size": batch, **fit}},
+                             inputs, seed, device)
+    return drv
+
+
+def _copy_state(config, state):
+    """A state of its own with ``state``'s values (parameters and Adam's
+    state copied, no graph)."""
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    out = state_mod.init_state(config, params)
+    out.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    out.step = state.step
+    return out
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+
+
+def _params(state):
+    return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def _gaps(p0, got, want, losses_got, losses_want):
+    """(largest relative loss gap, median relative gap of the leaves the
+    eager side moved, ``benchmark/check.py``'s median leaf gap of the
+    change)."""
+    from benchmark import check
+
+    dg = {k: got[k] - p0[k] for k in p0}
+    dw = {k: want[k] - p0[k] for k in p0}
+    keep = check.live_leaves(dw)
+    loss = float(((losses_got - losses_want).abs()
+                  / losses_want.abs()).max())
+    leaf = statistics.median(_rel(got[k], want[k]) for k in keep)
+    change = statistics.median(check.leaf_gaps(dg, dw, keep).values())
+    return loss, leaf, change
+
+
+# The program is not bit-repeatable: K3-K5 sum with atomics, and Adam
+# turns a gradient's rounding noise into a step of the full rate. Two
+# eager runs from one state (16 pairs at these shapes on the H100) part
+# after 3 steps by up to 2.6e-5 in a loss and 5e-6 in the median leaf at
+# B = 2 (2.9e-6 and 6e-8 at B = 1 and on the mip path), a coverage flip
+# moving a pose or map leaf by up to 7e-3; after 20 steps by up to 8.3e-3
+# in a loss and 0.025 in check.py's median change. The graph is held to
+# that spread.
+LOSS3 = {"b1": 1e-5, "b2": 1e-4, "mip": 1e-5, "ramp": 1e-5}
+LEAF3 = {"b1": 1e-5, "b2": 1e-4, "mip": 1e-5, "ramp": 1e-5}
+LOSS20, CHANGE20 = 3e-2, 0.1
+# From a state Adam has moved, over three steps, two eager runs from one
+# state (8 seeds on the H100) part: from the gates' flip by 0 in every
+# loss, up to 5.7e-8 in check.py's median change and 1.3e-7 in the
+# correctives' change norms, so the graph is held to a fresh state's 1e-5;
+# from a checkpoint's restore by up to 4.3e-5 in a loss and 1.0e-4 in the
+# median change (a coverage flip, in 2 of the 8), so the graph is held to
+# about four times that.
+LOSS_FLIP, CHANGE_FLIP, CORRECTIVES_FLIP = 1e-5, 1e-5, 1e-5
+LOSS_RESUMED, CHANGE_RESUMED = 2e-4, 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,config_name,batch,fit", [
+    ("b1", "face9-linear", 1, {}), ("b2", "face9-linear", 2, {}),
+    ("mip", "face9-mip", 1, {}),
+    # the rates fall 14x over the 20 steps: a rate baked into the graph
+    # would show
+    ("ramp", "face9-linear", 1, {"max_iter": 40})],
+    ids=["b1", "b2", "mip", "ramp"])
+def test_graph_steps_match_eager_steps(cuda_device, case, config_name,
+                                       batch, fit):
+    drv = _face9(cuda_device, config_name, batch, **fit)
+    config, scene, frames = drv.config, drv.scene, drv.frames
+    assert loop.graph_engaged(config, drv.state)
+    graph, eager = drv.state, _copy_state(config, drv.state)
+    p0 = _params(graph)
+    gen_g = torch.Generator(device=cuda_device)
+    gen_g.manual_seed(config.seed)
+    gen_e = torch.Generator(device=cuda_device)
+    gen_e.manual_seed(config.seed)
+    cams = torch.tensor(config.cam_idxs, dtype=torch.int64,
+                        device=cuda_device)
+
+    def eager_steps(n):
+        out = []
+        for _ in range(n):
+            pick = torch.randint(0, cams.shape[0], (batch,), generator=gen_e,
+                                 device=cuda_device)
+            frame = torch.randint(0, drv.n_frames, (batch,),
+                                  generator=gen_e, device=cuda_device)
+            cam = cams[pick]
+            out.append(loop.train_step(config, scene, eager, loop.Batch(
+                cam, frame, loop.decode_refs(frames, cam, frame)))["loss"])
+        return torch.stack(out)
+
+    with profiling.recording() as log:
+        _, m3 = loop.train_steps(config, scene, graph, frames, gen_g, 3,
+                                 drv.n_frames)
+    assert _fit_counters(log) == {"fit.eager_steps": 1,
+                                  "fit.graph_captures": 1,
+                                  "fit.graph_replays": 2}
+    e3 = eager_steps(3)
+    assert m3["loss"][0] == e3[0]              # one state, one sample
+    loss, leaf, _ = _gaps(p0, _params(graph), _params(eager), m3["loss"], e3)
+    assert loss <= LOSS3[case] and leaf <= LEAF3[case], (loss, leaf)
+    _, m17 = loop.train_steps(config, scene, graph, frames, gen_g, 17,
+                              drv.n_frames)
+    e20 = torch.cat([e3, eager_steps(17)])
+    loss, _, change = _gaps(p0, _params(graph), _params(eager),
+                            torch.cat([m3["loss"], m17["loss"]]), e20)
+    assert loss <= LOSS20 and change <= CHANGE20, (loss, change)
+    assert graph.step == eager.step == 20
+
+
+def _flip_run(drv):
+    """Combined mode's first three steps through the graph up to the gates'
+    flip at max_iter // 2 = 3: (the state there, as a graph continues it,
+    an eager copy of it)."""
+    state = loop.run_fit(drv.config, drv.scene, drv.frames, drv.n_frames,
+                         state=drv.state, n_steps=3)
+    return state, _copy_state(drv.config, state)
+
+
+def _moved(p3, got, want):
+    """The correctives' change norms' gaps (``check.leaf_gaps``): Adam's
+    first steps take the sign of rounding noise, so a leaf's change is
+    compared by its norm."""
+    from benchmark import check
+
+    keys = ("m1", "m2", "m3")
+    return check.leaf_gaps({k: got[k] - p3[k] for k in keys},
+                           {k: want[k] - p3[k] for k in keys}, keys)
+
+
+@pytest.mark.cuda
+def test_gate_flip_captures_twice(cuda_device):
+    """Combined mode with the staging term: the corrective and staging
+    gates flip at max_iter // 2, and the graph is captured again there;
+    the three steps from the flipped state match eager steps from a copy
+    of it."""
+    drv = _face9(cuda_device, mode="combined", max_iter=6,
+                 regularize_correctives=True)
+    config = drv.config
+    seen = []
+    with profiling.recording() as log:
+        graph, eager = _flip_run(drv)
+        p3 = _params(graph)
+        graph = loop.run_fit(config, drv.scene, drv.frames, drv.n_frames,
+                             state=graph, n_steps=3,
+                             callbacks=[lambda i, s, m: seen.append(
+                                 m["loss"])])
+    assert _fit_counters(log) == {"fit.eager_steps": 2,
+                                  "fit.graph_captures": 2,
+                                  "fit.graph_replays": 4}
+    want = _eager_loop(config, drv.scene, eager, drv.frames, config.seed + 3,
+                       3, drv.n_frames)
+    got = _params(graph)
+    loss, _, change = _gaps(p3, got, _params(eager), torch.stack(seen), want)
+    assert loss <= LOSS_FLIP and change <= CHANGE_FLIP, (loss, change)
+    # the correctives moved after the flip, as far as on the eager side
+    moved = _moved(p3, got, _params(eager))
+    assert max(moved.values()) <= CORRECTIVES_FLIP, moved
+    assert not torch.equal(got["m1"], p3["m1"])
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_recaptures(cuda_device, tmp_path):
+    drv = _face9(cuda_device)
+    config = drv.config
+    fresh = _copy_state(config, drv.state)
+    state = loop.run_fit(config, drv.scene, drv.frames, drv.n_frames,
+                         state=drv.state, n_steps=3)
+    path = ckpt_mod.save_checkpoint(str(tmp_path / "ck"), state)
+    state = loop.run_fit(config, drv.scene, drv.frames, drv.n_frames,
+                         state=state, n_steps=3)
+    # loading Adam's state into the live optimizer replaces what its graph
+    # reads: the key tells
+    key = loop._graph_key(config, drv.scene, state, drv.frames)
+    state.optimizer.load_state_dict(
+        copy.deepcopy(state.optimizer.state_dict()))
+    assert loop._graph_key(config, drv.scene, state, drv.frames) != key
+    restored = ckpt_mod.restore_checkpoint(path, state)
+    assert restored.step == 3 and restored.graph is None
+    assert state_mod.is_capturable(restored.optimizer)
+    p3 = _params(restored)
+    seen = []
+    with profiling.recording() as log:
+        restored = loop.run_fit(config, drv.scene, drv.frames, drv.n_frames,
+                                state=restored, n_steps=3,
+                                callbacks=[lambda i, s, m: seen.append(
+                                    m["loss"])])
+    assert _fit_counters(log) == {"fit.eager_steps": 1,
+                                  "fit.graph_captures": 1,
+                                  "fit.graph_replays": 2}
+    eager = ckpt_mod.restore_checkpoint(path, fresh)
+    want = _eager_loop(config, drv.scene, eager, drv.frames, config.seed + 3,
+                       3, drv.n_frames)
+    assert restored.step == eager.step == 6
+    loss, _, change = _gaps(p3, _params(restored), _params(eager),
+                            torch.stack(seen), want)
+    assert loss <= LOSS_RESUMED and change <= CHANGE_RESUMED, (loss, change)
+
+
+@pytest.mark.cuda
+def test_fresh_fit_counts_one_capture(cuda_device):
+    """A fresh b1 fit: one eager step, one capture, the rest replays; the
+    wrappers launch from the host in the eager step and the capture only,
+    and the device runs K1-K6 and K11 once in every step."""
+    drv = _face9(cuda_device)
+    for f in ops_cuda.KERNELS.values():
+        f.launches = 0
+    n = 12
+    with ops_cuda.device_launches() as measured:
+        with profiling.recording() as log:
+            state = loop.run_fit(drv.config, drv.scene, drv.frames,
+                                 drv.n_frames, state=drv.state, n_steps=n)
+    assert _fit_counters(log) == {"fit.eager_steps": 1,
+                                  "fit.graph_captures": 1,
+                                  "fit.graph_replays": n - 1}
+    assert state.step == n and state.graph is not None
+    launches = {k: f.launches for k, f in ops_cuda.KERNELS.items()}
+    assert launches == {k: 2 if k in STEP_KERNELS else 0 for k in launches}
+    assert measured == ops_cuda.device_want(dict.fromkeys(STEP_KERNELS, n))
+    names = [s.name for s in log.spans]
+    assert names.count("fit.replay") == n - 1
+    assert names.count("fit.step") == 2        # the eager and the captured
+    assert bool(torch.isfinite(state.params["tex"]).all())
+    np.testing.assert_allclose(
+        torch.linalg.vector_norm(state.params["q_opt"].detach(),
+                                 dim=-1).cpu().numpy(), 1.0, rtol=1e-5)

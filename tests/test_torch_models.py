@@ -178,6 +178,8 @@ ADDED = {
     "fit.api.setup_from_config": ("device",),
     "fit.scene.build_scene": ("device",),
     "fit.state.init_params": ("device",),
+    # the CUDA graph of the step that fit.loop.train_steps replays
+    "fit.state.TrainState": ("graph",),
     "fit.state.make_optimizer": ("params",),
     "models.camera.extrinsic_to_modelview": ("device",),
     "models.camera.intrinsic_to_projection": ("device",),

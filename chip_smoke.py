@@ -56,6 +56,10 @@ Phases, each fatal on failure:
    launch counters set to 0 just before; the losses must be finite and K1,
    K2 and K11 launched once per batch (K7 and K10 never: they run on the
    single view only);
+4b. each position of a stacked batch of 8 of the workload's samples
+   against the same sample rendered alone (B = 1), bilinear and mip,
+   uncapped (``stack_positions``): the images equal bit for bit, each
+   clip gradient within ``GRAD_SPREAD_RTOL`` of its largest magnitude;
 5. the fit step at full width through ``fit.loop.train_steps``: 1 warm-up
    dispatch of 5 steps under ``torch.cuda.set_sync_debug_mode("error")``
    (a host sync on the step's path fails it), then 2 timed dispatches of 5
@@ -554,7 +558,7 @@ def fold_case(name, dev, seed=11):
         global_idx=torch.as_tensor(global_idx, device=dev),
         global_bbox=torch.zeros((gc.MAX_GLOBAL, 4), dtype=torch.int32,
                                 device=dev),
-        tile_ids=tile_ids)
+        tile_ids=tile_ids, sample_ph=n_s * rc.TILE_H)
     return rows(gbase, n_live), rows(gc.MAX_GLOBAL, n_global), bins, B * T
 
 
@@ -2370,6 +2374,74 @@ def bin_sizes(tile_ids, n_tiles):
     return int(counts.max()) if n_tiles else 0, live / max(n_tiles, 1), live
 
 
+def stack_positions(wl, batch: int = 8, seed: int = 17):
+    """Phase 4b: each position of a stacked batch of ``batch`` samples
+    against the same sample rendered alone (B = 1), bilinear and mip, on
+    the bench workload with the bins uncapped (a cap pools B x cap entries
+    over the batch, so it cuts a sample's entries at B = 1 and B = 8
+    differently). The loss is sum(w * image) with one random weight image
+    a position. The image must be equal bit for bit (the kernels evaluate
+    a sample's records at its own rows whatever its position), the clip
+    gradient within ``GRAD_SPREAD_RTOL`` of its largest magnitude (K3 and
+    K5 sum with atomics).
+
+    :return: {"bilinear" | "mip": {"grad_rel": [each position's],
+        "img_equal": [...]}}.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.pipeline import render_batch_stacked
+
+    config, scene, params = wl["config"], wl["scene"], wl["params"]
+    dev = scene.device
+    H, W = config.resolution
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cams = torch.tensor(config.cam_idxs, dtype=torch.int64, device=dev)
+    cam = cams[torch.randint(0, cams.shape[0], (batch,), generator=gen,
+                             device=dev)]
+    frame = torch.randint(0, wl["n_frames"], (batch,), generator=gen,
+                          device=dev)
+    with torch.no_grad():
+        clip, _ = loop.sample_clip_positions(config, scene, params, cam,
+                                             frame)
+    weights = torch.rand((batch, H, W, 1), generator=gen, device=dev)
+    tex = params["tex"].detach()
+
+    def render(c, w, mip):
+        c = c.clone().requires_grad_(True)
+        img = render_batch_stacked(c, scene.faces, scene.uv, scene.uv_idx,
+                                   tex, (H, W), scene.face_neighbors,
+                                   enable_mip=mip,
+                                   max_mip_level=MAX_MIP_LEVEL)
+        (img * w).sum().backward()
+        return img.detach(), c.grad
+
+    out = {}
+    for name, mip in (("bilinear", False), ("mip", True)):
+        imgs, grad = render(clip, weights, mip)
+        rel, same = [], []
+        for b in range(batch):
+            img1, grad1 = render(clip[b:b + 1], weights[b:b + 1], mip)
+            same.append(bool(torch.equal(imgs[b], img1[0])))
+            rel.append(_rel_err(grad[b], grad1[0]))
+        out[name] = {"grad_rel": rel, "img_equal": same}
+        print(f"stack positions ({name}, B = {batch}, cams "
+              f"{cam.tolist()}, frames {frame.tolist()}): images equal "
+              f"{same}; clip gradient vs B = 1, of its largest magnitude, "
+              f"{['%.3g' % r for r in rel]} (limit {GRAD_SPREAD_RTOL})",
+              flush=True)
+        if not all(same):
+            fail(f"stack positions ({name}): a position's image differs "
+                 f"from its sample rendered alone: {same}")
+        if max(rel) > GRAD_SPREAD_RTOL:
+            fail(f"stack positions ({name}): a position's clip gradient is "
+                 f"{max(rel):.3g} of its largest magnitude from its sample "
+                 f"rendered alone (limit {GRAD_SPREAD_RTOL})")
+    return out
+
+
 def grad_spread(wl, n_runs: int = 3):
     """Phase 7: one bench step's forward and backward, ``n_runs`` times from
     the same state on the same batch (no optimizer update between them).
@@ -3937,6 +4009,11 @@ def main() -> int:
                   launches_evaluate=launches, pair_cap=config.pair_cap)
 
     phase_done("4")
+
+    # ---- 4b. each stack position against its sample alone ----
+    record["stack_positions"] = stack_positions(wl)
+
+    phase_done("4b")
 
     # ---- 5. the fit step at full width ----
     state = wl["state"]

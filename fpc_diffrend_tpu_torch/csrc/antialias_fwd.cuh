@@ -49,7 +49,7 @@ template <int NCH>
 __device__ __forceinline__ void eval_pair(Smem<NCH>& S, int slot,
                                           const float* __restrict__ payload,
                                           size_t plane, int pw, int r0,
-                                          int x0) {
+                                          int x0, int sample_ph) {
   const bool horiz = slot < NH;
   int ta, xa;                          // a's tile row and column
   if (horiz) {
@@ -63,7 +63,8 @@ __device__ __forceinline__ void eval_pair(Smem<NCH>& S, int slot,
   const int ia = (ta + 1) * RW + xa + 1;
   const int ib = horiz ? ia + 1 : ia + RW;
   const int rg = r0 + ta, xg = x0 + xa;
-  const float pax = (float)xg + 0.5f, pay = (float)rg + 0.5f;
+  // the corners are in the sample's own frame: a's row within its sample
+  const float pax = (float)xg + 0.5f, pay = (float)(rg % sample_ph) + 0.5f;
   const float pbx = horiz ? pax + 1.0f : pax;
   const float pby = horiz ? pay : pay + 1.0f;
 
@@ -186,7 +187,7 @@ antialias_kernel(const int* __restrict__ idbuf,
   // 4. each listed pair once, by dense lanes
   const int n = S.n_list;
   for (int i = tid; i < n; i += THREADS)
-    eval_pair(S, S.list[i], payload, plane, pw, r0, x0);
+    eval_pair(S, S.list[i], payload, plane, pw, r0, x0, sample_ph);
   __syncthreads();
 
   // 5. the pixel's four terms, in the plain version's order and arithmetic

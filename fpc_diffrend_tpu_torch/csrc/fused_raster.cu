@@ -23,7 +23,12 @@
 // (6 KB; the 8 blocks of a tile read the same bin, from L2); every thread
 // of a warp reads the same record, a broadcast. The winner's full 32-float
 // record is then read once, directly, by its entry index (int32: exact at
-// any bin size, where the TPU carried it as f32). Planes are evaluated as
+// any bin size, where the TPU carried it as f32). The records are in each
+// sample's own frame, so a pixel of stacked row r is evaluated at its
+// sample's row r % sample_ph (a tile lies in one sample: sample_ph is whole
+// tiles); the TPU kernel takes records shifted into the stacked frame,
+// whose planes lose their low bits in f32 at rows far down the stack.
+// Planes are evaluated as
 // a*x + (b*y + c) per pixel with every product and sum rounded (built with
 // -fmad=false), the order of the plain PyTorch version, so kernel and
 // plain version agree exactly on ids and entries.
@@ -111,7 +116,8 @@ fused_raster_kernel(const float* __restrict__ rec,
                     const int* __restrict__ n_global_ptr,
                     const int* __restrict__ bin_start,
                     const float* __restrict__ tex, int th, int tw, int nchan,
-                    int gx, int gbase, int pw, int64_t plane_stride,
+                    int gx, int gbase, int pw, int sample_ph,
+                    int64_t plane_stride,
                     int* __restrict__ id_out, int* __restrict__ entry_out,
                     float* __restrict__ payload, float* __restrict__ extra,
                     float* __restrict__ colour) {
@@ -126,7 +132,7 @@ fused_raster_kernel(const float* __restrict__ rec,
   const int row = ti * TILE_H + blockIdx.x % TILE_H;
   const int col_x = tj * TILE_W + threadIdx.x;
   const float x = (float)col_x + 0.5f;
-  const float y = (float)row + 0.5f;
+  const float y = (float)(row % sample_ph) + 0.5f;
 
   float bz = BIG;
   int be = -1;
@@ -243,12 +249,13 @@ fused_raster_kernel(const float* __restrict__ rec,
 void launch_k1(const float* rec, const float* glob, const int* gbox,
                const int* n_global, const int* bin_start, const float* tex,
                int th, int tw, int nchan, int n_tiles, int gx, int gbase,
-               int rows, int* id_out, int* entry_out, float* payload,
-               float* extra, float* colour, cudaStream_t st) {
+               int rows, int sample_ph, int* id_out, int* entry_out,
+               float* payload, float* extra, float* colour, cudaStream_t st) {
   const int pw = gx * TILE_W;
   fused_raster_kernel<<<n_tiles * TILE_H, TILE_W, 0, st>>>(
       rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, gx, gbase, pw,
-      (int64_t)rows * pw, id_out, entry_out, payload, extra, colour);
+      sample_ph, (int64_t)rows * pw, id_out, entry_out, payload, extra,
+      colour);
 }
 
 }  // namespace
@@ -256,11 +263,14 @@ void launch_k1(const float* rec, const float* glob, const int* gbox,
 extern "C" int fused_raster_launch(
     const float* rec, const float* glob, const int* gbox, const int* n_global,
     const int* bin_start, const float* tex, int th, int tw, int nchan,
-    int n_tiles, int gx, int gbase, int rows, int* id_out, int* entry_out,
-    float* payload, float* extra, float* colour, void* stream) {
+    int n_tiles, int gx, int gbase, int rows, int sample_ph, int* id_out,
+    int* entry_out, float* payload, float* extra, float* colour,
+    void* stream) {
+  if (sample_ph < TILE_H || sample_ph % TILE_H || rows % sample_ph)
+    return (int)cudaErrorInvalidValue;
   launch_k1(rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, n_tiles,
-            gx, gbase, rows, id_out, entry_out, payload, extra, colour,
-            (cudaStream_t)stream);
+            gx, gbase, rows, sample_ph, id_out, entry_out, payload, extra,
+            colour, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -272,11 +282,13 @@ extern "C" int fused_raster_aa_launch(
     int sample_ph, int* id_out, int* entry_out, float* payload, float* extra,
     float* colour, float* aa_out, void* stream) {
   const int pw = gx * TILE_W;
-  if (!aa_fwd::valid(rows, pw, nchan, sample_ph))
+  if (!aa_fwd::valid(rows, pw, nchan, sample_ph) || sample_ph % TILE_H ||
+      rows % sample_ph)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   launch_k1(rec, glob, gbox, n_global, bin_start, tex, th, tw, nchan, n_tiles,
-            gx, gbase, rows, id_out, entry_out, payload, extra, colour, st);
+            gx, gbase, rows, sample_ph, id_out, entry_out, payload, extra,
+            colour, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   aa_fwd::launch(st, id_out, payload, colour, rows, pw, nchan, height, width,

@@ -12,7 +12,9 @@
 //   gu' = gu + gtu du02 + gtv dv02, gv' = gv + gtu du12 + gtv dv12
 //   S = (gu' d0 + gv' d1) rD rD, gd0 = gu' rD - S, gd1 = gv' rD - S,
 //   gd2 = -S, gl_i = gd_i / w_i
-//   slots 0-11: gl_i x, gl_i y, gl_i (edge planes); gz x, gz y, gz (depth)
+//   slots 0-11: gl_i x, gl_i y, gl_i (edge planes); gz x, gz y, gz (depth),
+//   at the pixel's row within its sample, y = r % sample_ph + 0.5: the
+//   records are in each sample's own frame, as K1 evaluates them
 //   slots 13-15: -gd_i d_i / w_i; 16-21: the uv corners' shares; 22-27: the
 //   screen-corner cotangents. Slots 12 (id) and 28-31 are 0.
 // The TPU kernel reduces a tile's pixels onto its bin with one-hot MXU
@@ -141,7 +143,8 @@ pixel_grad_kernel(const int* __restrict__ entry,
                   const float* __restrict__ extra,
                   const float* __restrict__ gpl,
                   const int* __restrict__ bin_start, int gx, int pw,
-                  int64_t plane, int gbase, float* __restrict__ grad_entries,
+                  int sample_ph, int64_t plane, int gbase,
+                  float* __restrict__ grad_entries,
                   float* __restrict__ grad_global) {
   __shared__ float acc[CAP * NLIVE];
   const int tile = blockIdx.x;
@@ -160,7 +163,7 @@ pixel_grad_kernel(const int* __restrict__ entry,
 
   const int lane = tid & 31;
   const int row = ti * TILE_H + (tid >> 5);
-  const float y = (float)row + 0.5f;
+  const float y = (float)(row % sample_ph) + 0.5f;
   for (int pass = 0; pass < TILE_W / 32; ++pass) {
     const int col = tj * TILE_W + pass * 32 + lane;
     const int64_t p = (int64_t)row * pw + col;
@@ -286,9 +289,12 @@ fold_kernel(const float* __restrict__ grad_entries,
 extern "C" int pixel_grad_launch(const int* entry, const float* u,
                                  const float* v, const float* extra,
                                  const float* gpl, const int* bin_start,
-                                 int n_tiles, int gx, int rows, int gbase,
+                                 int n_tiles, int gx, int rows,
+                                 int sample_ph, int gbase,
                                  float* grad_entries, float* grad_global,
                                  int max_global, int fast, void* stream) {
+  if (sample_ph < TILE_H || sample_ph % TILE_H || rows % sample_ph)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err = cudaMemsetAsync(
       grad_global, 0, (size_t)max_global * REC * sizeof(float), st);
@@ -296,11 +302,13 @@ extern "C" int pixel_grad_launch(const int* entry, const float* u,
   const int pw = gx * TILE_W;
   if (fast)
     pixel_grad_kernel<true><<<n_tiles, THREADS, 0, st>>>(
-        entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw,
+        entry, u, v, extra, gpl, bin_start, gx, pw, sample_ph,
+        (int64_t)rows * pw,
         gbase, grad_entries, grad_global);
   else
     pixel_grad_kernel<false><<<n_tiles, THREADS, 0, st>>>(
-        entry, u, v, extra, gpl, bin_start, gx, pw, (int64_t)rows * pw,
+        entry, u, v, extra, gpl, bin_start, gx, pw, sample_ph,
+        (int64_t)rows * pw,
         gbase, grad_entries, grad_global);
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,8 @@ from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
 from fpc_diffrend_tpu_torch.fit.scene import build_scene, load_calibration
 from fpc_diffrend_tpu_torch.models import blendshape
-from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import raster_stats
+from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (MAX_GLOBAL,
+                                                             raster_stats)
 from fpc_diffrend_tpu_torch.ops.rasterize import check_impl
 from fpc_diffrend_tpu_torch.utils.image import (display_image, load_image,
                                                 make_img)
@@ -99,14 +100,29 @@ def measure_raster_health(config: FitConfig, scene, params) -> dict:
     return {k: int(v) for k, v in zip(HEALTH_KEYS, worst)}
 
 
+def batch_global_rows(config: FitConfig, health: dict) -> int:
+    """The oversized triangles a batch can pool into the stacked binning's
+    one global list of ``MAX_GLOBAL`` rows: ``batch_size`` x the worst
+    view's (a batch may draw that view at every position)."""
+    return config.batch_size * (health["n_global"]
+                                + health["global_overflow"])
+
+
 def health_warnings(config: FitConfig, health: dict) -> list[str]:
-    """Warning lines for a measured health dict: global-list overflow and
-    bin entries past ``pair_cap`` (both drop gradient contributions)."""
+    """Warning lines for a measured health dict: global-list overflow, of
+    a view or of the batch's pooled list, and bin entries past
+    ``pair_cap`` (each drops gradient contributions)."""
     warnings = []
+    pooled = batch_global_rows(config, health)
     if health["global_overflow"] > 0:
         warnings.append(
             f"WARNING: raster global-list overflow "
             f"({health['global_overflow']} triangles dropped)")
+    elif pooled > MAX_GLOBAL:
+        warnings.append(
+            f"WARNING: raster global-list overflow for the batch (up to "
+            f"{pooled} oversized triangles from {config.batch_size} "
+            f"samples in {MAX_GLOBAL} rows)")
     if config.pair_cap and health["n_valid_pairs"] > config.pair_cap:
         warnings.append(
             f"WARNING: bin entries ({health['n_valid_pairs']}) "
@@ -121,7 +137,9 @@ def autotune_caps(config: FitConfig, scene, params) -> FitConfig:
     has no bins, and keeps its cap of 0.
 
     :raises RuntimeError: the oversized-triangle list overflows (the fit
-        would drop triangles).
+        would drop triangles): a view's, or the batch's, whose samples pool
+        their oversized triangles into one list of ``MAX_GLOBAL`` rows
+        (:func:`batch_global_rows`).
     """
     if config.pair_cap or config.raster_impl == "scan":
         return config
@@ -131,6 +149,13 @@ def autotune_caps(config: FitConfig, scene, params) -> FitConfig:
             f"raster global-list overflow ({health['global_overflow']} "
             "oversized triangles dropped) — scene exceeds MAX_GLOBAL; "
             "reduce triangle size or raise the cap")
+    pooled = batch_global_rows(config, health)
+    if pooled > MAX_GLOBAL:
+        raise RuntimeError(
+            f"raster global-list overflow for the batch: {config.batch_size}"
+            f" samples of up to {health['n_global']} oversized triangles "
+            f"each pool up to {pooled} into {MAX_GLOBAL} rows — reduce "
+            "batch_size or triangle size")
     cap = max(int(health["n_valid_pairs"] * CAP_MULT), 1)
     cap = (cap + 127) // 128 * 128
     print(f"[autotune] pair_cap={cap} (measured {health['n_valid_pairs']} "

@@ -30,7 +30,8 @@ The step's layers are spans of ``utils.profiling`` (``fit.dispatch``,
 ``profiling.recording()`` is on; a replayed step records only
 ``fit.replay``, the step's inner spans are those of the step that
 captured it. Counters: ``fit.eager_steps``, ``fit.graph_captures``,
-``fit.graph_replays``.
+``fit.graph_replays``, and ``fit.batch_samples`` (the samples each step
+renders, counted on the host, replays included).
 """
 
 from __future__ import annotations
@@ -419,6 +420,7 @@ def _graph_steps(config: FitConfig, scene: Scene,
                 (scene, frames_u8))
             count("fit.eager_steps", 1)
             row, names = torch.stack(list(metrics.values())), tuple(metrics)
+        count("fit.batch_samples", B)
         if rows is None:
             rows = torch.empty((k, len(names)), device=dev)
         rows[i].copy_(row)
@@ -447,6 +449,7 @@ def train_steps(config: FitConfig, scene: Scene, state: state_mod.TrainState,
                 batch = Batch(cam, frame, decode_refs(frames_u8, cam, frame))
             rows.append(train_step(config, scene, state, batch))
             count("fit.eager_steps", 1)
+            count("fit.batch_samples", B)
         return state, {m: torch.stack([r[m] for r in rows])
                        for m in rows[0]}
 

@@ -11,9 +11,11 @@ x0..y2, n0 n1 n2, colour]).
 
 Pairs: horizontal (x, x+1) for x < W - 1, and vertical (r, r+1) within a
 stacked sample, r % sample_ph < H - 1, so no pair crosses a sample
-boundary or reaches into the padding. Each pixel's output is
-c + da(right pair) + db(left pair) + da(pair below) + db(pair above), in
-that order.
+boundary or reaches into the padding. The payload's screen corners are in
+each sample's own frame (``rasterize_cuda.Bins``), so a pair is evaluated
+at its pixels' rows within their sample, r % sample_ph. Each pixel's
+output is c + da(right pair) + db(left pair) + da(pair below) + db(pair
+above), in that order.
 
 ``antialias_planes`` and ``antialias_planes_bwd`` run their kernels for
 CUDA tensors and their plain PyTorch versions (``*_plain``) for CPU
@@ -50,7 +52,7 @@ def antialias_planes_plain(idbuf: Tensor, payload: Tensor, colour: Tensor,
     packed = pack_planes(idbuf, payload, colour)
     x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
     r = torch.arange(rows, device=dev)
-    y = (r.to(torch.float32) + 0.5)[:, None]
+    y = (torch.remainder(r, sample_ph).to(torch.float32) + 0.5)[:, None]
     out = colour.clone()
 
     m = (x[:-1] - 0.5) < width - 1
@@ -131,7 +133,7 @@ def antialias_planes_bwd_plain(idbuf: Tensor, payload: Tensor,
     packed = pack_planes(idbuf, payload, colour)
     x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
     r = torch.arange(rows, device=dev)
-    y = (r.to(torch.float32) + 0.5)[:, None]
+    y = (torch.remainder(r, sample_ph).to(torch.float32) + 0.5)[:, None]
 
     # share planes (C + 6): as the a-side of the pair to the right / below,
     # as the b-side of the pair to the left / above

@@ -40,7 +40,7 @@ LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
 WINDOW = WINDOW_Y * WINDOW_X   # window slots a triangle (K)
 _AREA_EPS = 1e-12
 _PTR, _INT = build.PTR, build.INT
-_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 4 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
+_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 _FOLD_ARGS = [_PTR] * 7 + [_INT] * 2 + [_PTR] * 2
 
 
@@ -82,7 +82,8 @@ def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     rows, pw = entry.shape
     dev = entry.device
     x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
-    y = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    y = (torch.remainder(torch.arange(rows, device=dev), bins.sample_ph)
+         .to(torch.float32) + 0.5)[:, None]
     coeff = coefficient_planes(u, v, extra, gpl, x, y, fast).reshape(
         REC, -1).T
     e = entry.reshape(-1).long()
@@ -100,7 +101,8 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
                extra: Tensor, gpl: Tensor, fast: bool = False):
     """K5: per-pixel gradient coefficients summed onto each winner entry.
 
-    :param bins: the bins K1 rasterized.
+    :param bins: the bins K1 rasterized; a pixel's coefficients take its
+        row within its sample (``bins.sample_ph``), as K1 evaluated it.
     :param entry: (rows, pw) int32 K1 winner entry, -1 = none; global-list
         winners are ``bins.gbase + row``.
     :param u, v: (rows, pw) K1 payload planes 0-1.
@@ -123,6 +125,9 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     check(extra, "extra", torch.float32, (N_EXTRA, rows, pw), dev)
     check(gpl, "gpl", torch.float32, (N_GPL, rows, pw), dev)
     check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
+    if rows % bins.sample_ph or bins.sample_ph % TILE_H:
+        raise ValueError(f"{rows} stacked rows are not whole samples of "
+                         f"{bins.sample_ph} rows in whole tiles")
     if dev.type == "cpu":
         return pixel_grad_plain(bins, entry, u, v, extra, gpl, fast)
     if dev.type != "cuda":
@@ -134,7 +139,8 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     pixel_grad.launches += 1
     ptr = build.ptr
     status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gpl),
-                ptr(bins.bin_start), n_tiles, pw // TILE_W, rows, bins.gbase,
+                ptr(bins.bin_start), n_tiles, pw // TILE_W, rows,
+                bins.sample_ph, bins.gbase,
                 ptr(grad_entries), ptr(grad_global), MAX_GLOBAL, int(fast),
                 build.stream(dev))
     build.check(status, "pixel_grad")

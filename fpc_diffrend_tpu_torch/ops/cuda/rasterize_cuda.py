@@ -2,25 +2,39 @@
 
 Port of the XLA-side setup and binning of
 ``fpc_diffrend_tpu.ops.pallas.rasterize_tpu`` (``triangle_setup``,
-``aux_records``, ``shift_records_stacked``, ``bin_scene_stacked``,
-``pad_resolution``, ``Bins``) as PyTorch code on the device, and of its
-fused raster+interpolate+texture kernel ``_fused_kernel`` (launched by
-``fused_rasterize_from_bins``) as the CUDA kernel ``csrc/fused_raster.cu``.
+``aux_records``, ``bin_scene_stacked``, ``pad_resolution``, ``Bins``) as
+PyTorch code on the device, and of its fused raster+interpolate+texture
+kernel ``_fused_kernel`` (launched by ``fused_rasterize_from_bins``) as
+the CUDA kernel ``csrc/fused_raster.cu``.
 
 Binning keeps the TPU tiles of 8x128 pixels and the order of the sort key
 ``tile * T + tri``; the pairs are placed by K11 (``bin_place_cuda``, the
 counting-rank placement of ``_place_pallas``, in int32, hence the guard in
 :func:`bin_scene_stacked`) and cut at the entry cap, so the bins come out
 bit-equal to the JAX package's. The B samples of a batch are stacked
-vertically into one (B * ph, pw) image; each sample's records are shifted
-into its band. :func:`raster_stats` gives the binning's counts that size
-the cap.
+vertically into one (B * ph, pw) image. :func:`raster_stats` gives the
+binning's counts that size the cap.
 
-One deliberate difference: a triangle too large for the binning window
-(the global list) is tested only inside its own clipped tile box, which
-``Bins.global_bbox`` carries. The TPU kernel tests each 128-record block of
-the global list on every tile row the block spans, so a triangle of one
-sample that reaches past its image could cover pixels of the next sample.
+Two deliberate differences:
+
+* The records stay in each sample's own frame, and every kernel that
+  evaluates a plane or a screen corner (K1, K10, K2, K3, K5) does so at the
+  pixel's row within its sample, ``row % ph``; only the bins and the tile
+  boxes use stacked tile rows. The JAX package shifts each sample's
+  records into its band of the stacked frame in f32 (``c' = c - b*ph*b_y``,
+  the corners' y by ``+b*ph``), so a plane is evaluated at rows up to
+  (B - 1) * ph, where f32 loses the plane's low bits, and the shift's
+  backward takes ``b*ph*sum(g)`` back off a y coefficient's gradient: past
+  the first sample the images drift and the gradients break down (at
+  1600x1200 by 0.16-2.2 of a sample's clip gradient). Here each stack
+  position renders and differentiates as the sample alone does.
+* A triangle too large for the binning window (the global list) is
+  tested only inside its own clipped tile box, which ``Bins.global_bbox``
+  carries. The TPU kernel tests each 128-record block of the global list
+  on every tile row the block spans, so a triangle of one sample that
+  reaches past its image could cover pixels of the next sample. The list
+  holds ``MAX_GLOBAL`` rows for the whole batch, pooled over its samples;
+  ``fit.api.autotune_caps`` refuses a batch that could pass it.
 
 K10, the same pass with the antialias (K2), is ``csrc/fused_raster.cu``
 ``fused_raster_aa_launch``: the port of the TPU kernel's ``aa=True`` mode
@@ -58,7 +72,7 @@ BIG = 3.0e38              # depth of a pixel no triangle covers
 _AREA_EPS = 1e-12
 _W_EPS = 1e-9
 _PTR, _INT = build.PTR, build.INT
-_RASTER_ARGS = [_PTR] * 6 + [_INT] * 7 + [_PTR] * 6
+_RASTER_ARGS = [_PTR] * 6 + [_INT] * 8 + [_PTR] * 6
 _RASTER_AA_ARGS = [_PTR] * 6 + [_INT] * 10 + [_PTR] * 7
 
 
@@ -161,30 +175,13 @@ def aux_records(uv: Tensor, uv_idx: Tensor, pos_clip: Tensor, faces: Tensor,
     return torch.cat([corners, verts, neigh, pad], dim=-1)
 
 
-def shift_records_stacked(data_b: Tensor, aux_b: Tensor, sample_ph: int):
-    """Per-sample y-shift of (B, T, 16) records into the stacked frame.
-
-    Sample b's pixels live at stacked rows [b*sample_ph, (b+1)*sample_ph):
-    a plane a x + b y + c evaluated at y + dy needs c' = c - dy * b, and
-    the screen-corner y values move by +dy.
-    """
-    B = data_b.shape[0]
-    dy = (torch.arange(B, dtype=torch.float32, device=data_b.device)
-          * sample_ph)[:, None]
-    data_s = data_b.clone()
-    for c, b in ((2, 1), (5, 4), (8, 7), (11, 10)):
-        data_s[..., c] = data_b[..., c] - dy * data_b[..., b]
-    aux_s = aux_b.clone()
-    for k in (7, 9, 11):
-        aux_s[..., k] = aux_b[..., k] + dy
-    return data_s, aux_s
-
-
 @dataclasses.dataclass
 class Bins:
     """Tile-binned triangle records over the stacked image.
 
-    sorted_rec:  (P + pad, 32) records, grouped by tile, triangle id
+    sorted_rec:  (P + pad, 32) records, each in its sample's own frame
+                 (planes and corners of the sample's rows 0..ph-1),
+                 grouped by tile, triangle id
                  ascending in each bin; rows past the live prefix are dead.
     bin_start:   (n_tiles + 1,) int32 bin offsets into sorted_rec.
     global_rec:  (MAX_GLOBAL, 32) records of the oversized triangles;
@@ -197,6 +194,8 @@ class Bins:
     tile_ids:    (B, T, K) int32 stacked tile of each triangle's K window
                  slots, n_tiles where the slot is dead: K11's input, kept
                  for K6, which finds each slot's entry in its bin.
+    sample_ph:   the row pitch of the stacked samples: a pixel of stacked
+                 row r is evaluated at its sample's row r % sample_ph.
     """
 
     sorted_rec: Tensor
@@ -207,6 +206,7 @@ class Bins:
     global_idx: Tensor
     global_bbox: Tensor
     tile_ids: Tensor
+    sample_ph: int
 
     @property
     def gbase(self) -> int:
@@ -299,7 +299,9 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
 
     The bins are built from detached records: they are constants of the
     backward (stop-gradient, as in the JAX package), and gradients reach
-    ``data_s``/``aux_s`` only through ``ops.rasterize``'s autograd Function.
+    ``data_b``/``aux_b`` only through ``ops.rasterize``'s autograd Function.
+    The records stay in each sample's own frame (no shift into its band:
+    the kernels evaluate them at the sample's own rows, ``Bins.sample_ph``).
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
     :param aux_b: (B, T, 16) per-sample aux records (``aux_records``).
@@ -307,8 +309,8 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
         rounded up to 128; the samples pool it into one prefix of B x cap
         entries, and entries past it are dropped as the sort's kept prefix
         drops them. A cap <= 0 keeps all B*T*K pair slots.
-    :return: (data_s (B, T, 16), aux_s (B, T, 16) shifted records, Bins
-        over the (B * ph, pw) stacked image).
+    :return: (data_b (B, T, 16) records, aux_b (the argument), Bins over
+        the (B * ph, pw) stacked image).
     :raises ValueError: the pair slots and the global list overflow int32
         entry indices.
     """
@@ -326,7 +328,6 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     P = entry_count(B, T, entry_cap)
 
     data_b, bbox_b, valid_b = triangle_setup(pos_clip_b, faces, height, width)
-    data_s, aux_s = shift_records_stacked(data_b, aux_b, ph)
     tile_ids, fits, (tx0, ty0, tx1, ty1) = _stacked_tiles(
         bbox_b, valid_b, gy_s, pw // TILE_W)
     # a stacked tile holds one sample's triangles, so ordering a bin by the
@@ -338,21 +339,25 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
     profiling.count("bin.kept", lambda: bin_start[-1])
     profiling.count("bin.capacity", P)
 
-    rec = torch.cat([data_s.detach(), aux_s.detach()],
+    rec = torch.cat([data_b.detach(), aux_b.detach()],
                     dim=-1).reshape(B * T, REC)
     pad_rows = CHUNK + (-P) % CHUNK
     sorted_rec = torch.cat([
         rec[torch.clamp(sorted_tri, max=B * T - 1).long()],
         torch.zeros((pad_rows, REC), dtype=torch.float32, device=dev)])
 
-    # compacted list of the oversized triangles of every sample
+    # compacted list of the oversized triangles of every sample, pooled:
+    # MAX_GLOBAL rows for the batch (past them a triangle is dropped)
     big = valid_b & ~fits
     gid = torch.arange(B * T, device=dev).reshape(B, T)
     big_key = torch.where(big, gid, B * T).reshape(-1)
     big_idx, _ = torch.sort(torch.cat([
         big_key, torch.full((MAX_GLOBAL,), B * T, device=dev)]))
     big_idx = big_idx[:MAX_GLOBAL]
-    n_global = torch.clamp(big.sum(), max=MAX_GLOBAL).to(torch.int32)
+    n_big = big.sum()
+    n_global = torch.clamp(n_big, max=MAX_GLOBAL).to(torch.int32)
+    profiling.count("bin.global_live", lambda: n_big)
+    profiling.count("bin.global_kept", lambda: n_global)
     safe_big = torch.clamp(big_idx, max=B * T - 1)
     grow = (big_idx < B * T)[:, None]
     global_rec = torch.where(grow, rec[safe_big], 0.0)
@@ -364,8 +369,9 @@ def bin_scene_stacked(pos_clip_b: Tensor, faces: Tensor, height: int,
                 global_rec=global_rec.contiguous(),
                 n_global=n_global.reshape(1), sorted_tri=sorted_tri,
                 global_idx=big_idx.to(torch.int32),
-                global_bbox=global_bbox.contiguous(), tile_ids=tile_ids)
-    return data_s, aux_s, bins
+                global_bbox=global_bbox.contiguous(), tile_ids=tile_ids,
+                sample_ph=ph)
+    return data_b, aux_b, bins
 
 
 # ----------------------------------------------------------------------------
@@ -420,7 +426,8 @@ def fused_raster_plain(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     :func:`fused_raster`).
 
     Each pixel tests its tile's bin entries in entry order, then the
-    global rows whose tile box holds the tile; a covered test (all three
+    global rows whose tile box holds the tile, at its row within its
+    sample (``bins.sample_ph``); a covered test (all three
     edge planes >= 0, z in [-1, 1]) with z strictly below the best so far
     wins, so the lowest entry wins a tie. The loop runs over entry slots,
     on the tiles sorted by bin size, so each step touches only the tiles
@@ -437,7 +444,8 @@ def fused_raster_plain(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     ti, tj = (order // gx)[:, None, None], (order % gx)[:, None, None]
     x = ((tj * TILE_W + torch.arange(TILE_W, device=dev)).float()
          + 0.5)                                         # (n, 1, 128)
-    y = ((ti * TILE_H + torch.arange(TILE_H, device=dev)[:, None]).float()
+    local = (ti * TILE_H) % bins.sample_ph        # the sample's tile row
+    y = ((local + torch.arange(TILE_H, device=dev)[:, None]).float()
          + 0.5)                                         # (n, 8, 1)
     bz = torch.full((n_tiles, TILE_H, TILE_W), BIG, device=dev)
     be = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int64,
@@ -514,6 +522,9 @@ def _check_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
           dev)
     check(bins.global_bbox, "global_bbox", torch.int32, (MAX_GLOBAL, 4), dev)
     check(bins.n_global, "n_global", torch.int32, (1,), dev)
+    if rows % bins.sample_ph or bins.sample_ph % TILE_H:
+        raise ValueError(f"{rows} stacked rows are not whole samples of "
+                         f"{bins.sample_ph} rows in whole tiles")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev, th, tw, C, n_tiles
@@ -537,7 +548,8 @@ def _bins_args(bins: Bins):
 def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     """K1: rasterize, interpolate and texture the stacked image in one pass.
 
-    :param bins: from :func:`bin_scene_stacked`.
+    :param bins: from :func:`bin_scene_stacked`; a pixel's planes are
+        evaluated at its row within its sample (``bins.sample_ph``).
     :param tex: (TH, TW, C) float32 texture, sampled bilinearly with wrap;
         None skips the texture tail (C = 0: the mip path and the separate
         sampler K7 sample the payload's uv themselves).
@@ -557,7 +569,7 @@ def fused_raster(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     ptr = build.ptr
     status = fn(*_bins_args(bins), None if tex is None else ptr(tex),
                 th, tw, C, n_tiles, pw // TILE_W, bins.gbase, rows,
-                *(ptr(t) for t in out), build.stream(dev))
+                bins.sample_ph, *(ptr(t) for t in out), build.stream(dev))
     build.check(status, "fused_raster")
     return out
 
@@ -596,7 +608,8 @@ def fused_raster_aa(bins: Bins, tex: Tensor, rows: int, pw: int,
     dev, th, tw, C, n_tiles = _check_raster(bins, tex, rows, pw)
     if not 1 <= C <= 4:
         raise ValueError(f"fused_raster_aa takes 1 to 4 channels, not {C}")
-    if rows % sample_ph or height > sample_ph or width > pw:
+    if (rows % sample_ph or height > sample_ph or width > pw
+            or sample_ph != bins.sample_ph):
         raise ValueError(f"{rows}x{pw} planes do not hold samples of "
                          f"{height}x{width} at pitch {sample_ph}")
     if dev.type == "cpu":

@@ -6,9 +6,13 @@ Port of ``fpc_diffrend_tpu.ops.rasterize``'s
 device, then K1 (fused raster + texture) and K2 (antialias), each one pass
 over the B samples stacked vertically into one image. The backward is
 K3 (antialias) -> K4 (texture) -> K5 (pixel -> bin entry) -> K6 (bin
-entry -> triangle), under one ``torch.autograd.Function``; the y-shift and
-the triangle setup chain back to clip positions through ordinary autograd,
-as the JAX package leaves them to autodiff.
+entry -> triangle), under one ``torch.autograd.Function``; the triangle
+setup chains back to clip positions through ordinary autograd, as the JAX
+package leaves it to autodiff. Each sample's records stay in its own
+frame: the kernels evaluate them at the pixel's row within its sample,
+where the JAX package shifts them into the stacked frame
+(``ops.cuda.rasterize_cuda``), so each stack position renders and
+differentiates as the sample rendered alone.
 
 The single view (``ops.pipeline.render``) is the same pass at B = 1, and
 picks one of three routes that compute the same image and gradients
@@ -39,8 +43,11 @@ kernel and K5: the sharded band render's seam (``parallel.spatial``).
 
 The layers are spans of ``utils.profiling``: ``raster.bin`` (records and
 binning), ``raster.fwd`` (a render Function's forward, with the mip
-pyramid's build on the mip route) and ``raster.bwd`` (its backward, on
-autograd's device thread on CUDA).
+pyramid's build on the mip route, ``raster.pyramid``, and the LOD,
+``raster.lod``, inside it) and ``raster.bwd`` (its backward, on autograd's
+device thread on CUDA; K9 in ``raster.mip_bwd``). The pyramid's own
+backward, the adjoint of its 2x2 means, is autograd's, outside
+``raster.bwd``; the LOD has none.
 
 Every Function here reads the gradient precision (``ops.precision``) in
 its forward and keeps it, so that its backward launches K4 and K5 in the
@@ -79,11 +86,11 @@ from fpc_diffrend_tpu_torch.utils.profiling import span
 Tensor = torch.Tensor
 
 
-def _raster(ctx, data_s, bins, tex, sample_ph, height, width, aa=False):
+def _raster(ctx, data_b, bins, tex, sample_ph, height, width, aa=False):
     """K1 over the stacked image (``tex`` None: no texture tail); with
     ``aa``, K10 (K1's outputs and the antialiased colour). Keeps the
     gradient precision for the backward in ``ctx.prec``."""
-    B, T = data_s.shape[:2]
+    B, T = data_b.shape[:2]
     _, pw = pad_resolution(height, width)
     ctx.bins = bins
     ctx.dims = (B, T, sample_ph, height, width)
@@ -114,6 +121,26 @@ def _texture_bwd(ctx, tex, payload, gcolour):
                               ctx.prec.tex)
 
 
+def _mip_sample(ctx, idbuf, payload, pyramid, sizes):
+    """The LOD from K1's uv and ids (span ``raster.lod``), then K8:
+    (colour (C, rows, pw), lam (rows, pw))."""
+    _, _, sample_ph, height, width = ctx.dims
+    th, tw = sizes[0]
+    ctx.sizes = sizes
+    with span("raster.lod"):
+        lam = lod_from_texc(payload[3], payload[4], idbuf, th, tw, height,
+                            width, sample_ph)
+    return mip_sample(pyramid, sizes, payload[3], payload[4], lam), lam
+
+
+def _mip_sample_bwd(ctx, payload, pyramid, lam, gcolour):
+    """K9 (span ``raster.mip_bwd``; the LOD is held out of the gradient):
+    (gpyr, gtu, gtv)."""
+    with span("raster.mip_bwd"):
+        return mip_sample_bwd(pyramid, ctx.sizes, payload[3], payload[4],
+                              lam, gcolour)
+
+
 def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
     """K5 -> K6: the cotangents of the payload's u, v, z (``guvz`` (3,
     rows, pw); None: zero), of the sampled uv and of the screen corners
@@ -136,10 +163,10 @@ def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
 class RasterizeTexturedSepaaStacked(torch.autograd.Function):
     """K1 -> K2 forward, K3 -> K4 -> K5 -> K6 backward.
 
-    ``apply(data_s, aux_s, tex, bins, sample_ph, height, width)``:
+    ``apply(data_b, aux_b, tex, bins, sample_ph, height, width)``:
 
-    :param data_s, aux_s: (B, T, 16) shifted stacked records
-        (``bin_scene_stacked``), differentiable.
+    :param data_b, aux_b: (B, T, 16) records, each in its sample's own
+        frame (``bin_scene_stacked``), differentiable.
     :param tex: (TH, TW, C) texture, differentiable.
     :param bins: the Bins built from the same records (no gradient).
     :param sample_ph: row pitch of the stacked samples.
@@ -149,9 +176,9 @@ class RasterizeTexturedSepaaStacked(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
         idbuf, entry, payload, extra, colour = _raster(
-            ctx, data_s, bins, tex, sample_ph, height, width)
+            ctx, data_b, bins, tex, sample_ph, height, width)
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
         return idbuf, _antialias(ctx, idbuf, payload, colour)
 
@@ -174,9 +201,9 @@ class RasterizeTexturedAaFused(RasterizeTexturedSepaaStacked):
     Arguments and results as :class:`RasterizeTexturedSepaaStacked`."""
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
         idbuf, entry, payload, extra, colour, aa = _raster(
-            ctx, data_s, bins, tex, sample_ph, height, width, aa=True)
+            ctx, data_b, bins, tex, sample_ph, height, width, aa=True)
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
         ctx.mark_non_differentiable(idbuf)
         return idbuf, aa
@@ -189,9 +216,9 @@ class RasterizeSeparateTexture(RasterizeTexturedSepaaStacked):
     :class:`RasterizeTexturedSepaaStacked`."""
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
         idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_s, bins, None, sample_ph, height, width)
+            ctx, data_b, bins, None, sample_ph, height, width)
         colour = texture_planes(tex, payload[3], payload[4], "wrap")
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
         return idbuf, _antialias(ctx, idbuf, payload, colour)
@@ -206,7 +233,7 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
     """K1 (no texture) -> LOD -> K8 -> K2 forward, K3 -> K9 -> K5 -> K6
     backward.
 
-    ``apply(data_s, aux_s, pyramid, sizes, bins, sample_ph, height,
+    ``apply(data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
     width)``: as :class:`RasterizeTexturedSepaaStacked`, with the flat mip
     pyramid (n_texels, C) and its levels' sizes (``ops.texture_mip.
     mip_pyramid``) in place of the texture. The LOD plane is computed from
@@ -214,17 +241,13 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, pyramid, sizes, bins, sample_ph, height,
+    def forward(ctx, data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
                 width):
         idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_s, bins, None, sample_ph, height, width)
-        th, tw = sizes[0]
-        lam = lod_from_texc(payload[3], payload[4], idbuf, th, tw, height,
-                            width, sample_ph)
-        colour = mip_sample(pyramid, sizes, payload[3], payload[4], lam)
+            ctx, data_b, bins, None, sample_ph, height, width)
+        colour, lam = _mip_sample(ctx, idbuf, payload, pyramid, sizes)
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, pyramid,
                               lam)
-        ctx.sizes = sizes
         return idbuf, _antialias(ctx, idbuf, payload, colour)
 
     @staticmethod
@@ -234,8 +257,8 @@ class RasterizeMipSepaaStacked(torch.autograd.Function):
              lam) = ctx.saved_tensors
             gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
                                              g_aa)
-            gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
-                                            payload[4], lam, gcolour)
+            gpyr, gtu, gtv = _mip_sample_bwd(ctx, payload, pyramid, lam,
+                                             gcolour)
             return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
                                   gverts),
                     gpyr, None, None, None, None, None)
@@ -280,9 +303,9 @@ class RasterizeTexturedSepaaBand(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, tex, bins, sample_ph, height, width):
+    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
         idbuf, entry, payload, extra, colour = _raster(
-            ctx, data_s, bins, tex, sample_ph, height, width)
+            ctx, data_b, bins, tex, sample_ph, height, width)
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
         aa = _antialias(ctx, idbuf, payload, colour)
         return (idbuf, aa, *_edge_rows(ctx, payload, colour))
@@ -307,17 +330,13 @@ class RasterizeMipSepaaBand(torch.autograd.Function):
     before K9, their u, v, z cotangents reach K5."""
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, pyramid, sizes, bins, sample_ph, height,
+    def forward(ctx, data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
                 width):
         idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_s, bins, None, sample_ph, height, width)
-        th, tw = sizes[0]
-        lam = lod_from_texc(payload[3], payload[4], idbuf, th, tw, height,
-                            width, sample_ph)
-        colour = mip_sample(pyramid, sizes, payload[3], payload[4], lam)
+            ctx, data_b, bins, None, sample_ph, height, width)
+        colour, lam = _mip_sample(ctx, idbuf, payload, pyramid, sizes)
         ctx.save_for_backward(idbuf, entry, payload, extra, colour, pyramid,
                               lam)
-        ctx.sizes = sizes
         aa = _antialias(ctx, idbuf, payload, colour)
         return (idbuf, aa, *_edge_rows(ctx, payload, colour))
 
@@ -330,8 +349,8 @@ class RasterizeMipSepaaBand(torch.autograd.Function):
                                              g_aa)
             gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
                                             g_uvz_rows)
-            gpyr, gtu, gtv = mip_sample_bwd(pyramid, ctx.sizes, payload[3],
-                                            payload[4], lam, gcolour)
+            gpyr, gtu, gtv = _mip_sample_bwd(ctx, payload, pyramid, lam,
+                                             gcolour)
             return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
                                   gverts, guvz),
                     gpyr, None, None, None, None, None)
@@ -343,7 +362,7 @@ def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
     """Aux records and stacked binning for a batch of clip positions.
 
     :param entry_cap: per-sample bin-entry cap (0: uncapped).
-    :return: (data_s, aux_s (B, T, 16) shifted records, differentiable,
+    :return: (data_b, aux_b (B, T, 16) records, differentiable,
         Bins over the (B * ph, pw) stacked image).
     """
     height, width = resolution
@@ -381,16 +400,17 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
         raise ValueError(f"unknown route {route!r}; one of {list(ROUTES)}")
     height, width = resolution
     ph, _ = pad_resolution(height, width)
-    data_s, aux_s, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
+    data_b, aux_b, bins = bin_stacked(pos_clip_b, faces, uv, uv_idx,
                                       face_neighbors, resolution,
                                       pair_cap or 0)
     with span("raster.fwd"):
         if enable_mip:
-            pyramid, sizes = mip_pyramid(tex, max_mip_level)
-            return RasterizeMipSepaaStacked.apply(data_s, aux_s, pyramid,
+            with span("raster.pyramid"):
+                pyramid, sizes = mip_pyramid(tex, max_mip_level)
+            return RasterizeMipSepaaStacked.apply(data_b, aux_b, pyramid,
                                                   sizes, bins, ph, height,
                                                   width)
-        return ROUTES[route].apply(data_s, aux_s, tex, bins, ph, height,
+        return ROUTES[route].apply(data_b, aux_b, tex, bins, ph, height,
                                    width)
 
 
@@ -546,7 +566,7 @@ class RasterizeKernel(torch.autograd.Function):
     JAX's ``rasterize_fused`` custom VJP as ``_rasterize_pallas_full``
     uses it.
 
-    ``apply(data_s, aux_s, bins, sample_ph, height, width)``: records and
+    ``apply(data_b, aux_b, bins, sample_ph, height, width)``: records and
     bins as :class:`RasterizeTexturedSepaaStacked` takes them.
 
     :return: (idbuf (rows, pw) int32, payload (14, rows, pw) [u v z tu tv
@@ -555,9 +575,9 @@ class RasterizeKernel(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, data_s, aux_s, bins, sample_ph, height, width):
+    def forward(ctx, data_b, aux_b, bins, sample_ph, height, width):
         idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_s, bins, None, sample_ph, height, width)
+            ctx, data_b, bins, None, sample_ph, height, width)
         ctx.save_for_backward(entry, payload, extra)
         ctx.mark_non_differentiable(idbuf)
         return idbuf, payload
@@ -599,17 +619,17 @@ def _rasterize_kernel(pos_clip: Tensor, faces: Tensor, uv, uv_idx,
         uv = torch.zeros((1, 2), device=pos_clip.device)
         uv_idx = torch.zeros_like(faces)
     ph, _ = pad_resolution(height, width)
-    data_s, aux_s, bins = bin_stacked(pos_clip[None], faces, uv, uv_idx,
+    data_b, aux_b, bins = bin_stacked(pos_clip[None], faces, uv, uv_idx,
                                       None, resolution)
     with span("raster.fwd"):
-        idbuf_p, payload_p = RasterizeKernel.apply(data_s, aux_s, bins, ph,
+        idbuf_p, payload_p = RasterizeKernel.apply(data_b, aux_b, bins, ph,
                                                    height, width)
     idbuf = idbuf_p[:height, :width]
     payload = payload_p[:, :height, :width]
     idf = torch.where(idbuf >= 0, (idbuf + 1).to(torch.float32), 0.0)
     rast = torch.stack([payload[0], payload[1], payload[2], idf], dim=-1)
     texc = torch.stack([payload[3], payload[4]], dim=-1)
-    return rast, texc, data_s[0], idbuf
+    return rast, texc, data_b[0], idbuf
 
 
 def rasterize(pos_clip: Tensor, faces: Tensor, resolution,

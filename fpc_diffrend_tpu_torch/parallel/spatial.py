@@ -121,16 +121,17 @@ def render_band_stacked(band_clip: Tensor, pos_idx: Tensor, uv: Tensor,
             max_mip_level=max_mip_level)
         return composite_stacked(idbuf, aa, B, (hb, w))
     ph, pw = pad_resolution(hb, w)
-    data_s, aux_s, bins = bin_stacked(band_clip, pos_idx, uv, uv_idx,
+    data_b, aux_b, bins = bin_stacked(band_clip, pos_idx, uv, uv_idx,
                                       face_neighbors, (hb, w), pair_cap or 0)
     with span("raster.fwd"):
         if enable_mip:
-            pyramid, sizes = mip_pyramid(tex, max_mip_level)
+            with span("raster.pyramid"):
+                pyramid, sizes = mip_pyramid(tex, max_mip_level)
             idbuf, aa, colour_rows, uvz_rows = RasterizeMipSepaaBand.apply(
-                data_s, aux_s, pyramid, sizes, bins, ph, hb, w)
+                data_b, aux_b, pyramid, sizes, bins, ph, hb, w)
         else:
             idbuf, aa, colour_rows, uvz_rows = (
-                RasterizeTexturedSepaaBand.apply(data_s, aux_s, tex, bins,
+                RasterizeTexturedSepaaBand.apply(data_b, aux_b, tex, bins,
                                                  ph, hb, w))
     first = torch.arange(B, device=idbuf.device) * ph
     rows = torch.stack([first, first + hb - 1], 1).reshape(-1)

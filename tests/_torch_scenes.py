@@ -53,10 +53,12 @@ def close_to_max(got, want, rtol):
     np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
 
 
-def reference_forward(data_s, aux_s, bins, k1, H, W, ph, sample):
+def reference_forward(data_b, aux_b, bins, k1, H, W, ph, sample):
     """The stacked forward in plain, differentiable torch ops: each
     pixel's winner record gathered from the records by K1's entry,
-    resolved, sampled and antialiased (bins and winners held fixed).
+    resolved at the pixel's row within its sample (the records are in
+    each sample's own frame), sampled and antialiased (bins and winners
+    held fixed).
 
     :param sample: fn(tu, tv) -> (C, rows, pw) colour of the resolved uv.
     """
@@ -65,10 +67,10 @@ def reference_forward(data_s, aux_s, bins, k1, H, W, ph, sample):
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as tac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
 
-    B, T = data_s.shape[:2]
+    B, T = data_b.shape[:2]
     _, entry, payload, _, _ = k1
     rows, pw = entry.shape
-    rec = torch.cat([data_s, aux_s], -1).reshape(B * T, tr.REC)
+    rec = torch.cat([data_b, aux_b], -1).reshape(B * T, tr.REC)
     n_raw = bins.sorted_tri.shape[0]
     tri = torch.cat([bins.sorted_tri.long(),
                      torch.zeros(bins.gbase - n_raw, dtype=torch.long),
@@ -77,7 +79,8 @@ def reference_forward(data_s, aux_s, bins, k1, H, W, ph, sample):
     F = torch.where(hit[..., None], rec[tri[entry.long().clamp(min=0)]],
                     0.0)
     x = torch.arange(pw, dtype=torch.float32) + 0.5
-    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
+    y = (torch.remainder(torch.arange(rows), ph).to(torch.float32)
+         + 0.5)[:, None]
     pay, _ = tr.resolve_payload(F, x, y, hit, payload[2])
     colour = sample(pay[3], pay[4])
     idbuf = torch.where(hit, F[..., 12].detach().to(torch.int32), -1)

@@ -60,17 +60,24 @@ def test_plain_matches_antialias_fused_single_image(rng):
 
 def test_plain_matches_pallas_kernel_interpret_stacked(rng):
     """Stacked samples against antialias_tpu._fwd_kernel in interpret
-    mode: vertical pairs must stop at each sample's last real row."""
+    mode: vertical pairs must stop at each sample's last real row. The
+    port evaluates each sample's corners at the sample's own rows, where
+    JAX's stacked kernel takes them shifted into the stacked frame, so
+    JAX's kernel runs sample by sample (each a batch of one) and its
+    images are stacked."""
     B, H, W = 3, 36, 100
     idbuf, payload, colour = _planes(rng, B, H, W)
     ph, pw = tr.pad_resolution(H, W)
     got = tac.antialias_planes(idbuf, payload, colour, H, W, ph).numpy()
-    packed = jat._pack_planes(tuple(jnp.asarray(c.numpy()) for c in colour),
-                              jnp.asarray(idbuf.numpy()),
-                              jnp.asarray(payload.numpy()))
-    want = np.asarray(jat._aa_fwd_from_packed(
-        packed, colour.shape[0], H, W, True, sample_ph=ph))[:, :B * ph, :pw]
-    np.testing.assert_allclose(got, want, atol=ATOL)
+    want = []
+    for b in range(B):
+        r = slice(b * ph, (b + 1) * ph)
+        packed = jat._pack_planes(
+            tuple(jnp.asarray(c[r].numpy()) for c in colour),
+            jnp.asarray(idbuf[r].numpy()), jnp.asarray(payload[:, r].numpy()))
+        want.append(np.asarray(jat._aa_fwd_from_packed(
+            packed, colour.shape[0], H, W, True, sample_ph=ph))[:, :ph, :pw])
+    np.testing.assert_allclose(got, np.concatenate(want, 1), atol=ATOL)
 
 
 def test_cpu_call_leaves_launch_counter_and_checks_shapes(rng):

@@ -4,6 +4,10 @@ against the JAX package.
 Planes come from K1's plain version on stacked quads scenes; cotangents
 are numpy draws from a seed. The JAX side runs its Pallas kernels in
 interpret mode on identical inputs, or ``jax.vjp`` of its XLA functions.
+The port evaluates each sample's records at the sample's own rows, where
+JAX's stacked kernels take them shifted into the stacked frame; so the
+JAX side of a stacked case runs sample by sample (each a batch of one,
+where the two agree), and its results are stacked.
 
 Tolerances:
 * K3, 1e-6 absolute (the values are O(1)): the same pair math in the same
@@ -53,13 +57,51 @@ def _scene(rng, B, H, W, C=1, tex_size=16):
          dict(pc=pc, faces=faces, uv=uv, fn=fn, tex=tex).items()}
     aux = tr.aux_records(t["uv"], t["faces"], t["pc"], t["faces"], t["fn"],
                          H, W)
-    data_s, aux_s, bins = tr.bin_scene_stacked(t["pc"], t["faces"], H, W,
+    data_b, aux_b, bins = tr.bin_scene_stacked(t["pc"], t["faces"], H, W,
                                                aux)
     ph, pw = tr.pad_resolution(H, W)
     k1 = tr.fused_raster(bins, t["tex"], B * ph, pw)
     return dict(pc=pc, faces=faces, uv=uv, fn=fn, tex=t["tex"], aux=aux,
-                data_s=data_s, aux_s=aux_s, bins=bins, k1=k1, ph=ph, pw=pw,
+                data_b=data_b, aux_b=aux_b, bins=bins, k1=k1, ph=ph, pw=pw,
                 T=faces.shape[0])
+
+
+def _jax_rows_per_sample(s, gpl, H, W):
+    """JAX's K5 (``pixel_grad_pallas`` in interpret mode) sample by sample
+    of a ``_scene``, each a stacked batch of one on its own bins and on the
+    port's planes of that sample rendered alone (equal to its stacked
+    planes), with the cotangent planes ``gpl`` (11, B * ph, pw) of its
+    rows: the per-triangle rows (B * T, 32), samples in order."""
+    ph, T, want = s["ph"], s["T"], []
+    faces = torch.as_tensor(s["faces"])
+    for b in range(s["pc"].shape[0]):
+        r = slice(b * ph, (b + 1) * ph)
+        pc = s["pc"][b:b + 1]
+        aux_j = jax.vmap(lambda p: jr.aux_records(
+            jnp.asarray(s["uv"]), jnp.asarray(s["faces"]), p,
+            jnp.asarray(s["faces"]), jnp.asarray(s["fn"]), H, W))(
+                jnp.asarray(pc))
+        _, _, bins_j = jr.bin_scene_stacked(jnp.asarray(pc),
+                                            jnp.asarray(s["faces"]), H, W,
+                                            aux_j)
+        aux = tr.aux_records(torch.as_tensor(s["uv"]), faces,
+                             torch.as_tensor(pc), faces,
+                             torch.as_tensor(s["fn"]), H, W)
+        _, _, bins = tr.bin_scene_stacked(torch.as_tensor(pc), faces, H, W,
+                                          aux)
+        np.testing.assert_array_equal(np.asarray(bins_j.sorted_tri),
+                                      bins.sorted_tri.numpy())
+        _, entry, payload, extra, _ = tr.fused_raster(bins, s["tex"], ph,
+                                                      s["pw"])
+        assert torch.equal(payload, s["k1"][2][:, r])   # as stacked
+        gd, ga = pixel_grad_pallas(
+            bins_j, jnp.asarray(entry.numpy().astype(np.float32)),
+            jnp.asarray(payload[0].numpy()), jnp.asarray(payload[1].numpy()),
+            jnp.asarray(extra.numpy()), jnp.asarray(np.asarray(gpl)[:, r]),
+            T, ph, W, pair_cap=bins.sorted_tri.shape[0], interpret=True,
+            stacked=True)
+        want.append(np.concatenate([np.asarray(gd), np.asarray(ga)], 1))
+    return np.concatenate(want)
 
 
 # ---------------------------------------------------------------- K3 ----
@@ -74,14 +116,22 @@ def test_k3_plain_matches_pallas_kernel_interpret_stacked(rng):
                                             s["ph"])
     assert tac.antialias_planes_bwd.launches == 0
     assert float(gverts.abs().max()) > 0     # silhouettes carry gradient
-    packed = jat._pack_planes(tuple(jnp.asarray(c.numpy()) for c in colour),
-                              jnp.asarray(idbuf.numpy()),
-                              jnp.asarray(payload.numpy()))
-    rows, pw = idbuf.shape
-    jcol, jverts = jat.aa_planes_bwd_core(packed, jnp.asarray(g), H, W, 2,
-                                          rows, pw, True, sample_ph=s["ph"])
-    np.testing.assert_allclose(gcol.numpy(), np.stack(jcol), atol=1e-6)
-    np.testing.assert_allclose(gverts.numpy(), np.asarray(jverts), atol=1e-6)
+    # JAX's kernel sample by sample, each a stacked batch of one
+    ph, pw = s["ph"], idbuf.shape[1]
+    jcol, jverts = [], []
+    for b in range(B):
+        r = slice(b * ph, (b + 1) * ph)
+        packed = jat._pack_planes(
+            tuple(jnp.asarray(c[r].numpy()) for c in colour),
+            jnp.asarray(idbuf[r].numpy()), jnp.asarray(payload[:, r].numpy()))
+        c, v = jat.aa_planes_bwd_core(packed, jnp.asarray(g[:, r]), H, W, 2,
+                                      ph, pw, True, sample_ph=ph)
+        jcol.append(np.stack(c))
+        jverts.append(np.asarray(v))
+    np.testing.assert_allclose(gcol.numpy(), np.concatenate(jcol, 1),
+                               atol=1e-6)
+    np.testing.assert_allclose(gverts.numpy(), np.concatenate(jverts, 1),
+                               atol=1e-6)
 
 
 def test_k3_plain_matches_vjp_of_xla_antialias_single_image(rng):
@@ -161,7 +211,7 @@ def test_k4_plain_matches_autograd_of_the_forward_sampler(rng):
 def test_k5_k6_plain_match_pallas_kernel_interpret(rng, B, H, W):
     """Per-triangle rows against pixel_grad_pallas in interpret mode on
     bins made from the same clip positions (bit-equal to the port's), the
-    wide scene through the global list."""
+    wide scene through the global list; JAX sample by sample."""
     s = _scene(rng, B, H, W)
     bins = s["bins"]
     _, entry, payload, extra, _ = s["k1"]
@@ -175,21 +225,7 @@ def test_k5_k6_plain_match_pallas_kernel_interpret(rng, B, H, W):
         assert int(bins.n_global[0]) > 0
         assert float(gg.abs().max()) > 0     # global winners have rows
 
-    aux_j = jax.vmap(lambda p: jr.aux_records(
-        jnp.asarray(s["uv"]), jnp.asarray(s["faces"]), p,
-        jnp.asarray(s["faces"]), jnp.asarray(s["fn"]), H, W))(
-            jnp.asarray(s["pc"]))
-    _, _, bins_j = jr.bin_scene_stacked(jnp.asarray(s["pc"]),
-                                        jnp.asarray(s["faces"]), H, W, aux_j)
-    np.testing.assert_array_equal(np.asarray(bins_j.sorted_tri),
-                                  bins.sorted_tri.numpy())
-    gd, ga = pixel_grad_pallas(
-        bins_j, jnp.asarray(entry.numpy().astype(np.float32)),
-        jnp.asarray(payload[0].numpy()), jnp.asarray(payload[1].numpy()),
-        jnp.asarray(extra.numpy()), jnp.asarray(gpl), B * s["T"], rows, W,
-        pair_cap=bins.sorted_tri.shape[0], interpret=True, stacked=True)
-    want = np.concatenate([np.asarray(gd), np.asarray(ga)], axis=1)
-    close_to_max(grad, want, 1e-5)
+    close_to_max(grad, _jax_rows_per_sample(s, gpl, H, W), 1e-5)
     assert np.all(grad[:, [12, 28, 29, 30, 31]] == 0)
 
 
@@ -206,7 +242,9 @@ def test_k5_rows_hold_only_their_own_pixels(rng):
         np.float32))
     _, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
     x = torch.arange(pw, dtype=torch.float32) + 0.5
-    y = (torch.arange(rows, dtype=torch.float32) + 0.5)[:, None]
+    # each pixel at its row within its sample, as K1 and K5 evaluate it
+    y = (torch.remainder(torch.arange(rows), s["ph"]).to(torch.float32)
+         + 0.5)[:, None]
     coeff = tgc.coefficient_planes(payload[0], payload[1], extra, gpl, x, y)
     for g in range(int(bins.n_global[0])):
         mine = coeff[:, entry == bins.gbase + g]
@@ -227,7 +265,7 @@ def test_function_backward_matches_autograd_of_plain_forward(rng, B, H, W):
     grads = []
     for use_function in (True, False):
         d, a, t = (x.detach().clone().requires_grad_(True)
-                   for x in (s["data_s"], s["aux_s"], s["tex"]))
+                   for x in (s["data_b"], s["aux_b"], s["tex"]))
         if use_function:
             idbuf, aa = RasterizeTexturedSepaaStacked.apply(d, a, t, bins,
                                                             ph, H, W)
@@ -256,7 +294,7 @@ def test_function_texture_gradient_matches_finite_differences(rng):
 
     def loss(tex):
         _, aa = RasterizeTexturedSepaaStacked.apply(
-            s["data_s"].detach(), s["aux_s"].detach(), tex, s["bins"],
+            s["data_b"].detach(), s["aux_b"].detach(), tex, s["bins"],
             s["ph"], H, W)
         return (aa.double() * R.double()).sum()
 

@@ -8,7 +8,9 @@ the JAX package.
   ``sorted_tri`` over the live prefix (the port writes the sentinel B*T
   past it, ``_place_sort`` the key's triangle and the others 0).
 * The stacked binning with an entry cap equals JAX ``bin_scene_stacked(
-  entry_cap=...)`` exactly (ids, offsets; records within 1e-6 relative).
+  entry_cap=...)`` exactly (ids, offsets; records within 1e-6 relative of
+  JAX's per-sample records, which the port keeps in each sample's own
+  frame where JAX's stacked binning shifts them into the stacked frame).
 * ``raster_stats`` equals the JAX version on the grid-5 and grid-40 domes.
 * A step at a cap at least the live count gives the uncapped step's loss
   and gradients within 1e-6 relative (the same entries, in the same order).
@@ -134,17 +136,22 @@ def _bins_both(rng, B, H, W, cap):
     _, _, bins_t = tr.bin_scene_stacked(torch.as_tensor(pc),
                                         torch.as_tensor(faces), H, W, aux_t,
                                         entry_cap=cap or 0)
-    return bins_j, bins_t
+    data_j = jax.vmap(lambda p: jr.triangle_setup(
+        p, jnp.asarray(faces), H, W)[0])(jnp.asarray(pc))
+    rec_j = np.concatenate([np.asarray(data_j), np.asarray(aux_j)],
+                           -1).reshape(-1, tr.REC)
+    return bins_j, bins_t, rec_j
 
 
 @pytest.mark.parametrize("B,H,W", [(2, 40, 100), (3, 72, 300)])
 def test_capped_binning_matches_jax(B, H, W):
-    _, uncapped = _bins_both(np.random.default_rng(5), B, H, W, None)
+    _, uncapped, _ = _bins_both(np.random.default_rng(5), B, H, W, None)
     live = int(uncapped.bin_start[-1])
     per_sample = -(-live // B)
     # a cap that keeps all, one that rounds up to 128, one that drops
     for cap in (None, per_sample, max(per_sample // 3, 1)):
-        bins_j, bins_t = _bins_both(np.random.default_rng(5), B, H, W, cap)
+        bins_j, bins_t, rec_j = _bins_both(np.random.default_rng(5), B, H,
+                                           W, cap)
         P = bins_t.sorted_tri.shape[0]
         assert P == np.asarray(bins_j.sorted_tri).shape[0]
         if cap is not None:
@@ -153,8 +160,11 @@ def test_capped_binning_matches_jax(B, H, W):
             np.testing.assert_array_equal(getattr(bins_t, name).numpy(),
                                           np.asarray(getattr(bins_j, name)),
                                           err_msg=f"{name}, cap {cap}")
-        np.testing.assert_allclose(bins_t.sorted_rec.numpy(),
-                                   np.asarray(bins_j.sorted_rec_t).T,
+        # JAX's per-sample records in the order of its stacked bins
+        want = np.zeros((bins_t.gbase, tr.REC), np.float32)
+        want[:P] = rec_j[np.minimum(np.asarray(bins_j.sorted_tri),
+                                    rec_j.shape[0] - 1)]
+        np.testing.assert_allclose(bins_t.sorted_rec.numpy(), want,
                                    rtol=1e-6, atol=0)
         if cap == max(per_sample // 3, 1) and P < live:
             assert int(bins_t.bin_start[-1]) == P       # entries dropped

@@ -3,7 +3,10 @@
 The JAX side is rasterize_tpu's XLA code (no Pallas kernel runs). The bins
 must be bit-equal: sorted_tri, bin_start, global_idx and n_global exactly,
 and the records within 1e-6 relative (the same float32 formulas, in the
-same order, on both sides).
+same order, on both sides). The port keeps each sample's records in its
+own frame, where JAX's stacked binning shifts them into the stacked frame
+(``shift_records_stacked``): the records are held to JAX's per-sample
+``triangle_setup`` and ``aux_records``, placed by JAX's stacked bins.
 """
 
 import numpy as np
@@ -45,14 +48,32 @@ def test_bin_scene_stacked_matches(rng, B, H, W):
     ds_t, as_t, bins_t = tr.bin_scene_stacked(torch.as_tensor(pc),
                                               torch.as_tensor(faces), H, W,
                                               aux_t)
-    _close_rel(ds_t, ds_j)
-    _close_rel(as_t, as_j)
+    # JAX's per-sample records, in each sample's own frame
+    data_j = jax.vmap(lambda p: jr.triangle_setup(
+        p, jnp.asarray(faces), H, W)[0])(jnp.asarray(pc))
+    _close_rel(ds_t, data_j)
+    _close_rel(as_t, aux_j)
+    assert bins_t.sample_ph == tr.pad_resolution(H, W)[0]
     for name in ("sorted_tri", "bin_start", "global_idx", "n_global"):
         np.testing.assert_array_equal(getattr(bins_t, name).numpy(),
                                       np.asarray(getattr(bins_j, name)),
                                       err_msg=name)
-    _close_rel(bins_t.sorted_rec, np.asarray(bins_j.sorted_rec_t).T)
-    _close_rel(bins_t.global_rec, np.asarray(bins_j.global_rec_t).T)
+    rec = np.concatenate([np.asarray(data_j), np.asarray(aux_j)],
+                         -1).reshape(B * faces.shape[0], tr.REC)
+    n_rows = rec.shape[0]
+
+    def placed(idx, rows, live):
+        out = np.zeros((rows, tr.REC), np.float32)
+        idx = np.asarray(idx)[:live]
+        out[:live] = rec[np.minimum(idx, n_rows - 1)]
+        return out
+
+    P = bins_t.sorted_tri.shape[0]
+    _close_rel(bins_t.sorted_rec, placed(bins_j.sorted_tri, bins_t.gbase, P))
+    live = int(bins_t.n_global[0])
+    _close_rel(bins_t.global_rec[:live],
+               placed(bins_j.global_idx, tr.MAX_GLOBAL, live)[:live])
+    assert not bins_t.global_rec[live:].any()
     if W > 256:   # the wide case spills triangles into the global list
         assert int(bins_t.n_global[0]) > 0
 

@@ -261,7 +261,7 @@ def test_mip_function_backward_matches_autograd_of_plain_forward(rng):
          dict(pc=pc, faces=faces, uv=uv * 4.0, fn=fn).items()}
     aux = tr.aux_records(t["uv"], t["faces"], t["pc"], t["faces"], t["fn"],
                          Hs, Ws)
-    data_s, aux_s, bins = tr.bin_scene_stacked(t["pc"], t["faces"], Hs, Ws,
+    data_b, aux_b, bins = tr.bin_scene_stacked(t["pc"], t["faces"], Hs, Ws,
                                                aux)
     ph, pw = tr.pad_resolution(Hs, Ws)
     k1 = tr.fused_raster(bins, None, B * ph, pw)
@@ -271,7 +271,7 @@ def test_mip_function_backward_matches_autograd_of_plain_forward(rng):
     grads = []
     for use_function in (True, False):
         d, a, tx = (x.detach().clone().requires_grad_(True)
-                    for x in (data_s, aux_s, tex))
+                    for x in (data_b, aux_b, tex))
         pyr, sizes = tmip.mip_pyramid(tx, 6)
         if use_function:
             idbuf, aa = RasterizeMipSepaaStacked.apply(d, a, pyr, sizes, bins,

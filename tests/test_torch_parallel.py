@@ -345,7 +345,7 @@ def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
     t = {k: torch.as_tensor(v) for k, v in dict(
         pc=clip_batch(verts, rng, B), faces=faces, uv=uv, fn=fn,
         tex=rng.uniform(size=(16, 16, 2)).astype(np.float32)).items()}
-    data_s, aux_s, bins = trast.bin_stacked(t["pc"], t["faces"], t["uv"],
+    data_b, aux_b, bins = trast.bin_stacked(t["pc"], t["faces"], t["uv"],
                                             t["faces"], t["fn"], (H, W))
     ph, pw = tr.pad_resolution(H, W)
     k1 = tr.fused_raster(bins, None if mip else t["tex"], B * ph, pw)
@@ -358,7 +358,7 @@ def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
     grads = []
     for use_function in (True, False):
         d, a, x = (v.detach().clone().requires_grad_(True)
-                   for v in (data_s, aux_s, pyramid if mip else t["tex"]))
+                   for v in (data_b, aux_b, pyramid if mip else t["tex"]))
         if use_function and mip:
             _, aa, crow, uvz = trast.RasterizeMipSepaaBand.apply(
                 d, a, x, sizes, bins, ph, H, W)
@@ -388,7 +388,9 @@ def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
             F = torch.where(hit[..., None],
                             rec[tri[k1[1].long().clamp(min=0)]], 0.0)
             xs = torch.arange(pw, dtype=torch.float32) + 0.5
-            ys = (torch.arange(B * ph, dtype=torch.float32) + 0.5)[:, None]
+            # each pixel at its row within its sample
+            ys = (torch.remainder(torch.arange(B * ph), ph).to(
+                torch.float32) + 0.5)[:, None]
             z = F[..., 9] * xs + (F[..., 10] * ys + F[..., 11])
             pay, _ = tr.resolve_payload(F, xs, ys, hit, z)
             uvz = torch.stack(pay[:3])[:, rows].reshape(3, B, 2, pw)

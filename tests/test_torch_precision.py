@@ -3,7 +3,8 @@
 
 * K5 ``fast``, plain, against ``pixel_grad_pallas`` in interpret mode with
   ``raster_grad_tpu._GRAD_FAST`` set (JAX's ``FPC_GRAD_PREC=fast``), on the
-  scenes of ``test_torch_backward.py``: per-triangle rows within 1e-4 of
+  scenes of ``test_torch_backward.py`` (JAX sample by sample, as there):
+  per-triangle rows within 1e-4 of
   the largest, and all but 0.1 % of them within that test's 1e-5. The two
   packages' f32 coefficients may differ by an ulp, and where one lies next
   to a bf16 rounding boundary they round a bf16 ulp apart (1.5e-5 of the
@@ -35,8 +36,6 @@ import pytest
 import torch
 
 from fpc_diffrend_tpu.ops.pallas import raster_grad_tpu as rg
-from fpc_diffrend_tpu.ops.pallas import rasterize_tpu as jr
-from fpc_diffrend_tpu.ops.pallas.raster_grad_tpu import pixel_grad_pallas
 from fpc_diffrend_tpu_torch.fit import loop as tloop
 from fpc_diffrend_tpu_torch.ops import precision as prec_mod
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as tgc
@@ -47,7 +46,7 @@ from fpc_diffrend_tpu_torch.ops.rasterize import rasterize
 from fpc_diffrend_tpu_torch.ops.texture import texture
 from fpc_diffrend_tpu_torch.workload import build_workload
 
-from test_torch_backward import SCENES, _scene
+from test_torch_backward import SCENES, _jax_rows_per_sample, _scene
 from test_torch_render import _port
 
 
@@ -106,26 +105,11 @@ def test_k5_fast_matches_pallas_kernel_fast_interpret(rng, B, H, W,
     exact = tgc.fold_entries(*tgc.pixel_grad(*args), bins, n)
     assert tgc.pixel_grad.launches == 0
 
-    aux_j = jax.vmap(lambda p: jr.aux_records(
-        jnp.asarray(s["uv"]), jnp.asarray(s["faces"]), p,
-        jnp.asarray(s["faces"]), jnp.asarray(s["fn"]), H, W))(
-            jnp.asarray(s["pc"]))
-    _, _, bins_j = jr.bin_scene_stacked(jnp.asarray(s["pc"]),
-                                        jnp.asarray(s["faces"]), H, W, aux_j)
-
-    def jax_rows():
-        gd, ga = pixel_grad_pallas(
-            bins_j, jnp.asarray(entry.numpy().astype(np.float32)),
-            jnp.asarray(payload[0].numpy()), jnp.asarray(payload[1].numpy()),
-            jnp.asarray(extra.numpy()), jnp.asarray(gpl.numpy()), n, rows,
-            W, pair_cap=bins.sorted_tri.shape[0], interpret=True,
-            stacked=True)
-        return np.concatenate([np.asarray(gd), np.asarray(ga)], axis=1)
-
     monkeypatch.setattr(rg, "_GRAD_FAST", True)
     jax.clear_caches()          # the knob is read while tracing
     try:
-        want = jax_rows()
+        # JAX sample by sample: its stacked path shifts the records
+        want = _jax_rows_per_sample(s, gpl.numpy(), H, W)
     finally:
         monkeypatch.setattr(rg, "_GRAD_FAST", False)
         jax.clear_caches()      # no fast trace leaks into other tests

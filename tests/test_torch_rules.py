@@ -231,7 +231,7 @@ def test_kernels_match_plain_versions_on_the_card(card):
         s, p, b = wl["scene"], wl["params"], wl["batch"]
         pc, _ = loop.sample_clip_positions(wl["config"], s, p, b.cam_idx,
                                            b.frame_idx)
-        data_s, aux_s, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
+        data_b, aux_b, bins = bin_stacked(pc, s.faces, s.uv, s.uv_idx,
                                           s.face_neighbors, (96, 200))
         ph, pw = rc.pad_resolution(96, 200)
         before = rc.fused_raster.launches
@@ -246,7 +246,7 @@ def test_kernels_match_plain_versions_on_the_card(card):
         torch.testing.assert_close(k2, p2, atol=1e-6, rtol=0)
     # a gradient through K1 and K2 runs K3-K6
     d, a, tex = (x.detach().clone().requires_grad_(True)
-                 for x in (data_s, aux_s, p["tex"]))
+                 for x in (data_b, aux_b, p["tex"]))
     _, aa = RasterizeTexturedSepaaStacked.apply(d, a, tex, bins, ph, 96, 200)
     aa.sum().backward()
     for g in (d.grad, a.grad, tex.grad):

@@ -107,7 +107,8 @@ SURFACE = {
         "the single view is the stacked Function at B = 1",
         *_STACKED_ROUTES),
     "ops.rasterize.rasterize_texture_sepaa_stacked": absorbed(
-        "the stacked Function takes the shifted records and bins, without "
+        "the stacked Function takes each sample's own records and bins, "
+        "without "
         "JAX's interpret and pair_cap arguments; the mip path is its own "
         "Function",
         "ops.rasterize.RasterizeTexturedSepaaStacked",
@@ -140,6 +141,11 @@ SURFACE = {
         "the binning of set-up triangles is bin_scene_stacked, whose pairs "
         "K11 places", "ops.cuda.rasterize_cuda.bin_scene_stacked",
         "ops.cuda.bin_place_cuda.place_pairs"),
+    "ops.pallas.rasterize_tpu.shift_records_stacked": left_out(
+        "the port keeps each sample's records in its own frame and its "
+        "kernels evaluate them at the sample's own rows (Bins.sample_ph): "
+        "the f32 shift into the stacked frame broke every sample's "
+        "gradients past the first at full size"),
     "ops.pallas.rasterize_tpu.tiles_per_program": left_out(
         "tiles per Pallas program, a TPU schedule; each CUDA kernel picks "
         "its own launch shape"),

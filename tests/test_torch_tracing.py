@@ -4,8 +4,11 @@ the CPU at a tiny size.
 
 Off, they enter no ``record_function``, launch no counter op and leave the
 step's result as it is; on, each step gives each of its spans once, nested
-as the layers are, each span a ``user_annotation`` of a profiler trace,
-and the bin counters agree with ``raster_stats`` and ``entry_count``.
+as the layers are (on the mip path the pyramid and the LOD inside
+``raster.fwd``, K9 inside ``raster.bwd``), each span a ``user_annotation``
+of a profiler trace, ``fit.batch_samples`` counts each step's B, and the
+bin counters agree with ``raster_stats`` and ``entry_count``, the global
+list's with the batch's pooled oversized triangles.
 """
 
 import json
@@ -33,6 +36,9 @@ FIT_PARENT = {"fit.step": "fit.dispatch", "fit.sample": "fit.dispatch",
               "raster.bin": "fit.forward", "raster.fwd": "fit.forward",
               "raster.composite": "fit.forward", "fit.loss": "fit.forward",
               "K11 bin_place": "raster.bin", "raster.bwd": "fit.backward"}
+# the mip path's own spans
+MIP_PARENT = {"raster.pyramid": "raster.fwd", "raster.lod": "raster.fwd",
+              "raster.mip_bwd": "raster.bwd"}
 VIEW_PARENT = {"model.prologue": "view.render", "raster.bin": "view.render",
                "raster.fwd": "view.render",
                "raster.composite": "view.render",
@@ -98,7 +104,9 @@ def test_off_enters_nothing_and_changes_nothing(tmp_path):
 @pytest.mark.parametrize("mip", [False, True])
 def test_each_step_gives_each_span_once(mip):
     """(b) On: per step each fit span once, nested as the layers are,
-    inside its parent's interval, with the step's request id."""
+    inside its parent's interval, with the step's request id; on the mip
+    path also the pyramid and the LOD in ``raster.fwd`` and K9 in
+    ``raster.bwd``. ``fit.batch_samples`` counts B a step."""
     wl = workload(mip)
     g = torch.Generator().manual_seed(3)
     step0 = wl["state"].step
@@ -106,22 +114,25 @@ def test_each_step_gives_each_span_once(mip):
         loop.train_steps(wl["config"], wl["scene"], wl["state"],
                          wl["frames_u8"], g, 2, wl["n_frames"])
     spans = log.spans
+    parents = dict(FIT_PARENT, **(MIP_PARENT if mip else {}))
     assert [s.name for s in spans].count("fit.dispatch") == 1
     for step in (step0, step0 + 1):
         mine = [s for s in spans if s.request == step]
         assert sorted(s.name for s in mine) == sorted(
-            set(FIT_PARENT) - {"fit.sample"})
+            set(parents) - {"fit.sample"})
     for s in spans:
         assert 0 < s.end_ns and s.start_ns <= s.end_ns
         if s.name == "fit.dispatch":
             assert s.parent is None
             continue
         parent = spans[s.parent]
-        assert parent.name == FIT_PARENT[s.name], s.name
+        assert parent.name == parents[s.name], s.name
         assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
         if s.name not in ("fit.sample", "fit.step"):
             assert s.request == parent.request
     assert [s.name for s in spans].count("fit.sample") == 2
+    assert log.counters["fit.batch_samples"] == 2 * BATCH
+    assert log.counters["fit.eager_steps"] == 2
 
 
 def test_view_gives_its_spans_once_a_view():
@@ -189,20 +200,24 @@ def test_bin_counters_follow_the_steps_samples():
     config, scene = wl["config"], wl["scene"]
     T = scene.faces.shape[0]
     P = trc.entry_count(BATCH, T, config.pair_cap)
-    live = []
+    live, big = [], []
     with profiling.recording() as log:
         for batch in batches(wl, 2, seed=5):
             with torch.no_grad():
                 pc, _ = loop.sample_clip_positions(
                     config, scene, wl["state"].params, batch.cam_idx,
                     batch.frame_idx)
-            live.append(int(trc.raster_stats(pc, scene.faces, H, W)
-                            ["n_valid_pairs"].sum()))
+            stats = trc.raster_stats(pc, scene.faces, H, W)
+            live.append(int(stats["n_valid_pairs"].sum()))
+            big.append(int((stats["n_global"]
+                            + stats["global_overflow"]).sum()))
             loop.train_step(config, scene, wl["state"], batch)
     assert config.pair_cap > 0 and sum(live) > 0
-    assert log.counters == {"bin.live_pairs": sum(live),
-                            "bin.capacity": 2 * P,
-                            "bin.kept": sum(min(n, P) for n in live)}
+    assert log.counters == {
+        "bin.live_pairs": sum(live), "bin.capacity": 2 * P,
+        "bin.kept": sum(min(n, P) for n in live),
+        "bin.global_live": sum(big),
+        "bin.global_kept": sum(min(n, trc.MAX_GLOBAL) for n in big)}
 
 
 @pytest.mark.parametrize("cap", [0, 128])
@@ -214,13 +229,41 @@ def test_bin_counters_show_what_the_cap_drops(rng, cap):
     with profiling.recording() as log:
         _, _, bins = bin_stacked(pc, faces_t, torch.as_tensor(uv), faces_t,
                                  fn_t, (h, w), cap)
-    live = int(trc.raster_stats(pc, faces_t, h, w)["n_valid_pairs"].sum())
+    stats = trc.raster_stats(pc, faces_t, h, w)
+    live = int(stats["n_valid_pairs"].sum())
+    big = int((stats["n_global"] + stats["global_overflow"]).sum())
     P = trc.entry_count(B, faces.shape[0], cap)
     assert log.counters == {"bin.live_pairs": live, "bin.capacity": P,
-                            "bin.kept": min(live, P)}
+                            "bin.kept": min(live, P),
+                            "bin.global_live": big,
+                            "bin.global_kept": min(big, trc.MAX_GLOBAL)}
     assert log.counters["bin.kept"] == int(bins.bin_start[-1])
     if cap:
         assert live > P          # the cap drops live - kept pairs
+
+
+def test_global_counters_pool_the_batch():
+    """``bin.global_live`` counts the oversized triangles of every sample of
+    the batch, pooled into the one global list; ``bin.global_kept`` the
+    rows the list of ``MAX_GLOBAL`` keeps, which ``Bins.n_global`` holds:
+    400 a sample, B = 3, so 1,200 live and 1,024 kept."""
+    B, n, h, w = 3, 400, 64, 256
+    x = np.arange(n) % (w - 2) + 0.5
+    xs = 2 * np.stack([x, x + 1.0, x], 1) / w - 1.0     # NDC, full height
+    ys = np.tile([-0.99, -0.99, 0.99], (n, 1))
+    zs = np.tile(np.linspace(-0.5, 0.5, n)[:, None], (1, 3))
+    clip = np.stack([xs, ys, zs, np.ones_like(xs)], -1).reshape(-1, 4)
+    pc = torch.as_tensor(np.broadcast_to(clip, (B,) + clip.shape).copy(),
+                         dtype=torch.float32)
+    faces = torch.arange(3 * n, dtype=torch.int32).reshape(n, 3)
+    with profiling.recording() as log:
+        _, _, bins = bin_stacked(pc, faces, torch.zeros((3 * n, 2)), faces,
+                                 torch.full((n, 3), -1), (h, w))
+    stats = trc.raster_stats(pc, faces, h, w)
+    assert stats["n_global"].tolist() == [n] * B
+    assert log.counters["bin.global_live"] == B * n
+    assert log.counters["bin.global_kept"] == trc.MAX_GLOBAL
+    assert int(bins.n_global[0]) == trc.MAX_GLOBAL
 
 
 def test_counters_and_totals():

@@ -24,7 +24,9 @@ Phases, each fatal on failure:
    (gtu/gtv within 1e-6, wrap and clamp), K8 and K9 on the 7-level pyramid
    with the real LOD and with a random LOD plane past both clamps (K8 and
    K9's gtu/gtv within 1e-6: each pixel's own sums, in the plain
-   version's order; only the gradient pyramid sums across pixels), K4's
+   version's order; only the gradient pyramid sums across pixels; K8
+   deriving the LOD: its LOD plane equal to ``lod_from_texc``'s on the
+   card and its colour to K8 fed that plane), K4's
    gtex (its texel shares summed in float64 and rounded once) each
    element within 1e-6 of the sum of the magnitudes it adds up, K9's
    gradient pyramid and K5's rows, whose atomics sum in another order,
@@ -48,7 +50,12 @@ Phases, each fatal on failure:
    K9 three channels, a chain of no power-of-two sides, a one-level chain,
    planes of a pixel count no multiple of 4 and unaligned ones, every
    pixel at uv (0, 0), random and minified uv over a random LOD, a zero
-   cotangent);
+   cotangent; ``check_mip_lod``: K8 deriving the LOD on synthetic id and
+   uv planes of three samples with padding rows and columns, missed
+   pixels and ids across the seams, at the face9-mip batch's 36 x
+   1200 x 1664 planes, at a width no multiple of 4 and on unaligned
+   planes, its LOD equal to ``lod_from_texc``'s and its colour to K8 fed
+   that plane);
 4. the forward at full width: the benchmarked workload (1600x1200, 29,768
    triangles, 1024^2 texture, batch 8, 3 cameras, 4 frames, free mode,
    Laplacian 1.0, the entry cap autotuned with no K11 launch) through
@@ -72,7 +79,10 @@ Phases, each fatal on failure:
    per-stage CUDA-event times of one batch's forward and one step;
 5b. the mip path at full width: the same workload with trilinear mipmap
    sampling (``enable_mip``, ``max_mip_level=6``: 7 levels, 1024..16),
-   5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch) and
+   5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch;
+   ``mip.lod_fused`` every stacked pixel of each batch; one kernel on the
+   device between K1 and K2, K8, where the LOD's torch passes and K8 ran
+   70) and
    2 timed dispatches of 5 steps through ``fit.loop.train_steps`` after a
    warm-up dispatch under sync-debug "error", replays all, then one
    measured as in 5 (K1, K2, K3, K5, K6, K8, K9, K11 once per step on the
@@ -166,7 +176,9 @@ Phases, each fatal on failure:
    reductions its design issues, its time again with the cotangent at uv
    (0, 0) zeroed) and K4 on the missed pixels' hot spot (a cotangent on
    every missed pixel of the single view, wrap and clamp, checked and
-   timed); K8's and K9's at the bench-mip batch (``mip_kernel_pairs``,
+   timed); K8's (deriving the LOD; its plain version ``lod_from_texc``
+   then ``mip_sample_plain``) and K9's at the bench-mip batch
+   (``mip_kernel_pairs``,
    which ``chip_turns.py`` times too: the pixels of each level, those that
    blend a second one, the live pixels and those at uv (0, 0), the
    distinct texels of each level, the reductions K9's design issues, and
@@ -241,6 +253,7 @@ K2_ATOL = 1e-6
 K3_ATOL = 1e-6                 # deterministic, the plain version's order
 K4_ATOL = 1e-6                 # gtu, gtv: one thread per pixel, no atomics
 K8_ATOL = 1e-6                 # each pixel in the plain version's order
+LOD_ULP = 0                    # K8's LOD: lod_from_texc's order and log2f
 K9_ATOL = 1e-6                 # gtu, gtv: each pixel's own sums, in order
 ATOMIC_RTOL = 1e-5             # gpyr, K5 rows: atomics reorder sums
 # K4's gtex, of the summed magnitudes: its texel shares add in float64 and
@@ -328,6 +341,77 @@ def host_us(fn, reps: int) -> float:
     us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def device_kernel_launches(fn) -> dict:
+    """The kernels, copies and memsets one call of fn() runs on the
+    device, after one warm-up: {name: launches}, by the profiler."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.profile_forward import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {name: n for name, _, n in device_kernels(prof)}
+
+
+def mip_kernels_between(wl, cpu_gen):
+    """What the mip forward runs on the device between K1 and K2, on the
+    workload's first batch (its stages, ``forward_stages``): K8 deriving
+    the LOD, one launch of ``mip_fwd_kernel`` (``ops.cuda.
+    device_launches``), against the LOD's torch passes then K8 on a given
+    plane, as the step ran them before; and ``mip.lod_fused`` of one
+    ``fit.loop.evaluate`` batch against its stacked pixels. Fails unless
+    exactly one kernel runs and the counter reads every pixel.
+
+    :return: {"kernels": launches of K8 deriving the LOD (all device
+        work), "torch_lod_then_k8": of the torch passes then K8,
+        "lod_fused_share": the counter over the batch's stacked pixels}.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.cuda import device_launches
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+    from fpc_diffrend_tpu_torch.utils.profiling import recording
+
+    H, W = wl["H"], wl["W"]
+    ph, pw = rc.pad_resolution(H, W)
+    state = {}
+    stages = dict(forward_stages(wl, state))
+    with torch.no_grad():
+        for name in ("prologue", "binning", "K1 fused_raster",
+                     "mip pyramid"):
+            stages[name]()
+        idbuf, _, payload, _, _ = state["k1"]
+        pyr, sizes = state["pyr"]
+        pyr = pyr.detach()
+
+        def torch_lod_then_k8():
+            lam = tmc.lod_from_texc(payload[3], payload[4], idbuf,
+                                    *sizes[0], H, W, ph)
+            return tmc.mip_sample(pyr, sizes, payload[3], payload[4], lam)
+
+        got = device_kernel_launches(stages["K8 mip_sample_lod"])
+        before = device_kernel_launches(torch_lod_then_k8)
+        with device_launches() as named:
+            stages["K8 mip_sample_lod"]()
+    with recording() as log:
+        loop.evaluate(wl["config"], wl["scene"], wl["params"],
+                      wl["frames_u8"], 1, cpu_gen)
+    share = log.counters.get("mip.lod_fused", 0) / (wl["B"] * ph * pw)
+    out = {"kernels": got, "torch_lod_then_k8": before,
+           "lod_fused_share": share}
+    if sum(got.values()) != 1 or named["mip_fwd_kernel"] != 1 or share != 1:
+        fail(f"mip: K8 deriving the LOD is not the one kernel between K1 "
+             f"and K2, or mip.lod_fused missed pixels: {out}")
+    return out
 
 
 def max_err(a, b) -> float:
@@ -621,6 +705,122 @@ def check_mip(k1, tex, g, lam_random, height, width, sample_ph, label):
     return errs, abs_errs, (pyr, sizes, lam)
 
 
+def ulp_gap(a, b) -> int:
+    """The largest distance between a and b in float32 steps (NaN where
+    both are NaN counts as equal)."""
+    import torch
+
+    def line(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    both = torch.isnan(a) & torch.isnan(b)
+    gap = torch.where(both, 0, (line(a) - line(b)).abs())
+    return int(gap.max()) if gap.numel() else 0
+
+
+def mip_lod_errors(pyr, sizes, tu, tv, idbuf, height, width, sample_ph):
+    """K8 deriving the LOD (``mip_sample_lod``) against the torch passes
+    it replaces: {"lam_ulp": its LOD plane's largest gap to
+    ``lod_from_texc``'s on the same device, in float32 steps;
+    "colour_given": its colour's largest gap to K8 fed its own LOD plane
+    (``mip_sample``); "colour_plain": to ``mip_sample_plain`` of
+    ``lod_from_texc``'s plane}."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+
+    colour, lam = tmc.mip_sample_lod(pyr, sizes, tu, tv, idbuf, height,
+                                     width, sample_ph)
+    torch.cuda.synchronize()
+    want = tmc.lod_from_texc(tu, tv, idbuf, *sizes[0], height, width,
+                             sample_ph)
+    return {"lam_ulp": ulp_gap(lam, want),
+            "colour_given": max_err(colour, tmc.mip_sample(pyr, sizes, tu,
+                                                           tv, lam)),
+            "colour_plain": max_err(colour, tmc.mip_sample_plain(
+                pyr, sizes, tu, tv, want))}
+
+
+def check_lod_errors(errs: dict, label: str) -> None:
+    """Fail unless K8's derived LOD is within ``LOD_ULP`` of the torch
+    passes' and its colour equals K8's fed that plane exactly and the
+    plain version's within ``K8_ATOL``."""
+    if not (errs["lam_ulp"] <= LOD_ULP and errs["colour_given"] == 0.0
+            and errs["colour_plain"] <= K8_ATOL):
+        fail(f"{label}: K8 deriving the LOD differs from the LOD's torch "
+             f"passes and K8: {errs}")
+
+
+# check_mip_lod's planes: (B, height, width, sample_ph, pw, C, aligned);
+# the second is the face9-mip batch's stacked image
+MIP_LOD_CASES = {
+    "3 samples": (3, 20, 100, 24, 128, 1, True),
+    "3 samples C 3": (3, 20, 100, 24, 128, 3, True),
+    "face9-mip batch": (36, 1200, 1600, 1200, 1664, 1, True),
+    "width 83": (2, 17, 80, 20, 83, 1, True),
+    "3 samples, unaligned": (3, 20, 100, 24, 128, 1, False),
+}
+
+
+def lod_planes(dev, gen, B, height, width, sample_ph, pw):
+    """Synthetic K1 planes for the LOD: (idbuf, tu, tv) of B samples
+    stacked ``sample_ph`` rows apart. Ids come in 5 x 7 patches that run
+    across the samples' seams and over the padding rows and columns, with
+    scattered missed pixels (-1, uv (0, 0)); uv is a slanted ramp with
+    noise, so each pair's difference is its own."""
+    import torch
+
+    rows = B * sample_ph
+    r = torch.arange(rows, device=dev)[:, None]
+    c = torch.arange(pw, device=dev)[None]
+    miss = (c + 2 * r) % 13 < 3
+    ids = torch.where(miss, -1, ((r // 5) * 37 + c // 7) % 11).to(
+        torch.int32)
+    noise = torch.rand((2, rows, pw), device=dev, generator=gen) * 0.01
+    tu = (c + 0.3 * r) / pw * 1.3 + noise[0]
+    tv = (r % sample_ph) / sample_ph * 0.9 + 0.05 * c / pw + noise[1]
+    tu = torch.where(miss, 0.0, tu).float().contiguous()
+    tv = torch.where(miss, 0.0, tv).float().contiguous()
+    return ids.contiguous(), tu, tv
+
+
+def check_mip_lod(dev, gen, cases=MIP_LOD_CASES):
+    """K8 deriving the LOD on the synthetic planes of ``cases``
+    (:func:`lod_planes`; a 7-level chain of a random 1024^2 texture, 64^2
+    below the face9-mip batch), each within :func:`check_lod_errors`'
+    limits: three samples with padding rows and columns, missed pixels and
+    ids across the seams (one and three channels); the face9-mip batch's
+    36 x 1200 x 1664 planes; a width no multiple of 4 and planes 4 bytes
+    past a 16-byte boundary (one pixel a thread). :return: case ->
+    :func:`mip_lod_errors`."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.texture_mip import level_sizes
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    out = {}
+    for name, (B, height, width, sample_ph, pw, C, aligned) in cases.items():
+        side = 1024 if height >= 1000 else 64
+        sizes = level_sizes(side, side, MAX_MIP_LEVEL)
+        pyr = torch.rand((sum(h * w for h, w in sizes), C), device=dev,
+                         generator=gen)
+        planes = lod_planes(dev, gen, B, height, width, sample_ph, pw)
+        if not aligned:
+            planes = tuple(unaligned(t) for t in planes)
+        ids, tu, tv = planes
+        out[name] = mip_lod_errors(pyr, sizes, tu, tv, ids, height, width,
+                                   sample_ph)
+        check_lod_errors(out[name], f"K8 LOD case {name}")
+    print(f"check K8 deriving the LOD: {out} (limits: LOD {LOD_ULP} "
+          f"float32 steps, colour exactly K8's on that LOD)", flush=True)
+    return out
+
+
 def mip_inputs(k1, tex, height, width, sample_ph):
     """The mip path's pyramid of ``tex`` (7 levels), its sizes, and the LOD
     plane of K1's uv planes ``k1``, as the step computes them."""
@@ -635,9 +835,11 @@ def mip_inputs(k1, tex, height, width, sample_ph):
 
 def mip_kernel_pairs(k1, tex, gcolour, height, width, sample_ph):
     """K8 and K9 on one state's inputs, as phase 6 and ``chip_turns.py``
-    both time them: the bench-mip batch's uv planes (K1's ``k1``), the
-    pyramid of ``tex``, their LOD (:func:`mip_inputs`), and K3's colour
-    cotangent ``gcolour`` for K9.
+    both time them: the bench-mip batch's uv and id planes (K1's ``k1``),
+    the pyramid of ``tex``, and for K9 their LOD (:func:`mip_inputs`) and
+    K3's colour cotangent ``gcolour``. K8 derives the LOD as the step runs
+    it (``mip_sample_lod``); its plain version is the LOD's torch passes
+    (``lod_from_texc``), then ``mip_sample_plain``.
 
     :return: ({name: (kernel call, its plain version)}, (pyramid, sizes,
         LOD)).
@@ -645,11 +847,18 @@ def mip_kernel_pairs(k1, tex, gcolour, height, width, sample_ph):
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 
     pyr, sizes, lam = mip_inputs(k1, tex, height, width, sample_ph)
-    tu, tv = k1[2][3], k1[2][4]
+    idbuf, tu, tv = k1[0], k1[2][3], k1[2][4]
+
+    def k8_plain():
+        lp = tmc.lod_from_texc(tu, tv, idbuf, *sizes[0], height, width,
+                               sample_ph)
+        return tmc.mip_sample_plain(pyr, sizes, tu, tv, lp), lp
+
     pairs = {
         "mip_sample": (
-            lambda: tmc.mip_sample(pyr, sizes, tu, tv, lam),
-            lambda: tmc.mip_sample_plain(pyr, sizes, tu, tv, lam)),
+            lambda: tmc.mip_sample_lod(pyr, sizes, tu, tv, idbuf, height,
+                                       width, sample_ph),
+            k8_plain),
         "mip_sample_bwd": (
             lambda: tmc.mip_sample_bwd(pyr, sizes, tu, tv, lam, gcolour),
             lambda: tmc.mip_sample_bwd_plain(pyr, sizes, tu, tv, lam,
@@ -3739,12 +3948,14 @@ def k9_unreduced(pyr, sizes, tu, tv, lam, gcolour):
 
 
 def k8_bound_ms(lam, C, pyr, n_levels):
-    """K8: tu, tv and lam read and C planes written per pixel, the pyramid
-    read once (bytes); ~(12 C + 12) flops for each level a pixel samples,
-    4 taps and 3 lerps a channel and the coordinates (operations)."""
+    """K8 deriving the LOD: tu, tv and the id read and the LOD and C planes
+    written per pixel (20 bytes at C = 1), the pyramid read once (bytes);
+    ~(12 C + 12) flops for each level a pixel samples, 4 taps and 3 lerps
+    a channel and the coordinates, and ~20 for its LOD (operations)."""
     px = lam.numel()
     levels = px + int(_mip_levels(lam, n_levels)[1].sum())
-    return _bound(px * 4 * (3 + C) + pyr.numel() * 4, levels * (12 * C + 12))
+    return _bound(px * 4 * (4 + C) + pyr.numel() * 4,
+                  levels * (12 * C + 12) + 20 * px)
 
 
 def k9_bound_ms(lam, gcolour, pyr, n_levels):
@@ -3950,8 +4161,13 @@ def main() -> int:
         # a LOD plane over every level of the 7 and past both clamps
         lam_random = (torch.rand((2 * ph, pw), device=dev, generator=gen)
                       * (MAX_MIP_LEVEL + 3) - 1.5)
-        check_mip(k1, wl["params"]["tex"].detach(), g_aa, lam_random, 256,
-                  384, ph, label)
+        _, _, (pyr, sizes, _) = check_mip(k1, wl["params"]["tex"].detach(),
+                                          g_aa, lam_random, 256, 384, ph,
+                                          label)
+        lod_errs = mip_lod_errors(pyr, sizes, k1[2][3], k1[2][4], k1[0], 256,
+                                  384, ph)
+        check_lod_errors(lod_errs, label)
+        record.setdefault("mip_lod_err", {})[label] = lod_errs
         check_place(state["pc"], wl["scene"].faces, 256, 384,
                     wl["config"].pair_cap, label)
     check_place_edges(dev)
@@ -3960,6 +4176,7 @@ def main() -> int:
     record["k10_edges_err"] = check_k10_edges(dev, gen)
     record["k4_edges_err"] = check_k4_edges(dev, gen)
     record["mip_edges_err"] = check_mip_edges(dev, gen)
+    record["mip_lod_cases_err"] = check_mip_lod(dev, gen)
 
     phase_done("3")
 
@@ -4121,6 +4338,8 @@ def main() -> int:
                 mip_sample=n_batches, bin_place=n_batches)
     if launches_fwd != want:
         fail(f"mip: kernel launches {launches_fwd} != {want}")
+    mip_between = mip_kernels_between(wlm, cpu_gen)
+    print(f"mip forward between K1 and K2: {mip_between}", flush=True)
     mstate = wlm["state"]
     torch.cuda.set_sync_debug_mode("error")
     loop.train_steps(cm, scm, mstate, wlm["frames_u8"], gen, k,
@@ -4167,7 +4386,8 @@ def main() -> int:
                        for name, fn in step_stages(wlm, mstage)}
     print("mip step stages (CUDA events, ms, batch of 8): " + ", ".join(
         f"{k} {v:.3f}" for k, v in mip_step_stages.items()), flush=True)
-    record.update(mip_forward_ms_per_batch=mip_fwd_ms, mip_metrics=metrics,
+    record.update(mip_between_k1_k2=mip_between,
+                  mip_forward_ms_per_batch=mip_fwd_ms, mip_metrics=metrics,
                   mip_launches_evaluate=launches_fwd, mip_step_ms=mip_step_ms,
                   mip_step_losses=mlosses, mip_launches=mip_launches,
                   mip_stage_ms=mip_stages, mip_step_stage_ms=mip_step_stages)
@@ -4339,8 +4559,17 @@ def main() -> int:
         # K8 and K9 at the mip step's shapes, on K3's colour cotangent (the
         # inputs chip_turns.py times too)
         mg = mstage["k3"][0]
-        _, mabs, _ = check_mip(mstage["k1"], pm["tex"].detach(), mg, None, H,
-                               W, ph, "bench batch, mip")
+        _, mabs, (pyr, sizes, _) = check_mip(
+            mstage["k1"], pm["tex"].detach(), mg, None, H, W, ph,
+            "bench batch, mip")
+        mk1 = mstage["k1"]
+        lod_errs = mip_lod_errors(pyr, sizes, mk1[2][3], mk1[2][4], mk1[0],
+                                  H, W, ph)
+        check_lod_errors(lod_errs, "bench batch, mip")
+        record.setdefault("mip_lod_err", {})["bench batch, mip"] = lod_errs
+        # the kernel table's K8 is K8 deriving the LOD
+        mabs["mip_sample"] = max(mabs["mip_sample"],
+                                 lod_errs["colour_plain"])
         mpairs, (pyr, sizes, lam) = mip_kernel_pairs(
             mstage["k1"], pm["tex"].detach(), mg, H, W, ph)
         t.update(mpairs)

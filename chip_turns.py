@@ -48,8 +48,9 @@ magnitudes as ``chip_smoke.py`` holds it). A tree whose wrappers take no
 precision argument cannot run this set.
 
 On the bench-mip workload, after its step's stages have run once
-(``chip_smoke.mip_kernel_pairs``; "mip"): K8 (``mip_sample``) and K9
-(``mip_sample_bwd``, on K3's colour cotangent) at the bench-mip batch.
+(``chip_smoke.mip_kernel_pairs``; "mip"): K8 deriving the LOD
+(``mip_sample_lod``, timed as ``mip_sample``) and K9 (``mip_sample_bwd``,
+on K3's colour cotangent) at the bench-mip batch.
 
 Each by CUDA events over back-to-back calls (20 at the bench and
 bench-mip batches, 200 at the single view) and by the profiler's device

@@ -31,7 +31,8 @@
 //
 // What binds them on the H100 (chip_smoke.py phase 6 and chip_turns.py at
 // the bench-mip batch, 16.4 M pixels of one channel; PERF.md keeps the
-// measurements): the bytes of the planes, 16 a pixel for K8 and 20 for K9,
+// measurements): the bytes of the planes, 16 a pixel for K8 on a given
+// LOD (20 deriving it) and 20 for K9,
 // and for K9 the memory system's service of its reductions into the
 // gradient pyramid, as for K4 (csrc/texture_bwd.cu): without them it
 // takes about half its time. The pyramid (5.6 MB for a one-channel 1024^2
@@ -43,16 +44,40 @@
 // pixel a thread (four pixels 32 apart, K4's layout, hold twice the
 // registers and take 0.07 ms longer at the bench-mip batch).
 //
+// K8 takes its LOD in one of two modes (a template flag). GIVEN reads the
+// caller's plane (ops.texture_mip.mip_texture). DERIVE computes it from
+// the uv and id planes, as lod_from_texc in ops/cuda/texture_mip_cuda.py
+// does with 69 launches of full-plane torch passes, and writes it out for
+// K9 (the mip render Functions' path, ops.rasterize._mip_sample): per
+// pixel, s = u * tw and t = v * th at level 0; the x difference is the
+// forward one where the right neighbour holds the same id and the pair
+// lies in the sample (col < width - 1), else the backward one where the
+// left pair qualifies, else 0; y the same with the pair mask row %
+// sample_ph < height - 1 on the pair's upper row; rho2 = max of the two
+// sums of squares; lam = 0.5 * log2f(max(rho2, 1e-20)), NaN kept as
+// torch.maximum and torch.clamp keep it. Each pixel's own tu, tv and id
+// are read once; the rows above and below, read by the neighbouring
+// blocks too, mostly come from L1/L2. A group's pixel k takes pixel k -
+// 1's forward pair as its backward one; the left pixel and the row above
+// are read only where a forward pair fails. The planes a pixel moves rise
+// from 16 to 20 bytes (id in, lam out). At the face9-mip batch (36 x
+// 1200 x 1664) it takes ~0.28 ms more than K8 on a given plane, of which
+// the neighbours' loads are ~0.19, the LOD's store ~0.03 and the row and
+// sample-row divisions ~0.02 (timing variants, PERF.md); the torch passes
+// took ~10 ms. Every derived LOD equals lod_from_texc's bit for bit (its
+// order, no contraction, log2f as torch's CUDA log2 calls it).
+//
 // Design of K8 (K7's, csrc/texture_fwd.cu): each thread samples PX = 4
 // neighbouring pixels, so tu, tv and lam come in as one 16-byte load each
 // and each channel goes out as one 16-byte store, with the pixels' level
 // lo gathers in flight at once (read-only path); level lo + 1's taps are
 // computed where they are sampled, for the pixels that blend it. Where a
 // plane is not 16-byte aligned, or a channel plane would not be (C > 1 and
-// n_px % 4 != 0), the same kernel runs one pixel a thread; with C == 1
-// the last n_px % 4 pixels form a scalar tail. C == 1 is its own
-// instantiation. Every pixel keeps the plain version's arithmetic order
-// (built with -fmad=false), so K8 equals it bit for bit.
+// n_px % 4 != 0; deriving, pw % 4 != 0, so that a group stays in its row),
+// the same kernel runs one pixel a thread; with C == 1 the last n_px % 4
+// pixels form a scalar tail. C == 1 is its own instantiation. Every pixel
+// keeps the plain version's arithmetic order (built with -fmad=false), so
+// K8 equals it bit for bit.
 //
 // Design of K9 (K4's reductions, one pixel a thread): a warp instruction
 // covers 32 neighbouring pixels, so its loads and reductions coalesce; all
@@ -167,6 +192,149 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ pyr,
 
 // ---- K8 ----
 
+// DERIVE's inputs besides tu and tv: the (rows, pw) id plane, the stacked
+// samples' geometry, and the plane the derived LOD goes to.
+struct Lod {
+  const int* ids;
+  float* lam;
+  int rows, pw, sample_ph, height, width;
+};
+
+__device__ __forceinline__ void load(const float* __restrict__ a, int p,
+                                     float (&o)[1]) {
+  o[0] = __ldg(&a[p]);
+}
+
+__device__ __forceinline__ void load(const int* __restrict__ a, int p,
+                                     int (&o)[1]) {
+  o[0] = __ldg(&a[p]);
+}
+
+__device__ __forceinline__ void load(const float* __restrict__ a, int p,
+                                     float (&o)[PX]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(a + p));
+  o[0] = q.x;
+  o[1] = q.y;
+  o[2] = q.z;
+  o[3] = q.w;
+}
+
+__device__ __forceinline__ void load(const int* __restrict__ a, int p,
+                                     int (&o)[PX]) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(a + p));
+  o[0] = q.x;
+  o[1] = q.y;
+  o[2] = q.z;
+  o[3] = q.w;
+}
+
+// lod_from_texc's last passes, in its order: the larger sum of squares,
+// clamped, to levels.
+__device__ __forceinline__ float lod_of(float dsdx, float dtdx, float dsdy,
+                                        float dtdy) {
+  const float x = dsdx * dsdx + dtdx * dtdx;
+  const float y = dsdy * dsdy + dtdy * dtdy;
+  const float rho2 = isnan(x) ? x : (isnan(y) ? y : fmaxf(x, y));
+  const float c = isnan(rho2) ? rho2 : fmaxf(rho2, 1e-20f);
+  return 0.5f * log2f(c);
+}
+
+// The LOD of the N pixels of one row from flat pixel p on, whose uv are
+// u, v (N divides pw where N > 1, so the group stays in its row).
+template <int N>
+__device__ __forceinline__ void derive(const float* __restrict__ tu,
+                                       const float* __restrict__ tv,
+                                       const Lod& d, float tw, float th,
+                                       int p, const float (&u)[N],
+                                       const float (&v)[N], float (&lam)[N]) {
+  const int r = p / d.pw;
+  const int c = p - r * d.pw;
+  // s, t, id of the group's pixels and, at N, of the pixel right of it,
+  // read where the last pixel's pair lies in the sample
+  float s[N + 1], t[N + 1];
+  int id[N + 1];
+  {
+    int own[N];
+    load(d.ids, p, own);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      s[k] = u[k] * tw;
+      t[k] = v[k] * th;
+      id[k] = own[k];
+    }
+  }
+  s[N] = t[N] = 0.f;
+  id[N] = 0;
+  if (c + N - 1 < d.width - 1) {
+    s[N] = __ldg(&tu[p + N]) * tw;
+    t[N] = __ldg(&tv[p + N]) * th;
+    id[N] = __ldg(&d.ids[p + N]);
+  }
+  // x: fx[k + 1], dsx[k + 1], dtx[k + 1] are pixel k's forward pair and
+  // difference, so pixel k's backward ones sit at k (k = 0: the pixel left
+  // of the group, read where pixel 0's forward pair fails)
+  bool fx[N + 1];
+  float dsx[N + 1], dtx[N + 1];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    fx[k + 1] = c + k < d.width - 1 && id[k + 1] == id[k];
+    dsx[k + 1] = s[k + 1] - s[k];
+    dtx[k + 1] = t[k + 1] - t[k];
+  }
+  fx[0] = false;
+  dsx[0] = dtx[0] = 0.f;
+  if (!fx[1] && c >= 1 && c - 1 < d.width - 1 &&
+      __ldg(&d.ids[p - 1]) == id[0]) {
+    fx[0] = true;
+    dsx[0] = s[0] - __ldg(&tu[p - 1]) * tw;
+    dtx[0] = t[0] - __ldg(&tv[p - 1]) * th;
+  }
+  // y: the pair with the row below, else with the row above (read where a
+  // pixel's pair below fails)
+  bool fy[N], by[N];
+  float dsf[N], dtf[N], dsb[N], dtb[N];
+  bool up = true;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    fy[k] = by[k] = false;
+    dsf[k] = dtf[k] = dsb[k] = dtb[k] = 0.f;
+  }
+  if (r + 1 < d.rows && r % d.sample_ph < d.height - 1) {
+    float un[N], vn[N];
+    int idn[N];
+    load(tu, p + d.pw, un);
+    load(tv, p + d.pw, vn);
+    load(d.ids, p + d.pw, idn);
+    up = false;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      fy[k] = idn[k] == id[k];
+      dsf[k] = un[k] * tw - s[k];
+      dtf[k] = vn[k] * th - t[k];
+      up = up || !fy[k];
+    }
+  }
+  if (up && r >= 1 && (r - 1) % d.sample_ph < d.height - 1) {
+    float uu[N], vu[N];
+    int idu[N];
+    load(tu, p - d.pw, uu);
+    load(tv, p - d.pw, vu);
+    load(d.ids, p - d.pw, idu);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      by[k] = idu[k] == id[k];
+      dsb[k] = s[k] - uu[k] * tw;
+      dtb[k] = t[k] - vu[k] * th;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    lam[k] = lod_of(fx[k + 1] ? dsx[k + 1] : (fx[k] ? dsx[k] : 0.f),
+                    fx[k + 1] ? dtx[k + 1] : (fx[k] ? dtx[k] : 0.f),
+                    fy[k] ? dsf[k] : (by[k] ? dsb[k] : 0.f),
+                    fy[k] ? dtf[k] : (by[k] ? dtb[k] : 0.f));
+}
+
 // One pixel: its taps at level lo, and what level lo + 1's need where it
 // blends that level (computed where they are sampled, so that a thread's
 // four pixels hold one level's taps each).
@@ -201,18 +369,32 @@ __device__ __forceinline__ float mip_channel(const float* __restrict__ pyr,
 }
 
 // NC: the channel count where it is fixed at 1, else 0 (read nchan).
-template <int MODE, int NC, bool VEC>
+// DERIVE: the LOD from the uv and id planes (d), written to d.lam; else
+// read from lam.
+template <int MODE, int NC, bool VEC, bool DERIVE>
 __global__ void __launch_bounds__(THREADS)
 mip_fwd_kernel(const float* __restrict__ pyr, const float* __restrict__ tu,
                const float* __restrict__ tv, const float* __restrict__ lam,
-               int n_px, const __grid_constant__ Levels lv, int nchan_arg,
-               float* __restrict__ out) {
+               const Lod d, int n_px, const __grid_constant__ Levels lv,
+               int nchan_arg, float* __restrict__ out) {
   const int nchan = NC ? NC : nchan_arg;
+  const float tw = (float)lv.tw[0];
+  const float th = (float)lv.th[0];
   const int g = blockIdx.x * THREADS + threadIdx.x;
   if (VEC && (g + 1) * PX <= n_px) {
     const float4 u4 = __ldg(reinterpret_cast<const float4*>(tu) + g);
     const float4 v4 = __ldg(reinterpret_cast<const float4*>(tv) + g);
-    const float4 l4 = __ldg(reinterpret_cast<const float4*>(lam) + g);
+    float4 l4;
+    if (DERIVE) {
+      const float u[PX] = {u4.x, u4.y, u4.z, u4.w};
+      const float v[PX] = {v4.x, v4.y, v4.z, v4.w};
+      float l[PX];
+      derive<PX>(tu, tv, d, tw, th, g * PX, u, v, l);
+      l4 = make_float4(l[0], l[1], l[2], l[3]);
+      reinterpret_cast<float4*>(d.lam)[g] = l4;
+    } else {
+      l4 = __ldg(reinterpret_cast<const float4*>(lam) + g);
+    }
     const Trilinear p0 = trilinear<MODE>(lv, u4.x, v4.x, l4.x);
     const Trilinear p1 = trilinear<MODE>(lv, u4.y, v4.y, l4.y);
     const Trilinear p2 = trilinear<MODE>(lv, u4.z, v4.z, l4.z);
@@ -232,8 +414,16 @@ mip_fwd_kernel(const float* __restrict__ pyr, const float* __restrict__ tu,
   const int p = VEC ? g * PX : g;
   const int end = VEC ? min(p + PX, n_px) : min(p + 1, n_px);
   for (int i = p; i < end; ++i) {
-    const Trilinear q =
-        trilinear<MODE>(lv, __ldg(&tu[i]), __ldg(&tv[i]), __ldg(&lam[i]));
+    const float u[1] = {__ldg(&tu[i])};
+    const float v[1] = {__ldg(&tv[i])};
+    float l[1];
+    if (DERIVE) {
+      derive<1>(tu, tv, d, tw, th, i, u, v, l);
+      d.lam[i] = l[0];
+    } else {
+      l[0] = __ldg(&lam[i]);
+    }
+    const Trilinear q = trilinear<MODE>(lv, u[0], v[0], l[0]);
 #pragma unroll 1
     for (int c = 0; c < nchan; ++c)
       out[(size_t)c * n_px + i] = mip_channel<MODE>(pyr, lv, q, nchan, c);
@@ -463,19 +653,40 @@ bool pow2_chain(const Levels& lv) {
   return true;
 }
 
-template <int MODE, int NC>
+template <int MODE, int NC, bool DERIVE>
 void fwd(bool vec, const float* pyr, const float* tu, const float* tv,
-         const float* lam, int n, const Levels& lv, int nchan, float* out,
-         cudaStream_t st) {
+         const float* lam, const Lod& d, int n, const Levels& lv, int nchan,
+         float* out, cudaStream_t st) {
   const int per = vec ? PX : 1;
   const int threads = (n + per - 1) / per;
   const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
   if (vec)
-    mip_fwd_kernel<MODE, NC, true><<<blocks, THREADS, 0, st>>>(
-        pyr, tu, tv, lam, n, lv, nchan, out);
+    mip_fwd_kernel<MODE, NC, true, DERIVE><<<blocks, THREADS, 0, st>>>(
+        pyr, tu, tv, lam, d, n, lv, nchan, out);
   else
-    mip_fwd_kernel<MODE, NC, false><<<blocks, THREADS, 0, st>>>(
-        pyr, tu, tv, lam, n, lv, nchan, out);
+    mip_fwd_kernel<MODE, NC, false, DERIVE><<<blocks, THREADS, 0, st>>>(
+        pyr, tu, tv, lam, d, n, lv, nchan, out);
+}
+
+// K8 in either mode: the instantiation from the channel count, the chain
+// and whether vec (16-byte groups of PX pixels) holds.
+template <bool DERIVE>
+int fwd_launch(bool vec, const float* pyr, const float* tu, const float* tv,
+               const float* lam, const Lod& d, int n, const Levels& lv,
+               int nchan, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool p2 = pow2_chain(lv);
+  if (nchan == 1 && p2)
+    fwd<WRAP_POW2, 1, DERIVE>(vec, pyr, tu, tv, lam, d, n, lv, nchan, out,
+                              st);
+  else if (nchan == 1)
+    fwd<WRAP, 1, DERIVE>(vec, pyr, tu, tv, lam, d, n, lv, nchan, out, st);
+  else if (p2)
+    fwd<WRAP_POW2, 0, DERIVE>(vec, pyr, tu, tv, lam, d, n, lv, nchan, out,
+                              st);
+  else
+    fwd<WRAP, 0, DERIVE>(vec, pyr, tu, tv, lam, d, n, lv, nchan, out, st);
+  return (int)cudaGetLastError();
 }
 
 template <int MODE, bool REDUCE>
@@ -537,6 +748,8 @@ int mip_bwd(const float* pyr, const float* tu, const float* tv,
   return (int)cudaGetLastError();
 }
 
+bool aligned(const void* a) { return (uintptr_t)a % 16 == 0; }
+
 }  // namespace
 
 extern "C" int mip_fwd_launch(const float* pyr, const float* tu,
@@ -549,21 +762,31 @@ extern "C" int mip_fwd_launch(const float* pyr, const float* tu,
     return (int)cudaErrorInvalidValue;
   const int n = rows * pw;
   if (n == 0) return 0;
-  const bool vec =
-      ((uintptr_t)tu % 16 == 0) && ((uintptr_t)tv % 16 == 0) &&
-      ((uintptr_t)lam % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
-      (nchan == 1 || n % PX == 0);
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool p2 = pow2_chain(lv);
-  if (nchan == 1 && p2)
-    fwd<WRAP_POW2, 1>(vec, pyr, tu, tv, lam, n, lv, nchan, out, st);
-  else if (nchan == 1)
-    fwd<WRAP, 1>(vec, pyr, tu, tv, lam, n, lv, nchan, out, st);
-  else if (p2)
-    fwd<WRAP_POW2, 0>(vec, pyr, tu, tv, lam, n, lv, nchan, out, st);
-  else
-    fwd<WRAP, 0>(vec, pyr, tu, tv, lam, n, lv, nchan, out, st);
-  return (int)cudaGetLastError();
+  const bool vec = aligned(tu) && aligned(tv) && aligned(lam) &&
+                   aligned(out) && (nchan == 1 || n % PX == 0);
+  return fwd_launch<false>(vec, pyr, tu, tv, lam, Lod{}, n, lv, nchan, out,
+                           stream);
+}
+
+// K8 deriving its LOD from tu, tv and the int32 id plane ids (rows, pw) of
+// samples stacked sample_ph rows apart, each height x width; writes it to
+// lam (rows, pw).
+extern "C" int mip_fwd_lod_launch(const float* pyr, const float* tu,
+                                  const float* tv, const int* ids, int rows,
+                                  int pw, int sample_ph, int height,
+                                  int width, int nlev, const int* th,
+                                  const int* tw, const int* off, int nchan,
+                                  float* out, float* lam, void* stream) {
+  Levels lv;
+  if (!args_ok(rows, pw, nlev, th, tw, off, nchan, lv) || sample_ph < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n = rows * pw;
+  if (n == 0) return 0;
+  const bool vec = aligned(tu) && aligned(tv) && aligned(ids) &&
+                   aligned(lam) && aligned(out) && pw % PX == 0;
+  const Lod d{ids, lam, rows, pw, sample_ph, height, width};
+  return fwd_launch<true>(vec, pyr, tu, tv, nullptr, d, n, lv, nchan, out,
+                          stream);
 }
 
 extern "C" int mip_bwd_launch(const float* pyr, const float* tu,

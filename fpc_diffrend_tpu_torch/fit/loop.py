@@ -1,7 +1,7 @@
 """The batched fit step (port of ``fpc_diffrend_tpu.fit.loop``).
 
-blend -> pose -> clip -> stacked-batch render (K1, K2; with mip, K1, LOD,
-K8, K2) -> composite -> photometric + mesh regularizer + staging/temporal
+blend -> pose -> clip -> stacked-batch render (K1, K2; with mip, K1, K8
+deriving the LOD, K2) -> composite -> photometric + mesh regularizer + staging/temporal
 losses, then the backward (K3 -> K4 -> K5 -> K6, with mip K3 -> K9 -> K5
 -> K6, and autograd for the rest), the corrective gate, Adam at the
 ramped rates and the quaternion renorm. The mvp matches the JAX

@@ -6,7 +6,9 @@ Port of ``fpc_diffrend_tpu.ops.pallas.texture_mip_tpu._mip_fwd_kernel``
 read one flat pyramid: an (n_texels, C) float32 buffer holding the levels
 (th_l, tw_l, C) row-major one after the other, level l from texel row
 ``sum(th_k * tw_k for k < l)`` (``ops.texture_mip.mip_pyramid`` builds
-it). The LOD plane is an input, held constant by the backward.
+it). The LOD plane is an input, held constant by the backward; the mip
+render Functions have K8 derive it (``mip_sample_lod``) from the uv and
+id planes, as ``lod_from_texc`` does in torch ops, and save it for K9.
 
 K9 computes the autodiff of the XLA trilinear sampler
 (``fpc_diffrend_tpu.ops.texture.texture``, wrap mode, LOD given): the
@@ -14,8 +16,11 @@ gradient pyramid summed over every pixel of the batch, and the cotangents
 of the sampled uv planes. The TPU kernel's zeroed uv gradient where its
 VMEM patch clamps is a layout artefact and is not copied.
 
-``mip_sample`` and ``mip_sample_bwd`` run their kernels for CUDA tensors
-and their plain PyTorch versions (``*_plain``) for CPU tensors. K8 takes
+``mip_sample``, ``mip_sample_lod`` and ``mip_sample_bwd`` run their
+kernels for CUDA tensors and their plain PyTorch versions (``*_plain``;
+``lod_from_texc`` then ``mip_sample_plain`` for ``mip_sample_lod``) for
+CPU tensors; K8's launches in either mode count on
+``mip_sample.launches``. K8 takes
 four neighbouring pixels a thread, with 16-byte loads of tu, tv and lam
 and 16-byte stores where the planes are 16-byte aligned (else one pixel a
 thread); K9 one pixel a thread, whose neighbouring lanes sum the texel
@@ -34,6 +39,7 @@ import ctypes
 import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
+from fpc_diffrend_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -41,6 +47,8 @@ MAX_LEVELS = 16           # levels the kernels take as arguments
 MAX_C = 4                 # channels the kernels take
 _PTR, _INT = build.PTR, build.INT
 _MIP_FWD_ARGS = [_PTR] * 4 + [_INT] * 3 + [_PTR] * 3 + [_INT] + [_PTR] * 2
+_MIP_FWD_LOD_ARGS = ([_PTR] * 4 + [_INT] * 6 + [_PTR] * 3 + [_INT]
+                     + [_PTR] * 3)
 _MIP_BWD_ARGS = ([_PTR] * 5 + [_INT] * 3 + [_PTR] * 3 + [_INT] * 2
                  + [_PTR] * 4)
 
@@ -142,8 +150,57 @@ def mip_sample_bwd_plain(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,
     return gpyr.reshape(n, C), gu, gv
 
 
-def _check(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor, lam: Tensor):
-    """Check the shared inputs; :return: (rows, pw, C)."""
+def lod_from_texc(tu: Tensor, tv: Tensor, idbuf: Tensor, th: int, tw: int,
+                  height: int, width: int, sample_ph: int) -> Tensor:
+    """Finite-difference LOD plane of the stacked uv image (the plain
+    version of the LOD :func:`mip_sample_lod` derives in K8).
+
+    Screen-space uv derivatives by one-pixel differences between pixels of
+    the same triangle: the forward difference where the next pixel holds
+    the same id, else the backward one, else 0. A neighbour outside the
+    sample's real height x width counts as absent (column >= width, or a
+    vertical pair whose upper row has ``row % sample_ph >= height - 1``),
+    the pair masks of K2 and K3: the JAX package takes the differences on
+    one sample's cropped image, and the stacked ids are local triangle
+    ids, which two samples can share across their boundary.
+
+    :param tu, tv: (rows, pw) interpolated uv (K1 payload planes 3, 4).
+    :param idbuf: (rows, pw) int32 triangle ids, -1 where nothing is hit.
+    :param th, tw: size of the texture's finest level.
+    :return: (rows, pw) LOD in levels, unclamped.
+    """
+    rows, pw = idbuf.shape
+    dev = idbuf.device
+    hpair = torch.arange(pw - 1, device=dev) < width - 1
+    vpair = (torch.arange(rows - 1, device=dev) % sample_ph
+             < height - 1)[:, None]
+    same_h = (idbuf[:, 1:] == idbuf[:, :-1]) & hpair
+    same_v = (idbuf[1:] == idbuf[:-1]) & vpair
+    pad = torch.nn.functional.pad
+
+    def fd_x(f):
+        d = f[:, 1:] - f[:, :-1]
+        return torch.where(pad(same_h, (0, 1)), pad(d, (0, 1)),
+                           torch.where(pad(same_h, (1, 0)), pad(d, (1, 0)),
+                                       0.0))
+
+    def fd_y(f):
+        d = f[1:] - f[:-1]
+        return torch.where(pad(same_v, (0, 0, 0, 1)), pad(d, (0, 0, 0, 1)),
+                           torch.where(pad(same_v, (0, 0, 1, 0)),
+                                       pad(d, (0, 0, 1, 0)), 0.0))
+
+    s = tu * tw
+    t = tv * th
+    dsdx, dtdx, dsdy, dtdy = fd_x(s), fd_x(t), fd_y(s), fd_y(t)
+    rho2 = torch.maximum(dsdx * dsdx + dtdx * dtdx,
+                         dsdy * dsdy + dtdy * dtdy)
+    return 0.5 * torch.log2(torch.clamp(rho2, min=1e-20))
+
+
+def _check(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor, lam):
+    """Check the shared inputs (``lam`` None: no LOD plane); :return:
+    (rows, pw, C)."""
     dev = tu.device
     rows, pw = tu.shape
     if not sizes:
@@ -157,7 +214,8 @@ def _check(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor, lam: Tensor):
     check(pyramid, "pyramid", torch.float32, (n, C), dev)
     check(tu, "tu", torch.float32, (rows, pw), dev)
     check(tv, "tv", torch.float32, (rows, pw), dev)
-    check(lam, "lam", torch.float32, (rows, pw), dev)
+    if lam is not None:
+        check(lam, "lam", torch.float32, (rows, pw), dev)
     return rows, pw, C
 
 
@@ -199,6 +257,41 @@ def mip_sample(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,
                 *_level_args(sizes), C, ptr(out), build.stream(dev))
     build.check(status, "mip_sample")
     return out
+
+
+def mip_sample_lod(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,
+                   idbuf: Tensor, height: int, width: int, sample_ph: int):
+    """K8 deriving its LOD from the uv and id planes: :func:`mip_sample` of
+    :func:`lod_from_texc`'s plane, in one launch. Counts the pixels whose
+    LOD it derived on ``mip.lod_fused`` (host).
+
+    :param idbuf: (rows, pw) int32 triangle ids (K1's), -1 where missed.
+    :param height, width, sample_ph: each stacked sample's image, and the
+        rows between two samples' first rows.
+    :return: (colour (C, rows, pw), lam (rows, pw) unclamped, for K9).
+    """
+    rows, pw, C = _check(pyramid, sizes, tu, tv, None)
+    dev = tu.device
+    build.check_tensor(idbuf, "idbuf", torch.int32, (rows, pw), dev)
+    if min(height, width, sample_ph) < 1:
+        raise ValueError(f"mip_sample_lod: height {height}, width {width} "
+                         f"and sample_ph {sample_ph} must be positive")
+    profiling.count("mip.lod_fused", rows * pw)
+    if dev.type == "cpu":
+        lam = lod_from_texc(tu, tv, idbuf, *sizes[0], height, width,
+                            sample_ph)
+        return mip_sample_plain(pyramid, sizes, tu, tv, lam), lam
+    _kernel_ok("mip_sample_lod", dev, sizes, pyramid.shape[0], C)
+    out = torch.empty((C, rows, pw), device=dev)
+    lam = torch.empty((rows, pw), device=dev)
+    fn = build.entry("texture_mip", "mip_fwd_lod_launch", _MIP_FWD_LOD_ARGS)
+    mip_sample.launches += 1
+    ptr = build.ptr
+    status = fn(ptr(pyramid), ptr(tu), ptr(tv), ptr(idbuf), rows, pw,
+                sample_ph, height, width, *_level_args(sizes), C, ptr(out),
+                ptr(lam), build.stream(dev))
+    build.check(status, "mip_sample_lod")
+    return out, lam
 
 
 def mip_sample_bwd(pyramid: Tensor, sizes, tu: Tensor, tv: Tensor,

@@ -29,11 +29,12 @@ picks one of three routes that compute the same image and gradients
 All three share the backward K3 -> K4 -> K5 -> K6.
 
 The mip path (``enable_mip``) is the same Function with another sampler:
-K1 without its texture tail, the finite-difference LOD, K8 (trilinear mip
-sample), K2; backward K3 -> K9 -> K5 -> K6. The JAX package renders it per
-sample under ``vmap`` (``render_from_clip``'s mip branch); stacked, each
-sample gives the same result, as the JAX package says of its own stacked
-path ("functionally identical to vmapping").
+K1 without its texture tail, K8 (trilinear mip sample, deriving the
+finite-difference LOD from K1's uv and ids), K2; backward K3 -> K9 -> K5
+-> K6. The JAX package renders it per sample under ``vmap``
+(``render_from_clip``'s mip branch); stacked, each sample gives the same
+result, as the JAX package says of its own stacked path ("functionally
+identical to vmapping").
 
 The band Functions (:class:`RasterizeTexturedSepaaBand`,
 :class:`RasterizeMipSepaaBand`) are the stacked ones with each sample's
@@ -43,11 +44,11 @@ kernel and K5: the sharded band render's seam (``parallel.spatial``).
 
 The layers are spans of ``utils.profiling``: ``raster.bin`` (records and
 binning), ``raster.fwd`` (a render Function's forward, with the mip
-pyramid's build on the mip route, ``raster.pyramid``, and the LOD,
-``raster.lod``, inside it) and ``raster.bwd`` (its backward, on autograd's
-device thread on CUDA; K9 in ``raster.mip_bwd``). The pyramid's own
-backward, the adjoint of its 2x2 means, is autograd's, outside
-``raster.bwd``; the LOD has none.
+pyramid's build on the mip route, ``raster.pyramid``, and K8 with its
+LOD, ``raster.mip_fwd``, inside it) and ``raster.bwd`` (its backward, on
+autograd's device thread on CUDA; K9 in ``raster.mip_bwd``). The
+pyramid's own backward, the adjoint of its 2x2 means, is autograd's,
+outside ``raster.bwd``; the LOD has none.
 
 Every Function here reads the gradient precision (``ops.precision``) in
 its forward and keeps it, so that its backward launches K4 and K5 in the
@@ -77,10 +78,10 @@ from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
 from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
     texture_planes, texture_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
-    mip_sample, mip_sample_bwd)
+    mip_sample_bwd, mip_sample_lod)
 from fpc_diffrend_tpu_torch.ops.interpolate import gather_rows, interpolate
 from fpc_diffrend_tpu_torch.ops.precision import get_precision
-from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
+from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
 from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
@@ -122,15 +123,13 @@ def _texture_bwd(ctx, tex, payload, gcolour):
 
 
 def _mip_sample(ctx, idbuf, payload, pyramid, sizes):
-    """The LOD from K1's uv and ids (span ``raster.lod``), then K8:
+    """K8 deriving the LOD from K1's uv and ids (span ``raster.mip_fwd``):
     (colour (C, rows, pw), lam (rows, pw))."""
     _, _, sample_ph, height, width = ctx.dims
-    th, tw = sizes[0]
     ctx.sizes = sizes
-    with span("raster.lod"):
-        lam = lod_from_texc(payload[3], payload[4], idbuf, th, tw, height,
-                            width, sample_ph)
-    return mip_sample(pyramid, sizes, payload[3], payload[4], lam), lam
+    with span("raster.mip_fwd"):
+        return mip_sample_lod(pyramid, sizes, payload[3], payload[4], idbuf,
+                              height, width, sample_ph)
 
 
 def _mip_sample_bwd(ctx, payload, pyramid, lam, gcolour):
@@ -230,14 +229,14 @@ ROUTES = {"sepaa": RasterizeTexturedSepaaStacked,
 
 
 class RasterizeMipSepaaStacked(torch.autograd.Function):
-    """K1 (no texture) -> LOD -> K8 -> K2 forward, K3 -> K9 -> K5 -> K6
-    backward.
+    """K1 (no texture) -> K8 (with the LOD) -> K2 forward, K3 -> K9 -> K5
+    -> K6 backward.
 
     ``apply(data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
     width)``: as :class:`RasterizeTexturedSepaaStacked`, with the flat mip
     pyramid (n_texels, C) and its levels' sizes (``ops.texture_mip.
-    mip_pyramid``) in place of the texture. The LOD plane is computed from
-    K1's uv and ids and held out of the gradient.
+    mip_pyramid``) in place of the texture. K8 derives the LOD plane from
+    K1's uv and ids; it is held out of the gradient.
     """
 
     @staticmethod

@@ -50,7 +50,7 @@ from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
 from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
-from fpc_diffrend_tpu_torch.ops.texture_mip import lod_from_texc, mip_pyramid
+from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
 from fpc_diffrend_tpu_torch.utils import profiling
 from fpc_diffrend_tpu_torch.workload import build_workload
 
@@ -72,9 +72,10 @@ def forward_stages(wl: dict, state: dict):
     """The slice's forward on the workload's first batch, as
     [(stage name, fn)] in order: prologue, binning, K1, K2, composite +
     loss; with ``enable_mip``, K1 without its texture tail, then the
-    pyramid build, the LOD and K8 before K2. Each fn reads its inputs from
-    ``state`` and writes its outputs there (pc, v3, data_s, aux_s, bins,
-    k1, pyr, lam, colour, aa, loss), so a stage can be rerun alone."""
+    pyramid build and K8 deriving the LOD before K2. Each fn reads its
+    inputs from ``state`` and writes its outputs there (pc, v3, data_s,
+    aux_s, bins, k1, pyr, lam, colour, aa, loss), so a stage can be rerun
+    alone."""
     config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
                                     wl["batch"])
     H, W, B = wl["H"], wl["W"], wl["B"]
@@ -100,17 +101,11 @@ def forward_stages(wl: dict, state: dict):
     def pyramid():
         state["pyr"] = mip_pyramid(params["tex"], config.max_mip_level)
 
-    def lod():
-        idbuf, _, payload, _, _ = state["k1"]
-        th, tw = state["pyr"][1][0]
-        state["lam"] = lod_from_texc(payload[3], payload[4], idbuf, th, tw,
-                                     H, W, ph)
-
     def k8():
-        payload = state["k1"][2]
+        idbuf, _, payload, _, _ = state["k1"]
         pyr, sizes = state["pyr"]
-        state["colour"] = tmc.mip_sample(pyr.detach(), sizes, payload[3],
-                                         payload[4], state["lam"])
+        state["colour"], state["lam"] = tmc.mip_sample_lod(
+            pyr.detach(), sizes, payload[3], payload[4], idbuf, H, W, ph)
 
     def k2():
         idbuf, _, payload, _, _ = state["k1"]
@@ -125,8 +120,7 @@ def forward_stages(wl: dict, state: dict):
     raster = [("prologue", prologue), ("binning", binning),
               ("K1 fused_raster", k1)]
     if mip:
-        raster += [("mip pyramid", pyramid), ("LOD", lod),
-                   ("K8 mip_sample", k8)]
+        raster += [("mip pyramid", pyramid), ("K8 mip_sample_lod", k8)]
     return raster + [("K2 antialias", k2), ("composite+loss", tail)]
 
 

@@ -390,9 +390,10 @@ def test_k9_design_reductions_of_one_uv_and_no_cotangent():
 
 
 def test_mip_kernel_pairs_time_one_set_of_inputs():
-    """``mip_kernel_pairs`` on a small mip workload on the CPU: K8 and K9
-    on K1's uv, the step's pyramid and LOD (``mip_inputs``) and K3's colour
-    cotangent, each equal to its plain version there."""
+    """``mip_kernel_pairs`` on a small mip workload on the CPU: K8
+    deriving the LOD from K1's uv and ids, and K9 on the step's pyramid and
+    LOD (``mip_inputs``) and K3's colour cotangent, each equal to its plain
+    version there; K8's LOD is the step's."""
     from fpc_diffrend_tpu_torch.ops import texture_mip as tm
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.profile_forward import step_stages
@@ -416,10 +417,11 @@ def test_mip_kernel_pairs_time_one_set_of_inputs():
         assert torch.equal(lam, tm.lod_from_texc(payload[3], payload[4],
                                                  idbuf, *sizes[0], H, W, ph))
         assert set(pairs) == {"mip_sample", "mip_sample_bwd"}
-        assert torch.equal(pairs["mip_sample"][0](), pairs["mip_sample"][1]())
-        got, want = pairs["mip_sample_bwd"][0](), pairs["mip_sample_bwd"][1]()
-        for a, b in zip(got, want, strict=True):
-            assert torch.equal(a, b)
+        for name in pairs:
+            got, want = pairs[name][0](), pairs[name][1]()
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a, b), name
+        assert torch.equal(pairs["mip_sample"][0]()[1], lam)
         assert bool(want[0].any())
 
 

@@ -51,6 +51,7 @@ from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
 from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeMipSepaaStacked
+from fpc_diffrend_tpu_torch.utils import profiling
 from fpc_diffrend_tpu_torch.workload import build_workload
 
 from _torch_scenes import (clip_batch, close_to_max, quads_scene,
@@ -221,14 +222,15 @@ def _lod_scene(rng, B=2, Hs=20, Ws=100):
          dict(pc=pc, faces=faces, uv=uv, fn=fn).items()}
     aux = tr.aux_records(t["uv"], t["faces"], t["pc"], t["faces"], t["fn"],
                          Hs, Ws)
-    _, _, bins = tr.bin_scene_stacked(t["pc"], t["faces"], Hs, Ws, aux)
+    data_b, aux_b, bins = tr.bin_scene_stacked(t["pc"], t["faces"], Hs, Ws,
+                                               aux)
     ph, pw = tr.pad_resolution(Hs, Ws)
-    return tr.fused_raster(bins, None, B * ph, pw), ph
+    return tr.fused_raster(bins, None, B * ph, pw), ph, (data_b, aux_b, bins)
 
 
 def test_lod_from_texc_stacked_matches_jax_per_sample(rng):
     B, Hs, Ws, th, tw = 2, 20, 100, 64, 128
-    (idbuf, _, payload, _, colour), ph = _lod_scene(rng, B, Hs, Ws)
+    (idbuf, _, payload, _, colour), ph, _ = _lod_scene(rng, B, Hs, Ws)
     assert colour.shape[0] == 0
     rows, pw = idbuf.shape
     tu, tv = payload[3], payload[4]
@@ -251,6 +253,34 @@ def test_lod_from_texc_stacked_matches_jax_per_sample(rng):
 
 
 # ------------------------------------------------------- the Function ----
+
+def test_mip_function_derives_the_lod_in_k8(rng):
+    """The mip Function's forward goes through ``mip_sample_lod``:
+    ``mip.lod_fused`` counts every stacked pixel, and the colour and LOD it
+    keeps for K9 equal ``lod_from_texc`` then ``mip_sample_plain`` bit for
+    bit, on three samples with padding rows and columns, missed pixels and
+    a local id that two samples share across their seam."""
+    B, Hs, Ws = 3, 20, 100
+    _, ph, (data_b, aux_b, bins) = _lod_scene(rng, B, Hs, Ws)
+    tex = torch.as_tensor(rng.uniform(size=(64, 128, 1)).astype(np.float32))
+    pyr, sizes = tmip.mip_pyramid(tex, 6)
+    with profiling.recording() as log:
+        _, aa = RasterizeMipSepaaStacked.apply(
+            data_b.requires_grad_(True), aux_b, pyr, sizes, bins, ph, Hs, Ws)
+    idbuf, _, payload, _, colour, _, lam = aa.grad_fn.saved_tensors
+    rows, pw = idbuf.shape
+    ids = idbuf.numpy()
+    assert ph > Hs and pw > Ws and (ids == -1).any() and (ids >= 0).any()
+    assert any(((ids[b * ph - 1] == ids[b * ph]) & (ids[b * ph] >= 0)).any()
+               for b in range(1, B))
+    assert log.counters["mip.lod_fused"] == rows * pw == B * ph * pw
+    want = tmc.lod_from_texc(payload[3], payload[4], idbuf, 64, 128, Hs, Ws,
+                             ph)
+    assert torch.equal(lam, want)
+    assert torch.equal(colour, tmc.mip_sample_plain(pyr, sizes, payload[3],
+                                                    payload[4], want))
+    assert tmc.mip_sample.launches == 0
+
 
 def test_mip_function_backward_matches_autograd_of_plain_forward(rng):
     B, Hs, Ws = 2, 40, 100

@@ -122,7 +122,9 @@ def test_kernel_wrappers_bind_signatures_once(tmp_path):
         found, entries = _signature_assignments(os.path.join(cuda_dir, name))
         assert not found, (name, found)
         total += entries
-    assert total == 12           # every launch of K1-K11's 12 entry points
+    # every launch of K1-K11's 13 entry points (K8 has two: a given LOD,
+    # and the LOD it derives)
+    assert total == 13
     # the check sees an assignment in a launching function (the old form)
     bad = tmp_path / "wrapper.py"
     bad.write_text("def launch(lib):\n    fn = lib.k_launch\n"
@@ -499,6 +501,44 @@ def test_mip_edges_match_plain_versions_on_the_card(card):
                  chip_smoke.K8_ATOL if name.startswith("K8") else
                  chip_smoke.K9_ATOL)
         assert err <= limit, name
+
+
+@pytest.mark.cuda
+def test_mip_lod_in_k8_matches_torch_passes_on_the_card(card):
+    """K8 deriving the LOD (``mip_sample_lod``): its LOD plane equal to
+    ``lod_from_texc``'s on the card (``chip_smoke.LOD_ULP`` float32
+    steps) and its colour to K8 fed that plane exactly, on synthetic
+    planes of three samples with padding rows and columns, missed pixels
+    and ids across the seams, the face9-mip batch's 36 x 1200 x 1664
+    planes, a width no multiple of 4 and unaligned planes (one pixel a
+    thread), and on K1's uv and ids of a small render; one K8 launch a
+    call. The given-LOD path stays its plain version's
+    (:func:`test_mip_edges_match_plain_versions_on_the_card`)."""
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
+    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    errs = chip_smoke.check_mip_lod(card, gen)
+    assert set(errs) == set(chip_smoke.MIP_LOD_CASES)
+    wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
+    state = {}
+    for _, fn in forward_stages(wl, state)[:2]:      # prologue, binning
+        fn()
+    ph, pw = rc.pad_resolution(96, 200)
+    k1 = rc.fused_raster(state["bins"], None, 2 * ph, pw)
+    pyr, sizes = mip_pyramid(wl["params"]["tex"].detach(), 6)
+    before = tmc.mip_sample.launches
+    got = chip_smoke.mip_lod_errors(pyr, sizes, k1[2][3], k1[2][4], k1[0],
+                                    96, 200, ph)
+    assert tmc.mip_sample.launches - before == 2      # derived, then given
+    errs["render"] = got
+    for name, e in errs.items():
+        assert e["lam_ulp"] <= chip_smoke.LOD_ULP, (name, e)
+        assert e["colour_given"] == 0.0, (name, e)
+        assert e["colour_plain"] <= chip_smoke.K8_ATOL, (name, e)
 
 
 @pytest.mark.cuda

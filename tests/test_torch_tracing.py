@@ -4,8 +4,8 @@ the CPU at a tiny size.
 
 Off, they enter no ``record_function``, launch no counter op and leave the
 step's result as it is; on, each step gives each of its spans once, nested
-as the layers are (on the mip path the pyramid and the LOD inside
-``raster.fwd``, K9 inside ``raster.bwd``), each span a ``user_annotation``
+as the layers are (on the mip path the pyramid and K8 with its LOD
+inside ``raster.fwd``, K9 inside ``raster.bwd``), each span a ``user_annotation``
 of a profiler trace, ``fit.batch_samples`` counts each step's B, and the
 bin counters agree with ``raster_stats`` and ``entry_count``, the global
 list's with the batch's pooled oversized triangles.
@@ -37,7 +37,8 @@ FIT_PARENT = {"fit.step": "fit.dispatch", "fit.sample": "fit.dispatch",
               "raster.composite": "fit.forward", "fit.loss": "fit.forward",
               "K11 bin_place": "raster.bin", "raster.bwd": "fit.backward"}
 # the mip path's own spans
-MIP_PARENT = {"raster.pyramid": "raster.fwd", "raster.lod": "raster.fwd",
+MIP_PARENT = {"raster.pyramid": "raster.fwd",
+              "raster.mip_fwd": "raster.fwd",
               "raster.mip_bwd": "raster.bwd"}
 VIEW_PARENT = {"model.prologue": "view.render", "raster.bin": "view.render",
                "raster.fwd": "view.render",
@@ -105,7 +106,7 @@ def test_off_enters_nothing_and_changes_nothing(tmp_path):
 def test_each_step_gives_each_span_once(mip):
     """(b) On: per step each fit span once, nested as the layers are,
     inside its parent's interval, with the step's request id; on the mip
-    path also the pyramid and the LOD in ``raster.fwd`` and K9 in
+    path also the pyramid and K8 with its LOD in ``raster.fwd`` and K9 in
     ``raster.bwd``. ``fit.batch_samples`` counts B a step."""
     wl = workload(mip)
     g = torch.Generator().manual_seed(3)

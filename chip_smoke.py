@@ -75,8 +75,8 @@ Phases, each fatal on failure:
    and one more dispatch whose kernels ``ops.cuda.device_launches``
    measures on the device; every loss term and parameter must be finite
    and each of K1-K6 and K11 run once per step (K8, K9 never); the same
-   steps uncapped, for information; then
-   per-stage CUDA-event times of one batch's forward and one step;
+   steps uncapped, for information; then each stage's device time in one
+   eager step, by the program's spans (``step_span_ms``);
 5b. the mip path at full width: the same workload with trilinear mipmap
    sampling (``enable_mip``, ``max_mip_level=6``: 7 levels, 1024..16),
    5 batches through ``fit.loop.evaluate`` (K1, K8, K2 once per batch;
@@ -86,7 +86,7 @@ Phases, each fatal on failure:
    2 timed dispatches of 5 steps through ``fit.loop.train_steps`` after a
    warm-up dispatch under sync-debug "error", replays all, then one
    measured as in 5 (K1, K2, K3, K5, K6, K8, K9, K11 once per step on the
-   device, K4 never), finite; then its stage times;
+   device, K4 never), finite; then its stage times by span;
 5c. ``fit.api.fit_take`` at full width: the bench dome, eight blendshapes,
    the three cameras' calibration and 3 x 4 frames of 1600x1200 as
    uncompressed TIFFs written to a temporary take; a prior-mode fit of 20
@@ -303,21 +303,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile():
+    """A ``torch.profiler`` session for the device's work. It traces the
+    host as well: on the H100, sessions that traced only the device
+    dropped kernels (one of ten launches of a fixed sequence, or all
+    ten), sessions that traced both never did."""
+    import torch
+
+    acts = torch.profiler.ProfilerActivity
+    return torch.profiler.profile(activities=[acts.CPU, acts.CUDA])
+
+
 def device_kernels_ms(fn, reps: int) -> dict:
     """Device time of fn() a call by kernel: {kernel or memset name: the
     self time it ran, by the profiler, over reps calls after one warm-up}."""
     import torch
 
-    from fpc_diffrend_tpu_torch.profile_forward import device_kernels
+    from fpc_diffrend_tpu_torch.ops.cuda import device_events
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {name: ms / reps for name, ms, _ in device_kernels(prof)}
+    return {name: ms / reps for name, ms, _ in device_events(prof)}
 
 
 def device_ms(fn, reps: int) -> float:
@@ -348,20 +358,110 @@ def device_kernel_launches(fn) -> dict:
     device, after one warm-up: {name: launches}, by the profiler."""
     import torch
 
-    from fpc_diffrend_tpu_torch.profile_forward import device_kernels
+    from fpc_diffrend_tpu_torch.ops.cuda import device_events
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         fn()
         torch.cuda.synchronize()
-    return {name: n for name, _, n in device_kernels(prof)}
+    return {name: n for name, _, n in device_events(prof)}
+
+
+def step_inputs(wl, backward: bool = True) -> dict:
+    """The fit step's kernels' inputs on a workload's first batch
+    (``wl["batch"]``), for kernels checked or timed alone: the clip
+    positions, ``bin_stacked``'s bins and K1's planes (``fused_raster``,
+    without its texture tail on the mip path); with ``backward``, the
+    cotangent of the program's own pass's antialiased output
+    (``rasterize_textured_sepaa_stacked``) from the step's loss
+    (``torch.autograd.grad``), then K3 on it (on K8's colour on the mip
+    path), K4 (K9) and K5 on their outputs with zero u, v, z cotangents.
+
+    :return: {"pc", "data_s", "aux_s" (the records), "bins", "k1"; with
+        ``backward`` also "g_aa", "k3" (gcolour, gverts), "gpl" (K5's 11
+        cotangent planes), "k5"}.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
+    from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
+    from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
+    from fpc_diffrend_tpu_torch.ops.rasterize import (
+        bin_stacked, rasterize_textured_sepaa_stacked)
+    from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
+
+    config, scene, batch = wl["config"], wl["scene"], wl["batch"]
+    H, W, B = wl["H"], wl["W"], wl["B"]
+    ph, pw = rc.pad_resolution(H, W)
+    params = {k: v.detach() for k, v in wl["params"].items()}
+    tex, mip = params["tex"], config.enable_mip
+    scene_args = (scene.faces, scene.uv, scene.uv_idx)
+    with torch.no_grad():
+        pc, v3 = loop.sample_clip_positions(config, scene, params,
+                                            batch.cam_idx, batch.frame_idx)
+        data_s, aux_s, bins = bin_stacked(pc, *scene_args,
+                                          scene.face_neighbors, (H, W),
+                                          config.pair_cap)
+        k1 = rc.fused_raster(bins, None if mip else tex, B * ph, pw)
+    out = {"pc": pc, "data_s": data_s, "aux_s": aux_s, "bins": bins,
+           "k1": k1}
+    if not backward:
+        return out
+    idbuf, aa = rasterize_textured_sepaa_stacked(
+        pc.clone().requires_grad_(True), *scene_args, tex,
+        scene.face_neighbors, (H, W), pair_cap=config.pair_cap,
+        enable_mip=mip, max_mip_level=config.max_mip_level)
+    loss = loop.loss_from_render(config, scene, params, batch,
+                                 composite_stacked(idbuf, aa, B, (H, W)),
+                                 v3)[0]
+    g_aa, = torch.autograd.grad(loss, aa)
+    with torch.no_grad():
+        idbuf, entry, payload, extra, colour = k1
+        tu, tv = payload[3], payload[4]
+        if mip:
+            pyr, sizes = mip_pyramid(tex, config.max_mip_level)
+            colour, lam = tmc.mip_sample_lod(pyr, sizes, tu, tv, idbuf, H, W,
+                                             ph)
+        k3 = ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, H, W, ph)
+        _, gtu, gtv = (tmc.mip_sample_bwd(pyr, sizes, tu, tv, lam, k3[0])
+                       if mip else tc.texture_planes_bwd(tex, tu, tv, k3[0]))
+        gpl = torch.cat([torch.zeros((3,) + gtu.shape, device=gtu.device),
+                         gtu[None], gtv[None], k3[1]])
+        k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    return dict(out, g_aa=g_aa, k3=k3, gpl=gpl, k5=k5)
+
+
+def step_span_ms(config, scene, state, batch) -> dict:
+    """Each span's device ms in one eager fit step (``fit.loop.
+    train_step`` on ``batch``) after a warm-up step: the program's spans
+    recorded (``utils.profiling.recording``) in a ``torch.profiler``
+    trace, each given the device time of the kernels launched inside it
+    (``profile_forward.span_device_us``; the trace is removed)."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.profile_forward import traced
+    from fpc_diffrend_tpu_torch.utils.profiling import recording
+
+    out = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with recording():
+        loop.train_step(config, scene, state, batch)
+        torch.cuda.synchronize()
+        _, _, span_us = traced(
+            lambda: loop.train_step(config, scene, state, batch),
+            os.path.join(out, "chip_smoke_step.trace.json"))
+    return {k: us / 1e3 for k, us in span_us.items()}
 
 
 def mip_kernels_between(wl, cpu_gen):
     """What the mip forward runs on the device between K1 and K2, on the
-    workload's first batch (its stages, ``forward_stages``): K8 deriving
+    workload's first batch (:func:`step_inputs`): K8 deriving
     the LOD, one launch of ``mip_fwd_kernel`` (``ops.cuda.
     device_launches``), against the LOD's torch passes then K8 on a given
     plane, as the step ran them before; and ``mip.lod_fused`` of one
@@ -378,30 +478,29 @@ def mip_kernels_between(wl, cpu_gen):
     from fpc_diffrend_tpu_torch.ops.cuda import device_launches
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
+    from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
     from fpc_diffrend_tpu_torch.utils.profiling import recording
 
     H, W = wl["H"], wl["W"]
     ph, pw = rc.pad_resolution(H, W)
-    state = {}
-    stages = dict(forward_stages(wl, state))
+    idbuf, _, payload, _, _ = step_inputs(wl, backward=False)["k1"]
     with torch.no_grad():
-        for name in ("prologue", "binning", "K1 fused_raster",
-                     "mip pyramid"):
-            stages[name]()
-        idbuf, _, payload, _, _ = state["k1"]
-        pyr, sizes = state["pyr"]
-        pyr = pyr.detach()
+        pyr, sizes = mip_pyramid(wl["params"]["tex"].detach(),
+                                 wl["config"].max_mip_level)
+
+        def k8():
+            return tmc.mip_sample_lod(pyr, sizes, payload[3], payload[4],
+                                      idbuf, H, W, ph)
 
         def torch_lod_then_k8():
             lam = tmc.lod_from_texc(payload[3], payload[4], idbuf,
                                     *sizes[0], H, W, ph)
             return tmc.mip_sample(pyr, sizes, payload[3], payload[4], lam)
 
-        got = device_kernel_launches(stages["K8 mip_sample_lod"])
+        got = device_kernel_launches(k8)
         before = device_kernel_launches(torch_lod_then_k8)
         with device_launches() as named:
-            stages["K8 mip_sample_lod"]()
+            k8()
     with recording() as log:
         loop.evaluate(wl["config"], wl["scene"], wl["params"],
                       wl["frames_u8"], 1, cpu_gen)
@@ -990,7 +1089,6 @@ def check_k10_edges(dev, gen):
 
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     H, W = 100, 1600
@@ -1000,10 +1098,7 @@ def check_k10_edges(dev, gen):
     for grid in (20, 4):
         wl = build_workload(H, W, grid=grid, batch=2, tex_size=64,
                             device=dev)
-        state = {}
-        for _, fn in forward_stages(wl, state)[:2]:     # prologue, binning
-            fn()
-        bins = state["bins"]
+        bins = step_inputs(wl, backward=False)["bins"]
         sizes = bins.bin_start[1:] - bins.bin_start[:-1]
         for C in (1, 2, 3, 4):
             tex = torch.rand((64, 64, C), device=dev, generator=gen)
@@ -1544,7 +1639,7 @@ def single_view(wl, counters, gen, take):
 
     from fpc_diffrend_tpu_torch.data.frames import save_tiff
     from fpc_diffrend_tpu_torch.ops.pipeline import render
-    from fpc_diffrend_tpu_torch.profile_forward import device_kernels
+    from fpc_diffrend_tpu_torch.ops.cuda import device_events
     from fpc_diffrend_tpu_torch.tools.render_result import render_result
     from fpc_diffrend_tpu_torch.tools.simple_render import simple_render
     from fpc_diffrend_tpu_torch.utils.image import load_image
@@ -1622,13 +1717,12 @@ def single_view(wl, counters, gen, take):
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / N_VIEWS * 1e3
         # the device's work in a forward render, by the profiler
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             with torch.no_grad():
                 for mvp_c, pos_c in views:
                     draw(route, mvp_c, pos_c, tex)
             torch.cuda.synchronize()
-        busy = sum(ms for _, ms, _ in device_kernels(prof)) / N_VIEWS
+        busy = sum(ms for _, ms, _ in device_events(prof)) / N_VIEWS
         rec["ms"][route] = {"forward": fwd, "forward_backward": both,
                             "forward_host": host, "forward_device": busy}
     # The routes' planes are equal bit for bit (phase 3), so their
@@ -2191,7 +2285,6 @@ def check_fit_step(config, scene, params, frames_u8, label, modes=False):
 
     from fpc_diffrend_tpu_torch.fit import loop
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
 
     dev = scene.device
     gen = torch.Generator(device=dev)
@@ -2207,10 +2300,8 @@ def check_fit_step(config, scene, params, frames_u8, label, modes=False):
           "params": {k: v.detach().clone() for k, v in params.items()},
           "batch": loop.Batch(cam, frame,
                               loop.decode_refs(frames_u8, cam, frame))}
-    state = {}
-    # prologue, binning, K1, K2, the composite and loss with its cotangent
-    for _, fn in step_stages(wl, state)[:5]:
-        fn()
+    # the bins and the cotangent of K2's output from the step's loss
+    state = step_inputs(wl)
     bins, tex = state["bins"], wl["params"]["tex"].detach()
     ph, pw = rc.pad_resolution(H, W)
     T = scene.faces.shape[0]
@@ -4090,15 +4181,13 @@ def main() -> int:
     from fpc_diffrend_tpu_torch.kernels import build
     from fpc_diffrend_tpu_torch.ops.cuda import KERNELS as counters
     from fpc_diffrend_tpu_torch.ops.cuda import (DEVICE_KERNELS,
+                                                 device_events,
                                                  device_launches, device_want)
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import bin_place_cuda as bp
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-    from fpc_diffrend_tpu_torch.profile_forward import (device_kernels,
-                                                        forward_stages,
-                                                        step_stages)
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     t_start = time.perf_counter()
@@ -4140,9 +4229,7 @@ def main() -> int:
     for grid in (40, 5):
         wl = build_workload(256, 384, grid=grid, batch=2, tex_size=1024,
                             device=dev)
-        state = {}
-        for _, fn in forward_stages(wl, state)[:2]:     # prologue, binning
-            fn()
+        state = step_inputs(wl, backward=False)
         bins = state["bins"]
         ph, pw = rc.pad_resolution(256, 384)
         label = f"dome grid {grid}, {wl['faces'].shape[0]} tris"
@@ -4296,20 +4383,13 @@ def main() -> int:
           flush=True)
     record["step_ms_turns"] = turns
 
-    # per-stage device times of one batch's forward and one step
-    stages = {}
-    with torch.no_grad():
-        for name, fn in forward_stages(wl, {}):
-            stages[name] = cuda_ms(fn, 5)
-    record["stage_ms"] = stages
-    print("forward stages (CUDA events, ms, batch of 8): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
-    sstate = {}
-    step_stage_ms = {name: cuda_ms(fn, 3)
-                     for name, fn in step_stages(wl, sstate)}
-    record["step_stage_ms"] = step_stage_ms
-    print("step stages (CUDA events, ms, batch of 8): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in step_stage_ms.items()), flush=True)
+    # each stage's device time in one eager step, by the program's spans;
+    # the step's kernels' inputs for phases 6 and 10
+    record["step_span_ms"] = step_span_ms(config, scene, state, wl["batch"])
+    print("step spans (device ms, one eager step, batch of 8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in record["step_span_ms"].items()),
+        flush=True)
+    sstate = step_inputs(wl)
 
     phase_done("5")
 
@@ -4376,21 +4456,16 @@ def main() -> int:
                             mip_sample=k, mip_sample_bwd=k))
     if mip_launches != want:
         fail(f"mip: kernel launches on the device {mip_launches} != {want}")
-    with torch.no_grad():
-        mip_stages = {name: cuda_ms(fn, 5)
-                      for name, fn in forward_stages(wlm, {})}
-    print("mip forward stages (CUDA events, ms, batch of 8): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in mip_stages.items()), flush=True)
-    mstage = {}
-    mip_step_stages = {name: cuda_ms(fn, 3)
-                       for name, fn in step_stages(wlm, mstage)}
-    print("mip step stages (CUDA events, ms, batch of 8): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in mip_step_stages.items()), flush=True)
+    mip_spans = step_span_ms(cm, scm, mstate, wlm["batch"])
+    print("mip step spans (device ms, one eager step, batch of 8): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mip_spans.items()),
+          flush=True)
+    mstage = step_inputs(wlm)
     record.update(mip_between_k1_k2=mip_between,
                   mip_forward_ms_per_batch=mip_fwd_ms, mip_metrics=metrics,
                   mip_launches_evaluate=launches_fwd, mip_step_ms=mip_step_ms,
                   mip_step_losses=mlosses, mip_launches=mip_launches,
-                  mip_stage_ms=mip_stages, mip_step_stage_ms=mip_step_stages)
+                  mip_step_span_ms=mip_spans)
 
     phase_done("5b")
 
@@ -4749,13 +4824,12 @@ def main() -> int:
         if not torch.equal(counts, bp.count_pairs(tile_ids, n_tiles, True)):
             fail("K11's two count paths disagree at the bench batch")
         count_ev = {False: [], True: []}
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for in_dev in (False, True, True, False):
                 count_ev[in_dev].append(cuda_ms(
                     lambda: bp.count_pairs(tile_ids, n_tiles, in_dev), 50))
             torch.cuda.synchronize()
-        count_dev = {name: ms / 102 for name, ms, _ in device_kernels(prof)
+        count_dev = {name: ms / 102 for name, ms, _ in device_events(prof)
                      if "count" in name}
         print(f"K11 count step: shared-memory histogram {count_ev[False]} "
               f"ms, device-memory atomics {count_ev[True]} ms a call (CUDA "

@@ -9,8 +9,9 @@ trees and ``--turns 2``), each in a process of its own that
 imports ``fpc_diffrend_tpu_torch`` from that tree and builds its kernels
 there, and times on the same inputs the kernels that phase 6 of
 ``chip_smoke.py`` times too. On the bench workload as built from its seed,
-after the step's stages have run once, and the single view of its camera
-0 (``chip_smoke.kernel_pairs``; ``--paths`` "bench"):
+on its first batch's kernel inputs (``chip_smoke.step_inputs``), and the
+single view of its camera 0 (``chip_smoke.kernel_pairs``; ``--paths``
+"bench"):
 
 * K2 (``antialias``), K3 (``antialias_bwd``) and K4 in wrap mode
   (``texture_bwd``, on K3's colour cotangent) at the bench batch;
@@ -47,7 +48,7 @@ against its plain version over 5 calls (``gtex_rel``, of the summed
 magnitudes as ``chip_smoke.py`` holds it). A tree whose wrappers take no
 precision argument cannot run this set.
 
-On the bench-mip workload, after its step's stages have run once
+On the bench-mip workload, on its first batch's kernel inputs
 (``chip_smoke.mip_kernel_pairs``; "mip"): K8 deriving the LOD
 (``mip_sample_lod``, timed as ``mip_sample``) and K9 (``mip_sample_bwd``,
 on K3's colour cotangent) at the bench-mip batch.
@@ -62,9 +63,11 @@ only). Each run also records each library's nvcc seconds (all built at once;
 after its kernel's name, of ``antialias``, ``antialias_bwd``,
 ``texture_bwd``, ``texture_fwd``, ``texture_mip``, ``fused_raster``,
 ``bin_place`` and ``raster_grad`` (a
-library reused from an earlier build of the tree prints none). Prints one
-JSON line a run and ends with the card's name and power limit; the runs
-also go to ``chiprun_out/chip_turns.json``.
+library reused from an earlier build of the tree prints none). The
+device times read a tree's ``ops.cuda.device_events``, so a tree without
+it cannot be timed. Prints one JSON line a run and ends with the card's
+name and power limit; the runs also go to
+``chiprun_out/chip_turns.json``.
 """
 
 import argparse
@@ -98,7 +101,6 @@ def measure(tree: str, paths) -> dict:
     import fpc_diffrend_tpu_torch as pkg
     from fpc_diffrend_tpu_torch.kernels import build
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     if not os.path.abspath(pkg.__file__).startswith(os.path.abspath(tree)):
@@ -120,10 +122,8 @@ def measure(tree: str, paths) -> dict:
         wl = build_workload(device=dev)
         H, W, B = wl["H"], wl["W"], wl["B"]
         ph, pw = rc.pad_resolution(H, W)
-        # the step's first batch (its stages need autograd)
-        sstate = {}
-        for _, fn in step_stages(wl, sstate):
-            fn()
+        # the step's first batch (its cotangents need autograd)
+        sstate = cs.step_inputs(wl)
         with torch.no_grad():
             tex = wl["params"]["tex"].detach()
             bins1 = cs.view_bins(wl)
@@ -168,9 +168,7 @@ def measure(tree: str, paths) -> dict:
     if "mip" in paths:
         # the mip step's first batch: K9 on K3's colour cotangent
         wlm = build_workload(mip=True, device=dev)
-        mstate = {}
-        for _, fn in step_stages(wlm, mstate):
-            fn()
+        mstate = cs.step_inputs(wlm)
         ph, _ = rc.pad_resolution(wlm["H"], wlm["W"])
         pairs.update(cs.mip_kernel_pairs(
             mstate["k1"], wlm["params"]["tex"].detach(), mstate["k3"][0],

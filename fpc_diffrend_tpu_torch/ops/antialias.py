@@ -350,11 +350,13 @@ class AntialiasGathered(torch.autograd.Function):
     def forward(ctx, colour, corners, idbuf, zn, height, width):
         from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
             antialias_planes)
+        from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
+            N_PAYLOAD, PAY_CORNERS, PAY_NEIGHBOURS, PAY_Z)
 
-        payload = corners.new_zeros((14,) + idbuf.shape)
-        payload[2] = zn[0]
-        payload[5:11] = corners
-        payload[11:14] = zn[1:]
+        payload = corners.new_zeros((N_PAYLOAD,) + idbuf.shape)
+        payload[PAY_Z] = zn[0]
+        payload[PAY_CORNERS] = corners
+        payload[PAY_NEIGHBOURS] = zn[1:]
         ctx.save_for_backward(idbuf, payload, colour)
         ctx.dims = (height, width)
         return antialias_planes(idbuf, payload, colour, height, width,

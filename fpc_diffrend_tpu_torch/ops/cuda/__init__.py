@@ -5,7 +5,8 @@
 and its replays never (``fit.loop.train_steps`` replays the fit step).
 What ran on the device, replays included, is measured by
 :func:`device_launches`: each kernel of :data:`DEVICE_KERNELS` counted
-in a ``torch.profiler`` trace of the scope.
+in a ``torch.profiler`` trace of the scope. :func:`device_events` is the
+one reader of such a trace's device work.
 """
 
 import contextlib
@@ -56,6 +57,20 @@ def device_want(calls: dict) -> dict:
     return out
 
 
+def device_events(prof) -> list:
+    """(name, self device ms, count) of the device-side events of a
+    ``torch.profiler`` profile, largest first; annotations
+    (``record_function`` ranges mirrored on the device, such as
+    ``Optimizer.step``) are spans over kernels, not work, and are left
+    out."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def count_kernels(events) -> dict:
     """Device kernel -> launches among ``events``, (name, count) pairs of
     a trace's device events: a name counts where the kernel's own name
@@ -79,7 +94,6 @@ def device_launches():
     ``torch.profiler`` trace of the scope (without a CUDA device, every
     count 0)."""
     import torch
-    from torch.autograd import DeviceType
 
     got = {}
     cuda = torch.cuda.is_available()
@@ -90,7 +104,4 @@ def device_launches():
         yield got
         if cuda:
             torch.cuda.synchronize()
-    got.update(count_kernels(
-        (e.key, e.count) for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)))
+    got.update(count_kernels((name, n) for name, _, n in device_events(prof)))

@@ -28,7 +28,8 @@ import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
 from fpc_diffrend_tpu_torch.ops.antialias import pair_delta, pair_grad
-from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import N_PAYLOAD
+from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
+    N_PAYLOAD, PAY_CORNERS, PAY_NEIGHBOURS, PAY_Z)
 
 Tensor = torch.Tensor
 _PTR, _INT = build.PTR, build.INT
@@ -38,8 +39,8 @@ _AA_BWD_ARGS = [_PTR] * 4 + [_INT] * 6 + [_PTR] * 3
 
 def pack_planes(idbuf: Tensor, payload: Tensor, colour: Tensor) -> Tensor:
     """(11 + C, rows, pw) [id, z, x0 y0 x1 y1 x2 y2, n0 n1 n2, colour]."""
-    return torch.cat([idbuf.to(torch.float32)[None], payload[2:3],
-                      payload[5:14], colour])
+    return torch.cat([idbuf.to(torch.float32)[None], payload[PAY_Z][None],
+                      payload[PAY_CORNERS], payload[PAY_NEIGHBOURS], colour])
 
 
 def antialias_planes_plain(idbuf: Tensor, payload: Tensor, colour: Tensor,

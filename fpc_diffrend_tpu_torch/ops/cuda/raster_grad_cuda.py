@@ -30,11 +30,15 @@ import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    MAX_GLOBAL, N_EXTRA, REC, TILE_H, TILE_W, WINDOW_X, WINDOW_Y, Bins)
+    MAX_GLOBAL, N_EXTRA, PAY_CORNERS, PAY_TU, PAY_TV, PAY_U, PAY_V, PAY_Z,
+    REC, TILE_H, TILE_W, WINDOW_X, WINDOW_Y, Bins)
 
 Tensor = torch.Tensor
 
-N_GPL = 11        # cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]
+# K5's cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]: plane
+# k is the cotangent of payload plane k (``rasterize_cuda.PAY_*``); the
+# neighbour ids have none
+N_GPL = PAY_CORNERS.stop
 # record slots that carry gradient: all but the id (12) and pad (28-31)
 LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
 WINDOW = WINDOW_Y * WINDOW_X   # window slots a triangle (K)
@@ -44,18 +48,25 @@ _PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 _FOLD_ARGS = [_PTR] * 7 + [_INT] * 2 + [_PTR] * 2
 
 
+def cotangent_planes(guvz: Tensor, gtu: Tensor, gtv: Tensor,
+                     gcorners: Tensor) -> Tensor:
+    """K5's (N_GPL, rows, pw) cotangent planes from those of u, v, z (3,
+    rows, pw), of tu and tv (rows, pw) and of the corners (6, rows, pw)."""
+    return torch.cat([guvz, gtu[None], gtv[None], gcorners])
+
+
 def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
                        x: Tensor, y: Tensor, fast: bool = False) -> Tensor:
     """The 32 per-pixel gradient coefficients (raster_grad_tpu.py
     :286-310, in the kernel's order): (32, rows, pw); with ``fast`` each
     rounded to bf16 (nearest even) and back."""
     D, iw0, iw1, iw2, du02, du12, dv02, dv12 = extra
-    gz, gtu, gtv = gpl[2], gpl[3], gpl[4]
+    gz, gtu, gtv = gpl[PAY_Z], gpl[PAY_TU], gpl[PAY_TV]
     d0 = u * D
     d1 = v * D
     d2 = (D - d0) - d1
-    gu = (gpl[0] + gtu * du02) + gtv * dv02
-    gv = (gpl[1] + gtu * du12) + gtv * dv12
+    gu = (gpl[PAY_U] + gtu * du02) + gtv * dv02
+    gv = (gpl[PAY_V] + gtu * du12) + gtv * dv12
     rD = 1.0 / torch.where(torch.abs(D) > _AREA_EPS, D, 1.0)
     S = ((gu * d0 + gv * d1) * rD) * rD
     gd0 = gu * rD - S
@@ -70,7 +81,7 @@ def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
               gl2 * x, gl2 * y, gl2, gz * x, gz * y, gz, zero,
               -gd0 * d0 * iw0, -gd1 * d1 * iw1, -gd2 * d2 * iw2,
               gtu * u, gtv * u, gtu * v, gtv * v, gtu * wp, gtv * wp,
-              *gpl[5:11], zero, zero, zero, zero]
+              *gpl[PAY_CORNERS], zero, zero, zero, zero]
     out = torch.stack([p.expand_as(u) for p in planes])
     return out.to(torch.bfloat16).float() if fast else out
 

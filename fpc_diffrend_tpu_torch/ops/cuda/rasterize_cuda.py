@@ -67,6 +67,13 @@ CHUNK = 128               # record-row padding granule
 MAX_GLOBAL = 1024         # cap of the oversized-triangle list
 REC = 32                  # floats per triangle record
 N_PAYLOAD = 14            # u v z tu tv x0 y0 x1 y1 x2 y2 n0 n1 n2
+# the payload's planes by name: the winner's perspective-correct
+# barycentrics and depth, its texture coordinates, its screen corners and
+# its neighbours' ids
+PAY_U, PAY_V, PAY_Z, PAY_TU, PAY_TV = range(5)
+PAY_UVZ = slice(PAY_U, PAY_Z + 1)
+PAY_CORNERS = slice(5, 11)        # x0 y0 x1 y1 x2 y2
+PAY_NEIGHBOURS = slice(11, 14)    # n0 n1 n2
 N_EXTRA = 8               # D iw0 iw1 iw2 du02 du12 dv02 dv12
 BIG = 3.0e38              # depth of a pixel no triangle covers
 _AREA_EPS = 1e-12
@@ -492,7 +499,7 @@ def fused_raster_plain(bins: Bins, tex: Tensor | None, rows: int, pw: int):
     if tex is None:
         colour = torch.empty((0, rows, pw), device=dev)
     else:
-        colour = _planes(bilinear(tex, payload[3], payload[4],
+        colour = _planes(bilinear(tex, payload[PAY_TU], payload[PAY_TV],
                                   "wrap").movedim(-1, 0), rows,
                          pw).contiguous()
     idbuf = torch.where(hit, F[..., 12].to(torch.int32), -1)

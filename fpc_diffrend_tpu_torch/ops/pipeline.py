@@ -157,25 +157,37 @@ def render_from_clip(pos_clip: Tensor, pos_idx: Tensor, uv: Tensor,
     return composite_stacked(idbuf, aa, 1, tuple(resolution), background)[0]
 
 
+def scan_colour(pos_clip, pos_idx, uv, uv_idx, tex, resolution,
+                enable_mip, max_mip_level):
+    """The scan route's rasterize and sampler, before the antialias:
+    bilinear, ``rasterize_with_uv`` then ``texture``; with ``enable_mip``,
+    ``rasterize`` -> ``interpolate(diff_attrs="all")`` -> the trilinear
+    ``texture``, whose uv derivatives stay in the gradient, as in JAX.
+
+    :return: (rast (H, W, 4), colour (H, W, C)).
+    """
+    if not enable_mip:
+        rast, texc = rasterize_with_uv(pos_clip, pos_idx, uv, uv_idx,
+                                       resolution, impl="scan")
+        return rast, texture(tex, texc, filter_mode="linear")
+    rast, rast_db = rasterize(pos_clip, pos_idx, resolution, impl="scan",
+                              with_db=True)
+    texc, texd = interpolate(uv, rast, uv_idx, rast_db=rast_db,
+                             diff_attrs="all")
+    return rast, texture(tex, texc, uv_da=texd,
+                         filter_mode="linear-mipmap-linear",
+                         max_mip_level=max_mip_level)
+
+
 def _render_scan(pos_clip, pos_idx, uv, uv_idx, tex, resolution,
                  face_neighbors, enable_mip, max_mip_level, background,
                  aa_max_pairs):
     """The scan route of :func:`render_from_clip` (JAX's
     ``ops/pipeline.py:121-126,201-221``): the primitives composed over the
-    visibility scan, then the background composite. The mip route's uv
-    derivatives stay in the gradient, as in JAX."""
-    if enable_mip:
-        rast, rast_db = rasterize(pos_clip, pos_idx, resolution, impl="scan",
-                                  with_db=True)
-        texc, texd = interpolate(uv, rast, uv_idx, rast_db=rast_db,
-                                 diff_attrs="all")
-        colour = texture(tex, texc, uv_da=texd,
-                         filter_mode="linear-mipmap-linear",
-                         max_mip_level=max_mip_level)
-    else:
-        rast, texc = rasterize_with_uv(pos_clip, pos_idx, uv, uv_idx,
-                                       resolution, impl="scan")
-        colour = texture(tex, texc, filter_mode="linear")
+    visibility scan (:func:`scan_colour`), then the background
+    composite."""
+    rast, colour = scan_colour(pos_clip, pos_idx, uv, uv_idx, tex,
+                               resolution, enable_mip, max_mip_level)
     colour = antialias(colour, rast, pos_clip, pos_idx, face_neighbors,
                        max_pairs=aa_max_pairs)
     return torch.where(rast[..., 3:] > 0, colour, background)

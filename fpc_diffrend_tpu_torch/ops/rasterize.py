@@ -6,17 +6,21 @@ Port of ``fpc_diffrend_tpu.ops.rasterize``'s
 device, then K1 (fused raster + texture) and K2 (antialias), each one pass
 over the B samples stacked vertically into one image. The backward is
 K3 (antialias) -> K4 (texture) -> K5 (pixel -> bin entry) -> K6 (bin
-entry -> triangle), under one ``torch.autograd.Function``; the triangle
-setup chains back to clip positions through ordinary autograd, as the JAX
-package leaves it to autodiff. Each sample's records stay in its own
-frame: the kernels evaluate them at the pixel's row within its sample,
-where the JAX package shifts them into the stacked frame
-(``ops.cuda.rasterize_cuda``), so each stack position renders and
-differentiates as the sample rendered alone.
+entry -> triangle), under one ``torch.autograd.Function``,
+:class:`RasterizeTextured`; the triangle setup chains back to clip
+positions through ordinary autograd, as the JAX package leaves it to
+autodiff. Each sample's records stay in its own frame: the kernels
+evaluate them at the pixel's row within its sample, where the JAX package
+shifts them into the stacked frame (``ops.cuda.rasterize_cuda``), so each
+stack position renders and differentiates as the sample rendered alone.
 
-The single view (``ops.pipeline.render``) is the same pass at B = 1, and
-picks one of three routes that compute the same image and gradients
-(``route``; the JAX package picks them by environment variables,
+:func:`rasterize_textured_sepaa_stacked` is the one entry point of the
+pass: it bins, builds the mip pyramid where there is one, and applies
+the Function with a sampler of :data:`SAMPLERS`, the kernels that run
+between K1 and K2 and, in the backward, between K3 and K5. The single
+view (``ops.pipeline.render``) is the same pass at B = 1, and picks one
+of three routes that compute the same image and gradients (``route``;
+the JAX package picks them by environment variables,
 ``ops/pipeline.py:149-193`` there):
 
 * ``"sepaa"``: K1 with its texture tail, then K2 (the JAX default, and
@@ -28,30 +32,28 @@ picks one of three routes that compute the same image and gradients
 
 All three share the backward K3 -> K4 -> K5 -> K6.
 
-The mip path (``enable_mip``) is the same Function with another sampler:
-K1 without its texture tail, K8 (trilinear mip sample, deriving the
-finite-difference LOD from K1's uv and ids), K2; backward K3 -> K9 -> K5
--> K6. The JAX package renders it per sample under ``vmap``
-(``render_from_clip``'s mip branch); stacked, each sample gives the same
-result, as the JAX package says of its own stacked path ("functionally
-identical to vmapping").
+The mip path (``enable_mip``) is the sampler ``"mip"``: K1 without its
+texture tail, K8 (trilinear mip sample, deriving the finite-difference
+LOD from K1's uv and ids), K2; backward K3 -> K9 -> K5 -> K6. The JAX
+package renders it per sample under ``vmap`` (``render_from_clip``'s mip
+branch); stacked, each sample gives the same result, as the JAX package
+says of its own stacked path ("functionally identical to vmapping").
 
-The band Functions (:class:`RasterizeTexturedSepaaBand`,
-:class:`RasterizeMipSepaaBand`) are the stacked ones with each sample's
-first and last image rows of the pre-antialias colour and of u, v, z as
-two more outputs, whose cotangents join the backward before the sampler's
-kernel and K5: the sharded band render's seam (``parallel.spatial``).
+With ``edge_rows`` the pass also returns each sample's first and last
+image rows of the pre-antialias colour and of u, v, z, whose cotangents
+join the backward before the sampler's and K5: the sharded band render's
+seam (``parallel.spatial``).
 
 The layers are spans of ``utils.profiling``: ``raster.bin`` (records and
-binning), ``raster.fwd`` (a render Function's forward, with the mip
-pyramid's build on the mip route, ``raster.pyramid``, and K8 with its
-LOD, ``raster.mip_fwd``, inside it) and ``raster.bwd`` (its backward, on
+binning), ``raster.fwd`` (the Function's forward, with the mip pyramid's
+build on the mip route, ``raster.pyramid``, and K8 with its LOD,
+``raster.mip_fwd``, inside it) and ``raster.bwd`` (its backward, on
 autograd's device thread on CUDA; K9 in ``raster.mip_bwd``). The
 pyramid's own backward, the adjoint of its 2x2 means, is autograd's,
 outside ``raster.bwd``; the LOD has none.
 
-Every Function here reads the gradient precision (``ops.precision``) in
-its forward and keeps it, so that its backward launches K4 and K5 in the
+The Function reads the gradient precision (``ops.precision``) in its
+forward and keeps it, so that its backward launches K4 and K5 in the
 forward's modes (K9 has none).
 
 The nvdiffrast-style primitive (JAX's public ``rasterize`` and
@@ -71,10 +73,11 @@ from fpc_diffrend_tpu_torch.ops.antialias import edge_fn
 from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
     antialias_planes, antialias_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.raster_grad_cuda import (
-    fold_entries, pixel_grad)
+    cotangent_planes, fold_entries, pixel_grad)
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    _AREA_EPS, _W_EPS, _screen_xy, aux_records, bin_scene_stacked,
-    fused_raster, fused_raster_aa, pad_resolution)
+    _AREA_EPS, _W_EPS, PAY_CORNERS, PAY_TU, PAY_TV, PAY_U, PAY_UVZ, PAY_V,
+    _screen_xy, aux_records, bin_scene_stacked, fused_raster,
+    fused_raster_aa, pad_resolution)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_cuda import (
     texture_planes, texture_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.texture_mip_cuda import (
@@ -102,165 +105,69 @@ def _raster(ctx, data_b, bins, tex, sample_ph, height, width, aa=False):
     return fused_raster(bins, tex, B * sample_ph, pw)
 
 
-def _antialias(ctx, idbuf, payload, colour):
-    """K2 over the sampled colour."""
-    _, _, sample_ph, height, width = ctx.dims
-    ctx.mark_non_differentiable(idbuf)
-    return antialias_planes(idbuf, payload, colour, height, width, sample_ph)
-
-
-def _antialias_bwd(ctx, idbuf, payload, colour, g_aa):
-    """K3: (gcolour, gverts) from the cotangent of K2's output."""
-    _, _, sample_ph, height, width = ctx.dims
-    return antialias_planes_bwd(idbuf, payload, colour, g_aa.contiguous(),
-                                height, width, sample_ph)
-
-
-def _texture_bwd(ctx, tex, payload, gcolour):
-    """K4 on K1's uv planes, at the forward's texture precision."""
-    return texture_planes_bwd(tex, payload[3], payload[4], gcolour, "wrap",
-                              ctx.prec.tex)
-
-
-def _mip_sample(ctx, idbuf, payload, pyramid, sizes):
-    """K8 deriving the LOD from K1's uv and ids (span ``raster.mip_fwd``):
-    (colour (C, rows, pw), lam (rows, pw))."""
-    _, _, sample_ph, height, width = ctx.dims
-    ctx.sizes = sizes
-    with span("raster.mip_fwd"):
-        return mip_sample_lod(pyramid, sizes, payload[3], payload[4], idbuf,
-                              height, width, sample_ph)
-
-
-def _mip_sample_bwd(ctx, payload, pyramid, lam, gcolour):
-    """K9 (span ``raster.mip_bwd``; the LOD is held out of the gradient):
-    (gpyr, gtu, gtv)."""
-    with span("raster.mip_bwd"):
-        return mip_sample_bwd(pyramid, ctx.sizes, payload[3], payload[4],
-                              lam, gcolour)
-
-
-def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gverts, guvz=None):
+def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gcorners, guvz=None):
     """K5 -> K6: the cotangents of the payload's u, v, z (``guvz`` (3,
     rows, pw); None: zero), of the sampled uv and of the screen corners
     into the (B, T, 16) data and aux records; K5 at the forward's gradient
     precision."""
     B, T = ctx.dims[:2]
-    # the 11 cotangent planes of payload 0-10 [gu gv gz gtu gtv
-    # g(x0..y2)]; the render Functions' u, v and z never leave the op
-    # (the antialias differentiates only corners and colour)
+    # the textured pass's u, v and z never leave the op but for the band
+    # render's edge rows (the antialias differentiates only corners and
+    # colour)
     if guvz is None:
         guvz = torch.zeros((3,) + gtu.shape, device=gtu.device)
-    gpl = torch.cat([guvz, gtu[None], gtv[None], gverts])
-    grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[0],
-                                           payload[1], extra, gpl,
+    gpl = cotangent_planes(guvz, gtu, gtv, gcorners)
+    grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[PAY_U],
+                                           payload[PAY_V], extra, gpl,
                                            ctx.prec.grad == "fast")
     grad = fold_entries(grad_entries, grad_global, ctx.bins, B * T)
     return grad[:, :16].reshape(B, T, 16), grad[:, 16:].reshape(B, T, 16)
 
 
-class RasterizeTexturedSepaaStacked(torch.autograd.Function):
-    """K1 -> K2 forward, K3 -> K4 -> K5 -> K6 backward.
+# ---- the samplers between K1 and K2 (forward) and K3 and K5 (backward) ----
 
-    ``apply(data_b, aux_b, tex, bins, sample_ph, height, width)``:
-
-    :param data_b, aux_b: (B, T, 16) records, each in its sample's own
-        frame (``bin_scene_stacked``), differentiable.
-    :param tex: (TH, TW, C) texture, differentiable.
-    :param bins: the Bins built from the same records (no gradient).
-    :param sample_ph: row pitch of the stacked samples.
-    :param height, width: one sample's real size.
-    :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
-        before the background composite).
-    """
-
-    @staticmethod
-    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
-        idbuf, entry, payload, extra, colour = _raster(
-            ctx, data_b, bins, tex, sample_ph, height, width)
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
-        return idbuf, _antialias(ctx, idbuf, payload, colour)
-
-    @staticmethod
-    def backward(ctx, _g_id, g_aa):
-        with span("raster.bwd"):
-            idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
-            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
-                                             g_aa)
-            gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
-            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
-                                  gverts),
-                    gtex, None, None, None, None)
+def _k7(ctx, idbuf, payload, tex, sizes):
+    """K7, the standalone bilinear wrap sampler, on K1's uv planes."""
+    return texture_planes(tex, payload[PAY_TU], payload[PAY_TV], "wrap"), ()
 
 
-class RasterizeTexturedAaFused(RasterizeTexturedSepaaStacked):
-    """K10 forward (K1 and K2 from one entry point), the same backward
-    K3 -> K4 -> K5 -> K6 (JAX's ``_rasterize_texture_aa_fused_bwd``, which
-    runs the antialias backward over the planes K10 also writes).
-    Arguments and results as :class:`RasterizeTexturedSepaaStacked`."""
-
-    @staticmethod
-    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
-        idbuf, entry, payload, extra, colour, aa = _raster(
-            ctx, data_b, bins, tex, sample_ph, height, width, aa=True)
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
-        ctx.mark_non_differentiable(idbuf)
-        return idbuf, aa
+def _k8(ctx, idbuf, payload, pyramid, sizes):
+    """K8 deriving the LOD from K1's uv and ids (span ``raster.mip_fwd``):
+    colour (C, rows, pw), and the LOD plane (rows, pw) kept for K9."""
+    _, _, sample_ph, height, width = ctx.dims
+    with span("raster.mip_fwd"):
+        colour, lam = mip_sample_lod(pyramid, sizes, payload[PAY_TU],
+                                     payload[PAY_TV], idbuf, height, width,
+                                     sample_ph)
+    return colour, (lam,)
 
 
-class RasterizeSeparateTexture(RasterizeTexturedSepaaStacked):
-    """K1 without its texture tail -> K7 (the standalone bilinear wrap
-    sampler) -> K2 forward, the same backward K3 -> K4 -> K5 -> K6 (JAX's
-    ``texture_planes_pallas`` route). Arguments and results as
-    :class:`RasterizeTexturedSepaaStacked`."""
-
-    @staticmethod
-    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
-        idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_b, bins, None, sample_ph, height, width)
-        colour = texture_planes(tex, payload[3], payload[4], "wrap")
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
-        return idbuf, _antialias(ctx, idbuf, payload, colour)
+def _k4(ctx, payload, tex, kept, gcolour):
+    """K4 on K1's uv planes, at the forward's texture precision: (gtex,
+    gtu, gtv)."""
+    return texture_planes_bwd(tex, payload[PAY_TU], payload[PAY_TV], gcolour,
+                              "wrap", ctx.prec.tex)
 
 
-ROUTES = {"sepaa": RasterizeTexturedSepaaStacked,
-          "aa_fused": RasterizeTexturedAaFused,
-          "separate": RasterizeSeparateTexture}
+def _k9(ctx, payload, pyramid, kept, gcolour):
+    """K9 (span ``raster.mip_bwd``; the LOD is held out of the gradient):
+    (gpyr, gtu, gtv)."""
+    with span("raster.mip_bwd"):
+        return mip_sample_bwd(pyramid, ctx.sizes, payload[PAY_TU],
+                              payload[PAY_TV], kept[0], gcolour)
 
 
-class RasterizeMipSepaaStacked(torch.autograd.Function):
-    """K1 (no texture) -> K8 (with the LOD) -> K2 forward, K3 -> K9 -> K5
-    -> K6 backward.
-
-    ``apply(data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
-    width)``: as :class:`RasterizeTexturedSepaaStacked`, with the flat mip
-    pyramid (n_texels, C) and its levels' sizes (``ops.texture_mip.
-    mip_pyramid``) in place of the texture. K8 derives the LOD plane from
-    K1's uv and ids; it is held out of the gradient.
-    """
-
-    @staticmethod
-    def forward(ctx, data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
-                width):
-        idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_b, bins, None, sample_ph, height, width)
-        colour, lam = _mip_sample(ctx, idbuf, payload, pyramid, sizes)
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, pyramid,
-                              lam)
-        return idbuf, _antialias(ctx, idbuf, payload, colour)
-
-    @staticmethod
-    def backward(ctx, _g_id, g_aa):
-        with span("raster.bwd"):
-            (idbuf, entry, payload, extra, colour, pyramid,
-             lam) = ctx.saved_tensors
-            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
-                                             g_aa)
-            gpyr, gtu, gtv = _mip_sample_bwd(ctx, payload, pyramid, lam,
-                                             gcolour)
-            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
-                                  gverts),
-                    gpyr, None, None, None, None, None)
+# name -> (K1's mode: "tail" with its texture tail, "aa" K10 (K1 and K2
+# from one entry point), "plain" without the tail; the sampler after a
+# plain K1 (ctx, idbuf, payload, tex, sizes) -> (colour, tensors kept for
+# its backward); the backward (ctx, payload, tex, kept, gcolour) -> (gtex,
+# gtu, gtv)). The first three are the single view's routes, "mip" the
+# trilinear mip path, whose tex is the flat pyramid.
+SAMPLERS = {"sepaa": ("tail", None, _k4),
+            "aa_fused": ("aa", None, _k4),
+            "separate": ("plain", _k7, _k4),
+            "mip": ("plain", _k8, _k9)}
+ROUTES = ("sepaa", "aa_fused", "separate")
 
 
 def _edge_rows(ctx, payload, colour):
@@ -274,7 +181,7 @@ def _edge_rows(ctx, payload, colour):
     ctx.edge_rows = torch.stack([first, first + height - 1], 1).reshape(-1)
     pw = colour.shape[-1]
     return (colour[:, ctx.edge_rows].reshape(-1, B, 2, pw),
-            payload[:3, ctx.edge_rows].reshape(3, B, 2, pw))
+            payload[PAY_UVZ, ctx.edge_rows].reshape(3, B, 2, pw))
 
 
 def _add_edge_grads(ctx, gcolour, g_colour_rows, g_uvz_rows):
@@ -289,70 +196,67 @@ def _add_edge_grads(ctx, gcolour, g_colour_rows, g_uvz_rows):
     return gcolour, guvz
 
 
-class RasterizeTexturedSepaaBand(torch.autograd.Function):
-    """:class:`RasterizeTexturedSepaaStacked` with each sample's edge rows
-    as two more outputs: K1 -> K2 forward, K3 -> (+ the edge rows'
-    colour cotangents) K4 -> (+ their u, v, z cotangents) K5 -> K6
-    backward. The band render of ``parallel.spatial`` blends these rows
-    with the neighbouring bands' (JAX's fused band path takes them from
-    the fused pass's pre-antialias planes).
+class RasterizeTextured(torch.autograd.Function):
+    """The textured pass: K1 -> sampler -> K2 forward, K3 -> the sampler's
+    backward -> K5 -> K6 backward.
 
-    :return: (idbuf, aa, colour rows (C, B, 2, pw), uvz rows (3, B, 2,
-        pw)); rows as :func:`_edge_rows`.
+    ``apply(data_b, aux_b, tex, bins, sample_ph, height, width, sampler,
+    sizes, edge_rows)``:
+
+    :param data_b, aux_b: (B, T, 16) records, each in its sample's own
+        frame (``bin_scene_stacked``), differentiable.
+    :param tex: (TH, TW, C) texture; for the sampler "mip" the flat mip
+        pyramid (n_texels, C) (``ops.texture_mip.mip_pyramid``);
+        differentiable.
+    :param bins: the Bins built from the same records (no gradient).
+    :param sample_ph: row pitch of the stacked samples.
+    :param height, width: one sample's real size.
+    :param sampler: a key of :data:`SAMPLERS`.
+    :param sizes: the pyramid's level sizes (sampler "mip"; else None).
+    :param edge_rows: also return each sample's edge rows
+        (:func:`_edge_rows`), whose cotangents join the backward.
+    :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
+        before the background composite); with ``edge_rows`` also (colour
+        rows (C, B, 2, pw), uvz rows (3, B, 2, pw)).
     """
 
     @staticmethod
-    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width):
-        idbuf, entry, payload, extra, colour = _raster(
-            ctx, data_b, bins, tex, sample_ph, height, width)
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex)
-        aa = _antialias(ctx, idbuf, payload, colour)
+    def forward(ctx, data_b, aux_b, tex, bins, sample_ph, height, width,
+                sampler="sepaa", sizes=None, edge_rows=False):
+        k1, sample, _ = SAMPLERS[sampler]
+        ctx.sampler, ctx.sizes = sampler, sizes
+        out = _raster(ctx, data_b, bins, None if k1 == "plain" else tex,
+                      sample_ph, height, width, aa=k1 == "aa")
+        idbuf, entry, payload, extra, colour = out[:5]
+        kept = ()
+        if sample is not None:
+            colour, kept = sample(ctx, idbuf, payload, tex, sizes)
+        ctx.save_for_backward(idbuf, entry, payload, extra, colour, tex,
+                              *kept)
+        ctx.mark_non_differentiable(idbuf)
+        aa = out[5] if k1 == "aa" else antialias_planes(
+            idbuf, payload, colour, height, width, sample_ph)
+        if not edge_rows:
+            return idbuf, aa
         return (idbuf, aa, *_edge_rows(ctx, payload, colour))
 
     @staticmethod
-    def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
+    def backward(ctx, _g_id, g_aa, *g_rows):
         with span("raster.bwd"):
-            idbuf, entry, payload, extra, colour, tex = ctx.saved_tensors
-            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
-                                             g_aa)
-            gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
-                                            g_uvz_rows)
-            gtex, gtu, gtv = _texture_bwd(ctx, tex, payload, gcolour)
+            idbuf, entry, payload, extra, colour, tex, *kept = (
+                ctx.saved_tensors)
+            _, _, sample_ph, height, width = ctx.dims
+            gcolour, gcorners = antialias_planes_bwd(
+                idbuf, payload, colour, g_aa.contiguous(), height, width,
+                sample_ph)
+            guvz = None
+            if g_rows:
+                gcolour, guvz = _add_edge_grads(ctx, gcolour, *g_rows)
+            gtex, gtu, gtv = SAMPLERS[ctx.sampler][2](ctx, payload, tex,
+                                                      kept, gcolour)
             return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
-                                  gverts, guvz),
-                    gtex, None, None, None, None)
-
-
-class RasterizeMipSepaaBand(torch.autograd.Function):
-    """:class:`RasterizeMipSepaaStacked` with the edge rows of
-    :class:`RasterizeTexturedSepaaBand`: their colour cotangents join K3's
-    before K9, their u, v, z cotangents reach K5."""
-
-    @staticmethod
-    def forward(ctx, data_b, aux_b, pyramid, sizes, bins, sample_ph, height,
-                width):
-        idbuf, entry, payload, extra, _ = _raster(
-            ctx, data_b, bins, None, sample_ph, height, width)
-        colour, lam = _mip_sample(ctx, idbuf, payload, pyramid, sizes)
-        ctx.save_for_backward(idbuf, entry, payload, extra, colour, pyramid,
-                              lam)
-        aa = _antialias(ctx, idbuf, payload, colour)
-        return (idbuf, aa, *_edge_rows(ctx, payload, colour))
-
-    @staticmethod
-    def backward(ctx, _g_id, g_aa, g_colour_rows, g_uvz_rows):
-        with span("raster.bwd"):
-            (idbuf, entry, payload, extra, colour, pyramid,
-             lam) = ctx.saved_tensors
-            gcolour, gverts = _antialias_bwd(ctx, idbuf, payload, colour,
-                                             g_aa)
-            gcolour, guvz = _add_edge_grads(ctx, gcolour, g_colour_rows,
-                                            g_uvz_rows)
-            gpyr, gtu, gtv = _mip_sample_bwd(ctx, payload, pyramid, lam,
-                                             gcolour)
-            return (*_records_bwd(ctx, entry, payload, extra, gtu, gtv,
-                                  gverts, guvz),
-                    gpyr, None, None, None, None, None)
+                                  gcorners, guvz),
+                    gtex) + (None,) * 7
 
 
 def bin_stacked(pos_clip_b: Tensor, faces: Tensor, uv: Tensor,
@@ -378,7 +282,8 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
                                      pair_cap: int | None = None,
                                      enable_mip: bool = False,
                                      max_mip_level: int = 0,
-                                     route: str = "sepaa"):
+                                     route: str = "sepaa",
+                                     edge_rows: bool = False):
     """Render B samples through one pass of each kernel.
 
     :param pos_clip_b: (B, V, 4) clip positions per sample.
@@ -388,12 +293,16 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
     :param enable_mip: sample trilinearly across the mip chain of up to
         ``max_mip_level`` levels below the texture (K8, K9) instead of
         bilinearly (K1's tail, K4).
-    :param route: the bilinear path's kernels, a key of :data:`ROUTES`
+    :param route: the bilinear path's kernels, one of :data:`ROUTES`
         ("sepaa": K1 -> K2; "aa_fused": K10; "separate": K1 -> K7 -> K2);
         the mip path has one route.
+    :param edge_rows: also return each sample's edge rows of the
+        pre-antialias colour and of u, v, z (the band render's seam,
+        ``parallel.spatial``).
     :return: (idbuf (B*ph, pw) int32, aa (C, B*ph, pw) antialiased colour
         before the background composite), differentiable with respect to
-        ``pos_clip_b`` and ``tex``.
+        ``pos_clip_b`` and ``tex``; with ``edge_rows`` also the rows, as
+        :class:`RasterizeTextured` returns them.
     """
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; one of {list(ROUTES)}")
@@ -403,14 +312,13 @@ def rasterize_textured_sepaa_stacked(pos_clip_b: Tensor, faces: Tensor,
                                       face_neighbors, resolution,
                                       pair_cap or 0)
     with span("raster.fwd"):
+        sampler, sizes = route, None
         if enable_mip:
+            sampler = "mip"
             with span("raster.pyramid"):
-                pyramid, sizes = mip_pyramid(tex, max_mip_level)
-            return RasterizeMipSepaaStacked.apply(data_b, aux_b, pyramid,
-                                                  sizes, bins, ph, height,
-                                                  width)
-        return ROUTES[route].apply(data_b, aux_b, tex, bins, ph, height,
-                                   width)
+                tex, sizes = mip_pyramid(tex, max_mip_level)
+        return RasterizeTextured.apply(data_b, aux_b, tex, bins, ph, height,
+                                       width, sampler, sizes, edge_rows)
 
 
 # ----------------------------------------------------------------------------
@@ -566,7 +474,7 @@ class RasterizeKernel(torch.autograd.Function):
     uses it.
 
     ``apply(data_b, aux_b, bins, sample_ph, height, width)``: records and
-    bins as :class:`RasterizeTexturedSepaaStacked` takes them.
+    bins as :class:`RasterizeTextured` takes them.
 
     :return: (idbuf (rows, pw) int32, payload (14, rows, pw) [u v z tu tv
         x0 y0 x1 y1 x2 y2 n0 n1 n2]), padded; the cotangents of payload
@@ -586,8 +494,8 @@ class RasterizeKernel(torch.autograd.Function):
         with span("raster.bwd"):
             entry, payload, extra = ctx.saved_tensors
             g = g_payload.contiguous()
-            return (*_records_bwd(ctx, entry, payload, extra, g[3], g[4],
-                                  g[5:11], g[:3]),
+            return (*_records_bwd(ctx, entry, payload, extra, g[PAY_TU],
+                                  g[PAY_TV], g[PAY_CORNERS], g[PAY_UVZ]),
                     None, None, None, None)
 
 
@@ -626,8 +534,8 @@ def _rasterize_kernel(pos_clip: Tensor, faces: Tensor, uv, uv_idx,
     idbuf = idbuf_p[:height, :width]
     payload = payload_p[:, :height, :width]
     idf = torch.where(idbuf >= 0, (idbuf + 1).to(torch.float32), 0.0)
-    rast = torch.stack([payload[0], payload[1], payload[2], idf], dim=-1)
-    texc = torch.stack([payload[3], payload[4]], dim=-1)
+    rast = torch.stack([*payload[PAY_UVZ], idf], dim=-1)
+    texc = torch.stack([payload[PAY_TU], payload[PAY_TV]], dim=-1)
     return rast, texc, data_b[0], idbuf
 
 

@@ -11,12 +11,13 @@ antialias's own pair math (``ops.antialias._pair_blend``).
 
 On the kernel route a rank's samples render stacked at the band's size,
 through one K11, one K1 and one K2 for all of them (backward K3, K4, K5,
-K6), as the single-device step renders its batch: the band path inherits
-the single-device kernels. The band Functions of ``ops.rasterize`` also
-return each sample's first and last rows of the pre-antialias colour and
-of the payload's u, v, z, which the seam blends; their cotangents join the
-colour cotangent before K4 (K9) and reach K5. ``impl="scan"`` composes the
-primitives sample by sample, as the JAX package's non-fused branch does.
+K6), as the single-device step renders its batch: the band path is the
+single-device pass, ``ops.rasterize.rasterize_textured_sepaa_stacked``.
+With ``edge_rows`` that pass also returns each sample's first and last
+rows of the pre-antialias colour and of the payload's u, v, z, which the
+seam blends; their cotangents join the colour cotangent before K4 (K9) and
+reach K5. ``impl="scan"`` composes the primitives sample by sample, as the
+JAX package's non-fused branch does.
 """
 
 from __future__ import annotations
@@ -29,17 +30,12 @@ from fpc_diffrend_tpu_torch.models.camera import transform_clip
 from fpc_diffrend_tpu_torch.ops.antialias import _pair_blend, antialias
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (_screen_xy,
                                                             pad_resolution)
-from fpc_diffrend_tpu_torch.ops.interpolate import interpolate
 from fpc_diffrend_tpu_torch.ops.pipeline import (BACKGROUND,
-                                                 composite_stacked)
+                                                 composite_stacked,
+                                                 scan_colour)
 from fpc_diffrend_tpu_torch.ops.rasterize import (
-    RasterizeMipSepaaBand, RasterizeTexturedSepaaBand, bin_stacked,
-    check_impl, rasterize, rasterize_textured_sepaa_stacked,
-    rasterize_with_uv)
-from fpc_diffrend_tpu_torch.ops.texture import texture
-from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
+    check_impl, rasterize_textured_sepaa_stacked)
 from fpc_diffrend_tpu_torch.parallel.mesh import exchange
-from fpc_diffrend_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -114,25 +110,14 @@ def render_band_stacked(band_clip: Tensor, pos_idx: Tensor, uv: Tensor,
                                  enable_mip, max_mip_level, group if seam
                                  else None, aa_max_pairs)
     B = band_clip.shape[0]
+    out = rasterize_textured_sepaa_stacked(
+        band_clip, pos_idx, uv, uv_idx, tex, face_neighbors, (hb, w),
+        pair_cap=pair_cap, enable_mip=enable_mip,
+        max_mip_level=max_mip_level, edge_rows=seam)
     if not seam:
-        idbuf, aa = rasterize_textured_sepaa_stacked(
-            band_clip, pos_idx, uv, uv_idx, tex, face_neighbors, (hb, w),
-            pair_cap=pair_cap, enable_mip=enable_mip,
-            max_mip_level=max_mip_level)
-        return composite_stacked(idbuf, aa, B, (hb, w))
+        return composite_stacked(*out, B, (hb, w))
+    idbuf, aa, colour_rows, uvz_rows = out
     ph, pw = pad_resolution(hb, w)
-    data_b, aux_b, bins = bin_stacked(band_clip, pos_idx, uv, uv_idx,
-                                      face_neighbors, (hb, w), pair_cap or 0)
-    with span("raster.fwd"):
-        if enable_mip:
-            with span("raster.pyramid"):
-                pyramid, sizes = mip_pyramid(tex, max_mip_level)
-            idbuf, aa, colour_rows, uvz_rows = RasterizeMipSepaaBand.apply(
-                data_b, aux_b, pyramid, sizes, bins, ph, hb, w)
-        else:
-            idbuf, aa, colour_rows, uvz_rows = (
-                RasterizeTexturedSepaaBand.apply(data_b, aux_b, tex, bins,
-                                                 ph, hb, w))
     first = torch.arange(B, device=idbuf.device) * ph
     rows = torch.stack([first, first + hb - 1], 1).reshape(-1)
     ids = idbuf[rows].reshape(B, 2, pw)[..., :w]
@@ -158,18 +143,8 @@ def _render_band_scan(band_clip, pos_idx, uv, uv_idx, tex, band_resolution,
     hb, w = band_resolution
     colours, rasts = [], []
     for clip in band_clip:
-        if enable_mip:
-            rast, rast_db = rasterize(clip, pos_idx, (hb, w), impl="scan",
-                                      with_db=True)
-            texc, texd = interpolate(uv, rast, uv_idx, rast_db=rast_db,
-                                     diff_attrs="all")
-            colour = texture(tex, texc, uv_da=texd,
-                             filter_mode="linear-mipmap-linear",
-                             max_mip_level=max_mip_level)
-        else:
-            rast, texc = rasterize_with_uv(clip, pos_idx, uv, uv_idx,
-                                           (hb, w), impl="scan")
-            colour = texture(tex, texc, filter_mode="linear")
+        rast, colour = scan_colour(clip, pos_idx, uv, uv_idx, tex, (hb, w),
+                                   enable_mip, max_mip_level)
         colours.append(colour)
         rasts.append(rast)
     if group is not None:

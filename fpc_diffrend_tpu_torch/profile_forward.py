@@ -24,9 +24,10 @@ bench workload (``--mip``: its trilinear-mipmap variant), inside
   that span.
 
 The record goes to ``chiprun_out/profile_forward.json``
-(``profile_forward_mip.json`` with ``--mip``). ``forward_stages`` and
-``step_stages`` give the step's stages as functions to run one by one
-(``chip_smoke.py`` and ``chip_turns.py`` time them with CUDA events).
+(``profile_forward_mip.json`` with ``--mip``). The spans are the
+program's own, so the breakdown is of the very pass the fit runs;
+``chip_smoke.py`` reads the stages of one eager step the same way
+(:func:`traced`, :func:`span_device_us`).
 """
 
 from __future__ import annotations
@@ -38,186 +39,14 @@ import os
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fpc_diffrend_tpu_torch.fit import loop
-from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
-from fpc_diffrend_tpu_torch.fit import state as state_mod
-from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
-from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as tc
-from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-from fpc_diffrend_tpu_torch.ops.pipeline import composite_stacked
-from fpc_diffrend_tpu_torch.ops.rasterize import bin_stacked
-from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
+from fpc_diffrend_tpu_torch.ops.cuda import device_events
 from fpc_diffrend_tpu_torch.utils import profiling
 from fpc_diffrend_tpu_torch.workload import build_workload
 
 _ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-
-
-def device_kernels(prof):
-    """(name, self device ms, count) of device-side events, largest first;
-    annotations (``record_function`` ranges mirrored on the device, such as
-    ``Optimizer.step``) are spans over kernels, not work, and are left
-    out."""
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def forward_stages(wl: dict, state: dict):
-    """The slice's forward on the workload's first batch, as
-    [(stage name, fn)] in order: prologue, binning, K1, K2, composite +
-    loss; with ``enable_mip``, K1 without its texture tail, then the
-    pyramid build and K8 deriving the LOD before K2. Each fn reads its
-    inputs from ``state`` and writes its outputs there (pc, v3, data_s,
-    aux_s, bins, k1, pyr, lam, colour, aa, loss), so a stage can be rerun
-    alone."""
-    config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
-                                    wl["batch"])
-    H, W, B = wl["H"], wl["W"], wl["B"]
-    ph, pw = rc.pad_resolution(H, W)
-
-    def prologue():
-        state["pc"], state["v3"] = loop.sample_clip_positions(
-            config, scene, params, batch.cam_idx, batch.frame_idx)
-
-    def binning():
-        state["data_s"], state["aux_s"], state["bins"] = bin_stacked(
-            state["pc"], scene.faces, scene.uv, scene.uv_idx,
-            scene.face_neighbors, config.resolution, config.pair_cap)
-
-    mip = config.enable_mip
-
-    def k1():
-        state["k1"] = rc.fused_raster(state["bins"],
-                                      None if mip else params["tex"],
-                                      B * ph, pw)
-        state["colour"] = state["k1"][4]
-
-    def pyramid():
-        state["pyr"] = mip_pyramid(params["tex"], config.max_mip_level)
-
-    def k8():
-        idbuf, _, payload, _, _ = state["k1"]
-        pyr, sizes = state["pyr"]
-        state["colour"], state["lam"] = tmc.mip_sample_lod(
-            pyr.detach(), sizes, payload[3], payload[4], idbuf, H, W, ph)
-
-    def k2():
-        idbuf, _, payload, _, _ = state["k1"]
-        state["aa"] = ac.antialias_planes(idbuf, payload, state["colour"], H,
-                                          W, ph)
-
-    def tail():
-        imgs = composite_stacked(state["k1"][0], state["aa"], B, (H, W))
-        state["loss"] = loop.loss_from_render(config, scene, params, batch,
-                                              imgs, state["v3"])[0]
-
-    raster = [("prologue", prologue), ("binning", binning),
-              ("K1 fused_raster", k1)]
-    if mip:
-        raster += [("mip pyramid", pyramid), ("K8 mip_sample_lod", k8)]
-    return raster + [("K2 antialias", k2), ("composite+loss", tail)]
-
-
-def step_stages(wl: dict, state: dict):
-    """One fit step on the workload's first batch, stage by stage, as
-    [(stage name, fn)]: the forward stages (run with gradients), the loss's
-    backward to the antialiased planes, K3, K4 (K9 on the mip path), K5,
-    K6, the backward of the setup chain (shift, setup, clip, pose, blend)
-    into the parameters, on the mip path the pyramid's backward into the
-    texture, and Adam with the quaternion renorm. Each fn reads and writes
-    ``state`` like :func:`forward_stages`; the setup chain and the pyramid
-    keep their graphs, so any stage but Adam can be rerun. Gradients
-    accumulate across reruns."""
-    config, scene, params, batch = (wl["config"], wl["scene"], wl["params"],
-                                    wl["batch"])
-    H, W, B = wl["H"], wl["W"], wl["B"]
-    T = scene.faces.shape[0]
-    ph, _ = rc.pad_resolution(H, W)
-    for p in params.values():
-        p.requires_grad_(True)
-    fwd = forward_stages(wl, state)[:-1]
-
-    def tail():
-        aa = state["aa"].detach().requires_grad_(True)
-        imgs = composite_stacked(state["k1"][0], aa, B, (H, W))
-        loss = loop.loss_from_render(config, scene, params, batch, imgs,
-                                     state["v3"])[0]
-        state["loss"] = loss.detach()
-        state["g_aa"], = torch.autograd.grad(loss, aa)
-
-    def k3():
-        idbuf, _, payload, _, _ = state["k1"]
-        state["k3"] = ac.antialias_planes_bwd(idbuf, payload, state["colour"],
-                                              state["g_aa"], H, W, ph)
-
-    def k4():
-        payload = state["k1"][2]
-        gcolour, gverts = state["k3"]
-        gtex, gtu, gtv = tc.texture_planes_bwd(params["tex"].detach(),
-                                               payload[3], payload[4],
-                                               gcolour)
-        state["gtex"] = gtex
-        state["gpl"] = torch.cat([torch.zeros((3,) + gtu.shape,
-                                              device=gtu.device),
-                                  gtu[None], gtv[None], gverts])
-
-    def k9():
-        payload = state["k1"][2]
-        gcolour, gverts = state["k3"]
-        pyr, sizes = state["pyr"]
-        gpyr, gtu, gtv = tmc.mip_sample_bwd(pyr.detach(), sizes, payload[3],
-                                            payload[4], state["lam"],
-                                            gcolour)
-        state["gpyr"] = gpyr
-        state["gpl"] = torch.cat([torch.zeros((3,) + gtu.shape,
-                                              device=gtu.device),
-                                  gtu[None], gtv[None], gverts])
-
-    def pyramid_bwd():
-        torch.autograd.backward(state["pyr"][0], state["gpyr"],
-                                retain_graph=True)
-
-    def k5():
-        _, entry, payload, extra, _ = state["k1"]
-        state["k5"] = gc.pixel_grad(state["bins"], entry, payload[0],
-                                    payload[1], extra, state["gpl"])
-
-    def k6():
-        state["k6"] = gc.fold_entries(*state["k5"], state["bins"], B * T)
-
-    def setup_bwd():
-        g = state["k6"]
-        torch.autograd.backward(
-            [state["data_s"], state["aux_s"]],
-            [g[:, :16].reshape(B, T, 16), g[:, 16:].reshape(B, T, 16)],
-            retain_graph=True)
-        if not config.enable_mip:
-            tex = params["tex"]
-            tex.grad = state["gtex"] if tex.grad is None else (
-                tex.grad + state["gtex"])
-
-    def adam():
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        state_mod.optimizer_step(config, wl["state"])
-
-    if config.enable_mip:
-        return fwd + [("composite+loss fwd+bwd", tail),
-                      ("K3 antialias_bwd", k3), ("K9 mip_sample_bwd", k9),
-                      ("K5 pixel_grad", k5), ("K6 fold_entries", k6),
-                      ("setup chain bwd", setup_bwd),
-                      ("mip pyramid bwd", pyramid_bwd), ("Adam", adam)]
-    return fwd + [("composite+loss fwd+bwd", tail), ("K3 antialias_bwd", k3),
-                  ("K4 texture_bwd", k4), ("K5 pixel_grad", k5),
-                  ("K6 fold_entries", k6), ("setup chain bwd", setup_bwd),
-                  ("Adam", adam)]
 
 
 def span_device_us(trace_path: str) -> dict:
@@ -251,7 +80,7 @@ def span_device_us(trace_path: str) -> dict:
             for name, ivs in spans.items()}
 
 
-def _traced(fn, trace_path: str):
+def traced(fn, trace_path: str):
     """(wall ms, device kernels, span name -> device us) of fn() under the
     profiler; its Chrome trace is written to ``trace_path`` and removed."""
     with profile(activities=_ACTIVITIES) as prof:
@@ -261,7 +90,7 @@ def _traced(fn, trace_path: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(trace_path)
     try:
-        return wall_ms, device_kernels(prof), span_device_us(trace_path)
+        return wall_ms, device_events(prof), span_device_us(trace_path)
     finally:
         os.remove(trace_path)
 
@@ -299,7 +128,7 @@ def main() -> None:
         fn()                                            # warm-up
         torch.cuda.synchronize()
         with profiling.recording() as log:
-            wall_ms, kernels, span_us = _traced(
+            wall_ms, kernels, span_us = traced(
                 fn, os.path.join(out, f"{stem}.{name}.trace.json"))
         busy_ms = sum(r[1] for r in kernels)
         spans = {k: {"count": c, "host_ms": 1e3 * t / n,

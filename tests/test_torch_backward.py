@@ -39,7 +39,7 @@ from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as tac
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as tgc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
-from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTexturedSepaaStacked
+from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTextured
 from fpc_diffrend_tpu_torch.ops.texture import bilinear
 
 from _torch_scenes import (clip_batch, close_to_max, quads_scene,
@@ -267,8 +267,7 @@ def test_function_backward_matches_autograd_of_plain_forward(rng, B, H, W):
         d, a, t = (x.detach().clone().requires_grad_(True)
                    for x in (s["data_b"], s["aux_b"], s["tex"]))
         if use_function:
-            idbuf, aa = RasterizeTexturedSepaaStacked.apply(d, a, t, bins,
-                                                            ph, H, W)
+            idbuf, aa = RasterizeTextured.apply(d, a, t, bins, ph, H, W)
             assert torch.equal(idbuf, s["k1"][0])
         else:
             aa = reference_forward(
@@ -293,7 +292,7 @@ def test_function_texture_gradient_matches_finite_differences(rng):
         np.float32))
 
     def loss(tex):
-        _, aa = RasterizeTexturedSepaaStacked.apply(
+        _, aa = RasterizeTextured.apply(
             s["data_b"].detach(), s["aux_b"].detach(), tex, s["bins"],
             s["ph"], H, W)
         return (aa.double() * R.double()).sum()

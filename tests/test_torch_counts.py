@@ -217,15 +217,12 @@ def test_kernel_pairs_time_one_set_of_inputs():
     compute the clamp mode's functions."""
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, device="cpu")
     H, W, B = wl["H"], wl["W"], wl["B"]
     ph, pw = rc.pad_resolution(H, W)
-    state = {}
-    for _, fn in step_stages(wl, state):
-        fn()
+    state = cs.step_inputs(wl)
     with torch.no_grad():
         tex = wl["params"]["tex"].detach()
         k1 = rc.fused_raster(state["bins"], tex, B * ph, pw)
@@ -396,16 +393,13 @@ def test_mip_kernel_pairs_time_one_set_of_inputs():
     version there; K8's LOD is the step's."""
     from fpc_diffrend_tpu_torch.ops import texture_mip as tm
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, mip=True,
                         device="cpu")
     H, W = wl["H"], wl["W"]
     ph, _ = rc.pad_resolution(H, W)
-    state = {}
-    for _, fn in step_stages(wl, state):
-        fn()
+    state = cs.step_inputs(wl)
     with torch.no_grad():
         tex = wl["params"]["tex"].detach()
         pairs, (pyr, sizes, lam) = cs.mip_kernel_pairs(
@@ -553,15 +547,12 @@ def test_view_place_pairs_time_one_set_of_inputs():
     planes, and K11 at the step's batch and cap equals its plain version;
     ``bin_sizes`` counts the live slots of each tile."""
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
     from fpc_diffrend_tpu_torch.workload import build_workload
 
     wl = build_workload(48, 128, grid=5, batch=2, tex_size=64, device="cpu")
     H, W, B = wl["H"], wl["W"], wl["B"]
     ph, _ = rc.pad_resolution(H, W)
-    state = {}
-    for _, fn in step_stages(wl, state):
-        fn()
+    state = cs.step_inputs(wl)
     with torch.no_grad():
         tex = wl["params"]["tex"].detach()
         tile_ids, n_tiles = rc.pair_tile_ids(state["pc"].detach(),

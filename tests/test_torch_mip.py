@@ -50,7 +50,7 @@ from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as tgc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
 from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeMipSepaaStacked
+from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTextured
 from fpc_diffrend_tpu_torch.utils import profiling
 from fpc_diffrend_tpu_torch.workload import build_workload
 
@@ -265,8 +265,9 @@ def test_mip_function_derives_the_lod_in_k8(rng):
     tex = torch.as_tensor(rng.uniform(size=(64, 128, 1)).astype(np.float32))
     pyr, sizes = tmip.mip_pyramid(tex, 6)
     with profiling.recording() as log:
-        _, aa = RasterizeMipSepaaStacked.apply(
-            data_b.requires_grad_(True), aux_b, pyr, sizes, bins, ph, Hs, Ws)
+        _, aa = RasterizeTextured.apply(
+            data_b.requires_grad_(True), aux_b, pyr, bins, ph, Hs, Ws, "mip",
+            sizes)
     idbuf, _, payload, _, colour, _, lam = aa.grad_fn.saved_tensors
     rows, pw = idbuf.shape
     ids = idbuf.numpy()
@@ -304,8 +305,8 @@ def test_mip_function_backward_matches_autograd_of_plain_forward(rng):
                     for x in (data_b, aux_b, tex))
         pyr, sizes = tmip.mip_pyramid(tx, 6)
         if use_function:
-            idbuf, aa = RasterizeMipSepaaStacked.apply(d, a, pyr, sizes, bins,
-                                                       ph, Hs, Ws)
+            idbuf, aa = RasterizeTextured.apply(d, a, pyr, bins, ph, Hs, Ws,
+                                                "mip", sizes)
             assert torch.equal(idbuf, k1[0])
         else:
             aa = reference_forward(

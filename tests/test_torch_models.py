@@ -186,8 +186,9 @@ ADDED = {
     "ops.pipeline.render": ("route", "device"),
     "ops.pipeline.render_from_clip": ("route",),
     "ops.pipeline.render_batch_stacked": ("enable_mip", "max_mip_level"),
+    # edge_rows: the band render's seam rows (parallel.spatial)
     "ops.rasterize.rasterize_pallas_textured_sepaa_stacked": (
-        "enable_mip", "max_mip_level", "route"),
+        "enable_mip", "max_mip_level", "route", "edge_rows"),
     "parallel.multihost.initialize": ("backend",),
     "parallel.multihost.make_pod_mesh": ("device_type",),
     "parallel.spatial.band_window_matrix": ("device",),

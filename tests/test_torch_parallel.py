@@ -13,8 +13,10 @@ Tolerances (JAX's own, ``tests/test_parallel.py``):
   route (autograd of the plain primitives and of the antialias's and the
   seam's pair math; the sampler's backward is K4's plain version): each
   gradient within 1e-4 of its largest magnitude;
-* the band Functions' backward against autograd of the plain forward,
-  1e-5 of the largest value (``tests/test_torch_backward.py``'s).
+* the band pass's backward (``RasterizeTextured`` with its edge rows)
+  against autograd of the plain forward, 1e-5 of the largest value
+  (``tests/test_torch_backward.py``'s); the pass with its edge rows
+  against the pass without them, bit for bit.
 """
 
 import dataclasses
@@ -336,7 +338,7 @@ def test_band_seam_blends_across_ranks(world, task, impl):
 
 @pytest.mark.parametrize("mip", [False, True])
 def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
-    """The band Functions' extra outputs (each sample's first and last
+    """The pass's edge rows (``edge_rows``: each sample's first and last
     rows of the pre-antialias colour and of u, v, z) carry their
     cotangents into K4 (K9) and K5: the Function's gradients equal
     autograd of the plain forward with the same rows read from it."""
@@ -359,12 +361,10 @@ def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
     for use_function in (True, False):
         d, a, x = (v.detach().clone().requires_grad_(True)
                    for v in (data_b, aux_b, pyramid if mip else t["tex"]))
-        if use_function and mip:
-            _, aa, crow, uvz = trast.RasterizeMipSepaaBand.apply(
-                d, a, x, sizes, bins, ph, H, W)
-        elif use_function:
-            _, aa, crow, uvz = trast.RasterizeTexturedSepaaBand.apply(
-                d, a, x, bins, ph, H, W)
+        if use_function:
+            _, aa, crow, uvz = trast.RasterizeTextured.apply(
+                d, a, x, bins, ph, H, W, "mip" if mip else "sepaa",
+                sizes if mip else None, True)
         else:
             planes = {}
 
@@ -401,6 +401,38 @@ def test_band_function_backward_matches_autograd_of_plain_forward(rng, mip):
         close_to_max(got.numpy(), want.numpy(), 1e-5)
     # the edge rows' u, v, z cotangents reach the records through K5
     assert float(grads[0][0][..., 9:12].abs().max()) > 0
+
+
+@pytest.mark.parametrize("mip", [False, True])
+def test_edge_rows_leave_the_pass_unchanged(rng, mip):
+    """The pass with its edge rows on gives the ids and the antialiased
+    colour of the pass without them bit for bit, and, with zero
+    cotangents of the rows, the same gradients into the records and the
+    texture (the pyramid) bit for bit."""
+    B, H, W = 2, 40, 100
+    verts, faces, uv, fn = quads_scene(rng)
+    t = {k: torch.as_tensor(v) for k, v in dict(
+        pc=clip_batch(verts, rng, B), faces=faces, uv=uv * 4.0, fn=fn,
+        tex=rng.uniform(size=(64, 64, 2)).astype(np.float32)).items()}
+    data_b, aux_b, bins = trast.bin_stacked(t["pc"], t["faces"], t["uv"],
+                                            t["faces"], t["fn"], (H, W))
+    ph, pw = tr.pad_resolution(H, W)
+    x0, sizes = mip_pyramid(t["tex"], 6) if mip else (t["tex"], None)
+    R = torch.as_tensor(rng.normal(size=(2, B * ph, pw)).astype(np.float32))
+    outs = []
+    for edge_rows in (False, True):
+        d, a, x = (v.detach().clone().requires_grad_(True)
+                   for v in (data_b, aux_b, x0))
+        idbuf, aa, *rows = trast.RasterizeTextured.apply(
+            d, a, x, bins, ph, H, W, "mip" if mip else "sepaa", sizes,
+            edge_rows)
+        assert len(rows) == (2 if edge_rows else 0)
+        loss = (aa * R).sum() + sum((r * 0.0).sum() for r in rows)
+        loss.backward()
+        outs.append((idbuf, aa.detach(), d.grad, a.grad, x.grad))
+    assert float(outs[0][3][..., 6:12].abs().max()) > 0  # screen corners
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 def test_mesh_helpers_and_collectives(world):

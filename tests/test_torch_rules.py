@@ -224,7 +224,7 @@ def test_kernels_match_plain_versions_on_the_card(card):
     from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as ac
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.rasterize import (
-        RasterizeTexturedSepaaStacked, bin_stacked)
+        RasterizeTextured, bin_stacked)
     from fpc_diffrend_tpu_torch.fit import loop
 
     for grid in (20, 4):     # binned triangles; the global list
@@ -249,7 +249,7 @@ def test_kernels_match_plain_versions_on_the_card(card):
     # a gradient through K1 and K2 runs K3-K6
     d, a, tex = (x.detach().clone().requires_grad_(True)
                  for x in (data_b, aux_b, p["tex"]))
-    _, aa = RasterizeTexturedSepaaStacked.apply(d, a, tex, bins, ph, 96, 200)
+    _, aa = RasterizeTextured.apply(d, a, tex, bins, ph, 96, 200)
     aa.sum().backward()
     for g in (d.grad, a.grad, tex.grad):
         assert bool(torch.isfinite(g).all()) and bool(g.any())
@@ -517,16 +517,13 @@ def test_mip_lod_in_k8_matches_torch_passes_on_the_card(card):
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
     from fpc_diffrend_tpu_torch.ops.texture_mip import mip_pyramid
-    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
 
     gen = torch.Generator(device=card)
     gen.manual_seed(5)
     errs = chip_smoke.check_mip_lod(card, gen)
     assert set(errs) == set(chip_smoke.MIP_LOD_CASES)
     wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
-    state = {}
-    for _, fn in forward_stages(wl, state)[:2]:      # prologue, binning
-        fn()
+    state = chip_smoke.step_inputs(wl, backward=False)
     ph, pw = rc.pad_resolution(96, 200)
     k1 = rc.fused_raster(state["bins"], None, 2 * ph, pw)
     pyr, sizes = mip_pyramid(wl["params"]["tex"].detach(), 6)
@@ -547,12 +544,9 @@ def test_mip_kernels_on_rendered_uv_on_the_card(card):
     random LOD past both clamps, each launched once a call."""
     from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
     from fpc_diffrend_tpu_torch.ops.cuda import texture_mip_cuda as tmc
-    from fpc_diffrend_tpu_torch.profile_forward import forward_stages
 
     wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
-    state = {}
-    for _, fn in forward_stages(wl, state)[:2]:      # prologue, binning
-        fn()
+    state = chip_smoke.step_inputs(wl, backward=False)
     ph, pw = rc.pad_resolution(96, 200)
     tex = wl["params"]["tex"].detach()
     k1 = rc.fused_raster(state["bins"], tex, 2 * ph, pw)
@@ -606,12 +600,8 @@ def test_precision_variants_match_plain_versions_on_the_card(card, variant):
     """K5 "fast", K4 "fast" and "fast2" (wrap and clamp) on a small step's
     inputs against their plain versions at chip_smoke's limits, each
     unlike the exact kernel's output (``chip_smoke.check_precision``)."""
-    from fpc_diffrend_tpu_torch.profile_forward import step_stages
-
     wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
-    state = {}
-    for _, fn in step_stages(wl, state):
-        fn()
+    state = chip_smoke.step_inputs(wl)
     tex = wl["params"]["tex"].detach()
     args = (tex, state["k1"], state["k3"][0], state["bins"], state["gpl"])
     pairs = chip_smoke.precision_pairs(*args)

@@ -78,8 +78,8 @@ def left_out(reason):
     return Row("left_out", (), reason)
 
 
-_STACKED_ROUTES = ("ops.rasterize.RasterizeTexturedSepaaStacked",
-                   "ops.rasterize.ROUTES")
+_STACKED_ROUTES = ("ops.rasterize.RasterizeTextured",
+                   "ops.rasterize.SAMPLERS")
 _VMEM = ("the TPU kernel keeps the texture resident in VMEM and falls back "
          "to the XLA sampler past its limit; the CUDA sampler reads the "
          "texture from global memory at any size, so there is no limit")
@@ -102,17 +102,15 @@ SURFACE = {
         *_STACKED_ROUTES),
     "ops.rasterize.rasterize_texture_aa_fused": absorbed(
         "the \"aa_fused\" route: K10, K1 and K2 from one entry point",
-        "ops.rasterize.RasterizeTexturedAaFused", "ops.rasterize.ROUTES"),
+        *_STACKED_ROUTES),
     "ops.rasterize.rasterize_texture_sepaa": absorbed(
         "the single view is the stacked Function at B = 1",
         *_STACKED_ROUTES),
     "ops.rasterize.rasterize_texture_sepaa_stacked": absorbed(
         "the stacked Function takes each sample's own records and bins, "
         "without "
-        "JAX's interpret and pair_cap arguments; the mip path is its own "
-        "Function",
-        "ops.rasterize.RasterizeTexturedSepaaStacked",
-        "ops.rasterize.RasterizeMipSepaaStacked"),
+        "JAX's interpret and pair_cap arguments; the mip path is its "
+        "sampler \"mip\"", *_STACKED_ROUTES),
     # ----------------------------------------------------- ops.pipeline
     "ops.pipeline.stacked_batch_eligible": left_out(
         "the port renders every kernel-route batch stacked, the mip path "
@@ -176,18 +174,18 @@ SURFACE = {
         "the colour and corner cotangents",
         "ops.cuda.antialias_cuda.antialias_planes_bwd"),
     "ops.pallas.antialias_tpu.aa_planes_bwd_from_packed": absorbed(
-        "the custom-VJP shape of the same backward; the Functions of "
-        "ops.rasterize route K3's corner cotangents to K5 themselves",
+        "the custom-VJP shape of the same backward; the textured pass of "
+        "ops.rasterize routes K3's corner cotangents to K5 itself",
         "ops.cuda.antialias_cuda.antialias_planes_bwd"),
     "ops.pallas.antialias_tpu.antialias_planes_pallas": absorbed(
-        "K2 on K1's planes, K3 in the render Functions' backward",
+        "K2 on K1's planes, K3 in the textured pass's backward",
         "ops.cuda.antialias_cuda.antialias_planes",
-        "ops.rasterize.RasterizeTexturedSepaaStacked"),
+        "ops.rasterize.RasterizeTextured"),
     "ops.pallas.antialias_tpu.antialias_payload_pallas": absorbed(
         "JAX's single-view mip path antialiases an image-layout colour; "
-        "the port's mip path runs K2 on the planes inside its Function",
-        "ops.cuda.antialias_cuda.antialias_planes",
-        "ops.rasterize.RasterizeMipSepaaStacked"),
+        "the port's mip path runs K2 on the planes inside the textured "
+        "pass", "ops.cuda.antialias_cuda.antialias_planes",
+        "ops.rasterize.RasterizeTextured"),
     # --------------------------------------------- ops.pallas.texture_tpu
     "ops.pallas.texture_tpu.extended_shape": left_out(_VMEM),
     "ops.pallas.texture_tpu.resident_bytes": left_out(_VMEM),

@@ -124,7 +124,8 @@ Phases, each fatal on failure:
    first under sync-debug "error"), each of K11, K1, K7, K2 launched once
    a forward and K3-K6 once a backward; held to ``render(route=
    "separate")`` within JAX's limits between two renderers, K5 on the
-   composition's cotangents and K2/K3 on the gathered planes against
+   composition's cotangents (its instance that reads u, v, z:
+   ``k5.uvz_skipped`` 0) and K2/K3 on the gathered planes against
    their plain versions; ms per view beside the "separate" route, for
    information. Then the scan route at mid size (phase 3's B = 1 slice):
    the visibility scan's ids against K1's, the route on the card against
@@ -182,7 +183,16 @@ Phases, each fatal on failure:
    which ``chip_turns.py`` times too: the pixels of each level, those that
    blend a second one, the live pixels and those at uv (0, 0), the
    distinct texels of each level, the reductions K9's design issues, and
-   K9's time with its reductions left out);
+   K9's time with its reductions left out); K5 in both its instances at
+   the bench batch (without u, v, z planes, as the backward runs it, and
+   with them on zero planes), each by events and device time beside its
+   bound (76 and 88 bytes a covered pixel);
+6b. K5 at the b36 cells' batch (B = 36, bilinear and mip) on one step's
+   own inputs (``k5_instances``): the instance without u, v, z planes
+   against the one fed zero planes, exact and fast, bit for bit where K5
+   repeats itself bit for bit and within ``ATOMIC_RTOL`` always, and
+   ``k5.uvz_skipped`` of one recorded eager step over its stacked pixels
+   (1.0);
 7. one bench step's forward and backward three times from the same state
    on the same batch: every parameter gradient must spread by at most
    ``GRAD_SPREAD_RTOL`` of its largest magnitude (the atomic sums' order:
@@ -376,11 +386,12 @@ def step_inputs(wl, backward: bool = True) -> dict:
     cotangent of the program's own pass's antialiased output
     (``rasterize_textured_sepaa_stacked``) from the step's loss
     (``torch.autograd.grad``), then K3 on it (on K8's colour on the mip
-    path), K4 (K9) and K5 on their outputs with zero u, v, z cotangents.
+    path), K4 (K9) and K5 on their outputs with no u, v, z cotangent, as
+    the backward runs it.
 
     :return: {"pc", "data_s", "aux_s" (the records), "bins", "k1"; with
-        ``backward`` also "g_aa", "k3" (gcolour, gverts), "gpl" (K5's 11
-        cotangent planes), "k5"}.
+        ``backward`` also "g_aa", "k3" (gcolour, gverts), "k5_cot" (K5's
+        cotangent arguments (gtu, gtv, gcorners, guvz), guvz None), "k5"}.
     """
     import torch
 
@@ -430,10 +441,18 @@ def step_inputs(wl, backward: bool = True) -> dict:
         k3 = ac.antialias_planes_bwd(idbuf, payload, colour, g_aa, H, W, ph)
         _, gtu, gtv = (tmc.mip_sample_bwd(pyr, sizes, tu, tv, lam, k3[0])
                        if mip else tc.texture_planes_bwd(tex, tu, tv, k3[0]))
-        gpl = torch.cat([torch.zeros((3,) + gtu.shape, device=gtu.device),
-                         gtu[None], gtv[None], k3[1]])
-        k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
-    return dict(out, g_aa=g_aa, k3=k3, gpl=gpl, k5=k5)
+        cot = (gtu, gtv, k3[1], None)
+        k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, *cot)
+    return dict(out, g_aa=g_aa, k3=k3, k5_cot=cot, k5=k5)
+
+
+def k5_planes(gpl):
+    """K5's cotangent arguments (gtu, gtv, gcorners, guvz) as views of
+    one (11, rows, pw) stack ``gpl`` of payload cotangents in the payload's
+    order (``rasterize_cuda.PAY_*``)."""
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+
+    return gpl[rc.PAY_TU], gpl[rc.PAY_TV], gpl[rc.PAY_CORNERS], gpl[rc.PAY_UVZ]
 
 
 def step_span_ms(config, scene, state, batch) -> dict:
@@ -564,35 +583,135 @@ def atomic_err(a, b, mag) -> float:
     return float((d / mag.double().clamp_min(1e-30)).max())
 
 
-def k5_magnitudes(bins, entry, u, v, extra, gpl):
-    """K5's rows summed over |coefficient| (the plain version's sums)."""
+def k5_instances(dev, mip: bool) -> dict:
+    """K5 at the b36 cells' batch (B = 36 at 1600x1200, bilinear or mip)
+    on one step's own inputs (:func:`step_inputs`), its two instances
+    against each other (:func:`check_k5_instances`), and
+    ``k5.uvz_skipped`` over the stacked pixels of one recorded eager step
+    (``fit.loop.train_step``): 1.0, else fails.
+
+    :return: {"uvz_skipped_share", "exact", "fast"}.
+    """
+    import torch
+
+    from fpc_diffrend_tpu_torch.fit import loop
+    from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as rc
+    from fpc_diffrend_tpu_torch.utils.profiling import recording
+    from fpc_diffrend_tpu_torch.workload import build_workload
+
+    label = "B = 36, mip" if mip else "B = 36"
+    wl = build_workload(batch=36, mip=mip, device=dev)
+    ph, pw = rc.pad_resolution(wl["H"], wl["W"])
+    with recording() as log:
+        loop.train_step(wl["config"], wl["scene"], wl["state"], wl["batch"])
+        torch.cuda.synchronize()
+    share = log.counters.get("k5.uvz_skipped", 0) / (wl["B"] * ph * pw)
+    if share != 1.0:
+        fail(f"{label}: k5.uvz_skipped reads {share} of the stacked pixels")
+    out = check_k5_instances(step_inputs(wl), label)
+    return dict(out, uvz_skipped_share=share)
+
+
+def check_k5_instances(state, label, plain=False) -> dict:
+    """K5's instance that the backward runs, which reads no u, v, z plane,
+    against the instance fed zero planes, which reads them as the backward
+    staged them before K5 read its planes in place, on one step's inputs
+    (:func:`step_inputs` ``state``), exact and fast, three calls of each:
+    some call of one bit for bit some call of the other wherever a call
+    repeats another of its instance bit for bit, and within
+    ``ATOMIC_RTOL`` of the summed magnitudes always (its atomics may add
+    in another order from call to call); with ``plain`` also against its
+    plain version within ``ATOMIC_RTOL``. Fails otherwise.
+
+    :return: {"exact", "fast": {"bit_equal", "repeat_bit_equal", "rel",
+        "repeat_rel"[, "plain_rel"]}}.
+    """
     import torch
 
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 
-    rows, pw = entry.shape
-    x = torch.arange(pw, device=entry.device) + 0.5
-    y = (torch.arange(rows, device=entry.device) + 0.5)[:, None]
-    coeff = gc.coefficient_planes(u, v, extra, gpl, x, y).abs()
-    coeff = coeff.reshape(coeff.shape[0], -1).T
-    e = entry.reshape(-1).long()
-    ent = torch.zeros((bins.gbase, coeff.shape[1]), device=entry.device)
-    glob = torch.zeros((gc.MAX_GLOBAL, coeff.shape[1]), device=entry.device)
-    binned = (e >= 0) & (e < bins.gbase)
-    ent.index_add_(0, e[binned], coeff[binned])
-    ge = e >= bins.gbase
-    glob.index_add_(0, e[ge] - bins.gbase, coeff[ge])
+    bins = state["bins"]
+    _, entry, payload, extra, _ = state["k1"]
+    args = (bins, entry, payload[0], payload[1], extra,
+            *state["k5_cot"][:3])
+    zeros = torch.zeros((gc.N_UVZ,) + tuple(entry.shape),
+                        device=entry.device)
+    live = int(bins.bin_start[-1])
+
+    def same(a, b):
+        return torch.equal(a[0][:live], b[0][:live]) and torch.equal(a[1],
+                                                                     b[1])
+
+    def rel(a, b):
+        return max(atomic_err(a[0][:live], b[0][:live], mag[0][:live]),
+                   atomic_err(a[1], b[1], mag[1]))
+
+    out = {}
+    with torch.no_grad():
+        mag = k5_magnitudes(*args)
+        for fast in (False, True):
+            runs = [(gc.pixel_grad(*args, None, fast),
+                     gc.pixel_grad(*args, zeros, fast)) for _ in range(3)]
+            torch.cuda.synchronize()
+            skips, feds = zip(*runs)
+            m = {"bit_equal": any(same(a, b) for a in skips for b in feds),
+                 "repeat_bit_equal": any(
+                     same(calls[i], calls[j]) for calls in (skips, feds)
+                     for i in range(3) for j in range(i)),
+                 "rel": max(rel(a, b) for a, b in runs),
+                 "repeat_rel": max(rel(skips[0], a) for a in skips[1:])}
+            if plain:
+                m["plain_rel"] = rel(skips[0], gc.pixel_grad_plain(
+                    *args, None, fast))
+            out["fast" if fast else "exact"] = m
+    print(f"K5 at {label}: without u, v, z planes against zero planes "
+          f"read, {live} live rows: {out} (limit {ATOMIC_RTOL})", flush=True)
+    if any(max(m["rel"], m.get("plain_rel", 0.0)) > ATOMIC_RTOL
+           or (m["repeat_bit_equal"] and not m["bit_equal"])
+           for m in out.values()):
+        fail(f"{label}: K5 without u, v, z planes differs from K5 on zero "
+             f"planes or from its plain version: {out}")
+    return out
+
+
+def k5_magnitudes(bins, entry, u, v, extra, gtu, gtv, gcorners,
+                  guvz=None):
+    """K5's rows summed over |coefficient| (the plain version's sums), on
+    K5's arguments; a sample at a time, so that a batch of 36 fits."""
+    import torch
+
+    from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
+
+    dev = entry.device
+    ph, pw = bins.sample_ph, entry.shape[1]
+    x = torch.arange(pw, device=dev) + 0.5
+    y = (torch.arange(ph, device=dev) + 0.5)[:, None]
+    ent = torch.zeros((bins.gbase, gc.REC), device=dev)
+    glob = torch.zeros((gc.MAX_GLOBAL, gc.REC), device=dev)
+    for r in range(0, entry.shape[0], ph):
+        rows = slice(r, r + ph)
+        coeff = gc.coefficient_planes(
+            u[rows], v[rows], extra[:, rows], gtu[rows], gtv[rows],
+            gcorners[:, rows], None if guvz is None else guvz[:, rows], x,
+            y).abs()
+        coeff = coeff.reshape(coeff.shape[0], -1).T
+        e = entry[rows].reshape(-1).long()
+        binned = (e >= 0) & (e < bins.gbase)
+        ent.index_add_(0, e[binned], coeff[binned])
+        ge = e >= bins.gbase
+        glob.index_add_(0, e[ge] - bins.gbase, coeff[ge])
     return ent, glob
 
 
-def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
+def check_backward(k1, bins, tex, g_aa, guvz, height, width, sample_ph,
                    n_tris, label):
     """K3-K6 against their plain versions on the same inputs.
 
     :param k1: K1's outputs; g_aa: (C, rows, pw) cotangent of K2's output;
-    gtuv: (3, rows, pw) cotangents of payload u, v, z for K5 (zero on the
-    main path). :return: (the checked errors, kernel name -> max abs
-    error over its outputs, the kernels' outputs).
+    guvz: (3, rows, pw) cotangents of payload u, v, z for K5, or None (the
+    main path: K5's instance that reads none). :return: (the checked
+    errors, kernel name -> max abs error over its outputs, the kernels'
+    outputs and K5's cotangent arguments).
     """
     import torch
 
@@ -622,11 +741,12 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
     if not (max(errs["K4 gtu"], errs["K4 gtv"]) <= K4_ATOL
             and errs["K4 gtex rel"] <= K4_GTEX_RTOL):
         fail(f"{label}: K4 differs from the plain version: {errs}")
-    gpl = torch.cat([gtuv, k4[1][None], k4[2][None], gverts])
-    k5 = gc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    args5 = (bins, entry, payload[0], payload[1], extra, k4[1], k4[2],
+             gverts, guvz)
+    k5 = gc.pixel_grad(*args5)
     torch.cuda.synchronize()
-    p5 = gc.pixel_grad_plain(bins, entry, payload[0], payload[1], extra, gpl)
-    m5 = k5_magnitudes(bins, entry, payload[0], payload[1], extra, gpl)
+    p5 = gc.pixel_grad_plain(*args5)
+    m5 = k5_magnitudes(*args5)
     live = int(bins.bin_start[-1])
     errs.update({
         "K5 entries rel": atomic_err(k5[0][:live], p5[0][:live],
@@ -645,7 +765,7 @@ def check_backward(k1, bins, tex, g_aa, gtuv, height, width, sample_ph,
         "pixel_grad": max(max_err(k5[0][:live], p5[0][:live]),
                           max_err(k5[1], p5[1])),
         "fold_entries": 0.0}
-    return errs, abs_errs, (k3, k4, k5, k6, gpl)
+    return errs, abs_errs, (k3, k4, k5, k6, args5[5:])
 
 
 def check_fold(k5, bins, n_tris, label):
@@ -1896,6 +2016,7 @@ def primitive_views(wl, counters, gen):
     from fpc_diffrend_tpu_torch.ops.interpolate import interpolate
     from fpc_diffrend_tpu_torch.ops.pipeline import BACKGROUND, render
     from fpc_diffrend_tpu_torch.ops.texture import texture
+    from fpc_diffrend_tpu_torch.utils import profiling
 
     scene = wl["scene"]
     H, W = wl["H"], wl["W"]
@@ -2011,26 +2132,31 @@ def primitive_views(wl, counters, gen):
           f"render(route='separate') {errs['k1_uv_texture_grad_rel']} "
           f"(limit {K4_GTEX_RTOL})", flush=True)
 
-    # K5 on the composition's own cotangents (u, v, z live), view 0
+    # K5 on the composition's own cotangents (u, v, z live, read by the
+    # instance that takes them: k5.uvz_skipped stays 0), view 0
     mvp, pos = views[0]
     seen = []
 
-    def recording(*args):
+    def seen_call(*args):
         seen.append(args)
         return gc.pixel_grad(*args)
 
-    rz.pixel_grad = recording
+    rz.pixel_grad = seen_call
     try:
-        grads(compose, mvp, pos)
+        with profiling.recording() as log:
+            grads(compose, mvp, pos)
     finally:
         rz.pixel_grad = gc.pixel_grad
-    bins, entry, u, v, extra, gpl = seen[0][:6]
-    live_uvz = int((gpl[:3] != 0).any(dim=0).sum())
-    if live_uvz == 0:
-        fail("primitives: K5 saw no u, v, z cotangent")
-    k5 = gc.pixel_grad(*seen[0])
-    p5 = gc.pixel_grad_plain(*seen[0])
-    m5 = k5_magnitudes(*seen[0][:6])
+    k5_args = seen[0][:9]
+    bins, guvz = k5_args[0], k5_args[8]
+    skipped = log.counters.get("k5.uvz_skipped", 0)
+    live_uvz = 0 if guvz is None else int((guvz != 0).any(dim=0).sum())
+    if live_uvz == 0 or skipped:
+        fail(f"primitives: K5 saw no u, v, z cotangent ({live_uvz} live "
+             f"pixels; k5.uvz_skipped {skipped})")
+    k5 = gc.pixel_grad(*k5_args)
+    p5 = gc.pixel_grad_plain(*k5_args)
+    m5 = k5_magnitudes(*k5_args)
     n_live = int(bins.bin_start[-1])
     errs["K5 entries rel"] = atomic_err(k5[0][:n_live], p5[0][:n_live],
                                         m5[0][:n_live])
@@ -2275,7 +2401,7 @@ def check_fit_step(config, scene, params, frames_u8, label, modes=False):
     a fit (an example's, a bench row's): its config (entry cap included),
     scene and parameters, the batch its first step samples (``fit.loop.
     train_steps`` from a generator seeded with ``config.seed``), the
-    step's own cotangent of K2's output and zero u, v, z cotangents (as on
+    step's own cotangent of K2's output and no u, v, z cotangent (as on
     the main path). Each at the limits of phases 3 and 6; with ``modes``
     also the fast K4 and K5 variants on the same inputs
     (:func:`check_precision`). The counters are left for the caller to
@@ -2307,12 +2433,11 @@ def check_fit_step(config, scene, params, frames_u8, label, modes=False):
     T = scene.faces.shape[0]
     with torch.no_grad():
         _, _, k1 = check_kernels(bins, tex, B * ph, pw, H, W, ph, label)
-        gtuv = torch.zeros((3, B * ph, pw), device=dev)
-        _, _, (k3, _, _, _, gpl) = check_backward(
-            k1, bins, tex, state["g_aa"], gtuv, H, W, ph, B * T, label)
+        _, _, (k3, _, _, _, cot) = check_backward(
+            k1, bins, tex, state["g_aa"], None, H, W, ph, B * T, label)
         check_place(state["pc"], scene.faces, H, W, config.pair_cap, label)
         if modes:
-            args = (tex, k1, k3[0], bins, gpl)
+            args = (tex, k1, k3[0], bins, cot)
             check_precision(precision_pairs(*args), *args, label)
     return int(bins.n_global[0])
 
@@ -2790,12 +2915,12 @@ def grad_spread(wl, n_runs: int = 3):
 # Phase 10: the bench entry point, its rows, the precision modes and study
 # ----------------------------------------------------------------------------
 
-def precision_pairs(tex, k1, gcolour, bins, gpl):
+def precision_pairs(tex, k1, gcolour, bins, cot):
     """K4 (wrap and clamp) and K5 in each precision mode
     (``ops.precision``) on one state's inputs, as phase 10a and
     ``chip_turns.py --paths prec`` time them: at the bench batch, K4 on K1's
     uv planes ``k1`` and K3's colour cotangent ``gcolour``, K5 on the
-    step's payload cotangents ``gpl``.
+    step's cotangent arguments ``cot`` (gtu, gtv, gcorners, guvz).
 
     :return: {"texture_bwd_<prec>_<wrap|clamp>", "pixel_grad_<prec>":
         (kernel call, its plain version)}.
@@ -2806,7 +2931,7 @@ def precision_pairs(tex, k1, gcolour, bins, gpl):
 
     _, entry, payload, extra, _ = k1
     tu, tv = payload[3], payload[4]
-    args5 = (bins, entry, payload[0], payload[1], extra, gpl)
+    args5 = (bins, entry, payload[0], payload[1], extra)
     pairs = {}
     for prec in TEX_MODES:
         for bmode in ("wrap", "clamp"):
@@ -2818,12 +2943,12 @@ def precision_pairs(tex, k1, gcolour, bins, gpl):
     for prec in GRAD_MODES:
         fast = prec == "fast"
         pairs[f"pixel_grad_{prec}"] = (
-            lambda f=fast: gc.pixel_grad(*args5, fast=f),
-            lambda f=fast: gc.pixel_grad_plain(*args5, fast=f))
+            lambda f=fast: gc.pixel_grad(*args5, *cot, fast=f),
+            lambda f=fast: gc.pixel_grad_plain(*args5, *cot, fast=f))
     return pairs
 
 
-def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
+def check_precision(pairs, tex, k1, gcolour, bins, cot, label,
                     names=None):
     """Each fast variant of :func:`precision_pairs` (or those in
     ``names``) against its plain version at phase 3's limits: K4's gtu and
@@ -2870,7 +2995,7 @@ def check_precision(pairs, tex, k1, gcolour, bins, gpl, label,
         else:
             ex = pairs["pixel_grad_exact"][0]()
             mag = k5_magnitudes(bins, entry, payload[0], payload[1], extra,
-                                gpl)
+                                *cot)
             e = {"rows rel": max(
                      atomic_err(got[0][:live], want[0][:live], mag[0][:live]),
                      atomic_err(got[1], want[1], mag[1])),
@@ -2962,10 +3087,10 @@ def precision_phase(tex, sstate, card):
     # ---- 10a ----
     gcolour = sstate["k3"][0]
     pairs = precision_pairs(tex, sstate["k1"], gcolour, sstate["bins"],
-                            sstate["gpl"])
+                            sstate["k5_cot"])
     with torch.no_grad():
         rec["checks"] = check_precision(pairs, tex, sstate["k1"], gcolour,
-                                        sstate["bins"], sstate["gpl"],
+                                        sstate["bins"], sstate["k5_cot"],
                                         "bench batch")
         rec["turns"] = precision_turns(pairs)
     print(f"phase 10a: K4 and K5 by precision mode, in turns (CUDA "
@@ -4063,14 +4188,15 @@ def k9_bound_ms(lam, gcolour, pyr, n_levels):
     return _bound(nbytes, levels * (24 * C + 12))
 
 
-def k5_bound_ms(entry, bins):
-    """K5: entry read for every pixel, u, v, 8 extra and 11 cotangent
-    planes for every covered pixel, one 128-byte row written per live and
+def k5_bound_ms(entry, bins, uvz=False):
+    """K5: entry read for every pixel, u, v, 8 extra and 8 cotangent
+    planes for every covered pixel (76 bytes with its entry; with ``uvz``
+    the u, v, z cotangents too, 88), one 128-byte row written per live and
     global entry (bytes); ~110 flops per covered pixel for the
     coefficients and their sums (operations)."""
     hit = int((entry >= 0).sum())
     rows = int(bins.bin_start[-1]) + int(bins.n_global[0])
-    nbytes = entry.numel() * 4 + hit * 4 * 21 + rows * 128
+    nbytes = entry.numel() * 4 + hit * 4 * (21 if uvz else 18) + rows * 128
     return _bound(nbytes, 110 * hit)
 
 
@@ -4242,8 +4368,8 @@ def main() -> int:
         # random cotangents, u/v/z ones included, exercise every slot
         g_aa = torch.randn(k1[4].shape, device=dev, generator=gen)
         check_texture(k1, wl["params"]["tex"].detach(), g_aa, gen, label)
-        gtuv = torch.randn((3, 2 * ph, pw), device=dev, generator=gen)
-        check_backward(k1, bins, wl["params"]["tex"], g_aa, gtuv, 256, 384,
+        guvz = torch.randn((3, 2 * ph, pw), device=dev, generator=gen)
+        check_backward(k1, bins, wl["params"]["tex"], g_aa, guvz, 256, 384,
                        ph, 2 * wl["faces"].shape[0], label)
         # a LOD plane over every level of the 7 and past both clamps
         lam_random = (torch.rand((2 * ph, pw), device=dev, generator=gen)
@@ -4607,9 +4733,12 @@ def main() -> int:
                                                ph, "bench batch")
         idbuf, entry, payload, extra, colour = k1_out
         g_aa = sstate["g_aa"]
-        gtuv = torch.zeros((3, rows, pw), device=dev)
-        berr, babs, (k3, k4, k5, _, gpl) = check_backward(
-            k1_out, bins, tex, g_aa, gtuv, H, W, ph, B * T, "bench batch")
+        berr, babs, (k3, k4, k5, _, k5_cot) = check_backward(
+            k1_out, bins, tex, g_aa, None, H, W, ph, B * T, "bench batch")
+        # K5's instance with u, v, z planes, on zero planes: the parent's
+        # reads (88 bytes a covered pixel against 76)
+        args5 = (bins, entry, payload[0], payload[1], extra)
+        k5_cot_uvz = k5_cot[:3] + (torch.zeros((3, rows, pw), device=dev),)
         # the single view's planes (camera 0 of phase 5d), and the kernels
         # chip_turns.py times too
         bins1 = view_bins(wl)
@@ -4622,11 +4751,11 @@ def main() -> int:
                 lambda: rc.fused_raster_plain(bins, tex, rows, pw)),
             **{k: kp[k] for k in ("antialias", "antialias_bwd", "texture_bwd",
                                   "texture_fwd")},
-            "pixel_grad": (
-                lambda: gc.pixel_grad(bins, entry, payload[0], payload[1],
-                                      extra, gpl),
-                lambda: gc.pixel_grad_plain(bins, entry, payload[0],
-                                            payload[1], extra, gpl)),
+            "pixel_grad": (lambda: gc.pixel_grad(*args5, *k5_cot),
+                           lambda: gc.pixel_grad_plain(*args5, *k5_cot)),
+            "pixel_grad_uvz": (
+                lambda: gc.pixel_grad(*args5, *k5_cot_uvz),
+                lambda: gc.pixel_grad_plain(*args5, *k5_cot_uvz)),
             "fold_entries": (
                 lambda: gc.fold_entries(*k5, bins, B * T),
                 lambda: gc.fold_entries_plain(*k5, bins, B * T)),
@@ -4704,6 +4833,17 @@ def main() -> int:
                           lambda: bp.place_pairs_plain(tile_ids, n_tiles, P))
         times = {name: (cuda_ms(kf, 20), cuda_ms(pf, 2))
                  for name, (kf, pf) in t.items()}
+        # K5's two instances: without u, v, z planes (the backward's) and
+        # with them, on zero planes
+        k5_instances_ms = {
+            name: {"ms": times[name][0],
+                   "device_ms": device_ms(t[name][0], 20),
+                   "bound_ms": k5_bound_ms(entry, bins, uvz)[0]}
+            for name, uvz in (("pixel_grad", False),
+                              ("pixel_grad_uvz", True))}
+        record["pixel_grad_instances"] = k5_instances_ms
+        print(f"K5 at the bench batch by instance (CUDA events, device ms "
+              f"by the profiler, bound): {k5_instances_ms}", flush=True)
         k3_device = device_ms(t["antialias_bwd"][0], 20)
         k3_host = host_us(t["antialias_bwd"][0], 20)
         k3_bytes, k3_occ, k3_sectors = k3_design_bytes(idbuf, payload, C, H,
@@ -4877,7 +5017,8 @@ def main() -> int:
         k6_dev = device_kernels_ms(t["fold_entries"][0], 20)
         gpl1 = torch.randn((gc.N_GPL, ph, pw), device=dev, generator=gen)
         check_fold(gc.pixel_grad(bins1, k1s[1], k1s[2][0], k1s[2][1],
-                                 k1s[3], gpl1), bins1, T, "single view")
+                                 k1s[3], *k5_planes(gpl1)), bins1, T,
+                   "single view")
         record.update(fold_entries_design=k6_design,
                       fold_entries_device_ms=k6_dev,
                       fold_entries_index_add_ms=fold_lib)
@@ -4926,6 +5067,11 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": library.get(name)})
     phase_done("6")
+
+    # ---- 6b. K5's two instances at the b36 cells' batch ----
+    record["k5_b36"] = {"bilinear": k5_instances(dev, False),
+                        "mip": k5_instances(dev, True)}
+    phase_done("6b")
 
     # ---- 7. the step's gradients from run to run ----
     spread, equal = grad_spread(wl)

@@ -65,8 +65,10 @@ after its kernel's name, of ``antialias``, ``antialias_bwd``,
 ``bin_place`` and ``raster_grad`` (a
 library reused from an earlier build of the tree prints none). The
 device times read a tree's ``ops.cuda.device_events``, so a tree without
-it cannot be timed. Prints one JSON line a run and ends with the card's
-name and power limit; the runs also go to
+it cannot be timed; nor can a tree whose K5 takes its cotangent planes as
+one stack (``chip_smoke.step_inputs`` passes them apart). Prints one JSON
+line a run and ends with the card's name and power limit; the runs also go
+to
 ``chiprun_out/chip_turns.json``.
 """
 
@@ -155,7 +157,7 @@ def measure(tree: str, paths) -> dict:
             if "prec" in paths:
                 prec = cs.precision_pairs(tex, sstate["k1"],
                                           sstate["k3"][0], sstate["bins"],
-                                          sstate["gpl"])
+                                          sstate["k5_cot"])
                 pairs.update(prec)
                 prec_names = tuple(prec)
                 REPS.update(dict.fromkeys(prec, 20))
@@ -223,9 +225,9 @@ def grad_pairs(sstate, n_tris) -> dict:
     and K5's rows for K6."""
     from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as gc
 
-    bins, gpl, k5 = sstate["bins"], sstate["gpl"], sstate["k5"]
+    bins, k5 = sstate["bins"], sstate["k5"]
     _, entry, payload, extra, _ = sstate["k1"]
-    args = (bins, entry, payload[0], payload[1], extra, gpl)
+    args = (bins, entry, payload[0], payload[1], extra, *sstate["k5_cot"])
     return {
         "pixel_grad": (lambda: gc.pixel_grad(*args),
                        lambda: gc.pixel_grad_plain(*args)),

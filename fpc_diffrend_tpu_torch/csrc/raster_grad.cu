@@ -4,10 +4,11 @@
 // K5 replaces fpc_diffrend_tpu/ops/pallas/raster_grad_tpu.py _grad_kernel
 // (coefficients _grad_coeff_planes; launched by pixel_grad_pallas). Per
 // pixel, from K1's residual planes (u, v, D, 1/w_i, uv-corner differences)
-// and the 11 payload cotangents [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2],
-// the 32 coefficients of the winner's record slots (raster_grad_tpu.py
-// :286-310, operand for operand; plain version pixel_grad_plain in
-// ops/cuda/raster_grad_cuda.py):
+// and the payload cotangents gtu, gtv (the sampler's backward), gx0 gy0
+// gx1 gy1 gx2 gy2 (K3's) and gu gv gz, each read where its producer wrote
+// it (one pointer a source, planes of rows * pw), the 32 coefficients of
+// the winner's record slots (raster_grad_tpu.py :286-310, operand for
+// operand; plain version pixel_grad_plain in ops/cuda/raster_grad_cuda.py):
 //   d0 = u D, d1 = v D, d2 = D - d0 - d1
 //   gu' = gu + gtu du02 + gtv dv02, gv' = gv + gtu du12 + gtv dv12
 //   S = (gu' d0 + gv' d1) rD rD, gd0 = gu' rD - S, gd1 = gv' rD - S,
@@ -17,6 +18,16 @@
 //   records are in each sample's own frame, as K1 evaluates them
 //   slots 13-15: -gd_i d_i / w_i; 16-21: the uv corners' shares; 22-27: the
 //   screen-corner cotangents. Slots 12 (id) and 28-31 are 0.
+// The textured pass's u, v and z never leave it, so their cotangents are
+// 0 there: without UVZ (a null guvz) the kernel reads no gu, gv, gz plane
+// and puts the literal 0.f where it would load them, each expression with
+// its operands in the same order, so it computes what the UVZ instance
+// computes on zero planes. Its depth coefficients (slots 9-11) are then
+// +0 at every pixel and their rows start at +0, so it leaves out their
+// sums and atomics (summed<UVZ>) without changing a bit: in the shuffles
+// and atomics that bound K5, 24 coefficients in place of 27.
+// RasterizeKernel's backward and the band render's edge rows pass the
+// planes and take the UVZ instance.
 // The TPU kernel reduces a tile's pixels onto its bin with one-hot MXU
 // matmuls and carries shared chunks in VMEM between sequential grid steps.
 // Here one block of 8 warps takes one 8x128 tile (a warp per pixel row,
@@ -58,11 +69,12 @@
 // so that sorted_tri and bin_start, which every search probes, stay in
 // the L2 (11 % faster on the H100 than the default caching).
 //
-// Bound on the H100: the bytes. K5 reads entry, u, v, 8 extra and 11
-// cotangent planes (88 bytes a pixel; a missed pixel reads only its entry)
-// and writes the live rows (128 bytes each); K6 reads the live rows, the
-// tile ids (32 bytes a triangle) and writes the (B*T, 32) rows. The
-// search's dependent loads are latency, hidden by 4 triangles a warp.
+// Bound on the H100: the bytes. K5 reads entry, u, v, 8 extra and 8
+// cotangent planes (76 bytes a covered pixel; with UVZ 11 planes, 88; a
+// missed pixel reads only its entry) and writes the live rows (128 bytes
+// each); K6 reads the live rows, the tile ids (32 bytes a triangle) and
+// writes the (B*T, 32) rows. The search's dependent loads are latency,
+// hidden by 4 triangles a warp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +89,6 @@ constexpr int REC = 32;
 constexpr int NLIVE = 27;               // record slots 0-11 and 13-27
 constexpr int CAP = 256;                // bin entries held in shared memory
 constexpr int N_EXTRA = 8;
-constexpr int N_GPL = 11;
 constexpr int WIN = 8;                  // window slots a triangle (K6)
 constexpr int FOLD_THREADS = 128;       // 4 warps, 16 triangles a block
 constexpr float AREA_EPS = 1e-12f;
@@ -85,28 +96,46 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int slot(int k) { return k < 12 ? k : k + 1; }
 
+// Whether live slot k is summed: without UVZ the depth coefficients (live
+// slots 9-11: gz x, gz y, gz) are +0 at every pixel, and adding them to
+// rows that start at +0 changes no bit, so their sums and atomics are
+// left out.
+template <bool UVZ>
+__device__ __forceinline__ constexpr bool summed(int k) {
+  return UVZ || k < 9 || k > 11;
+}
+
 // The 27 live coefficients of one pixel, in live-slot order; with FAST
-// each rounded to bf16.
-template <bool FAST>
+// each rounded to bf16; without UVZ gu, gv and gz are 0.
+template <bool FAST, bool UVZ>
 __device__ __forceinline__ void coefficients(
     const float* __restrict__ u_pl, const float* __restrict__ v_pl,
-    const float* __restrict__ extra, const float* __restrict__ gpl,
-    int64_t plane, int64_t p, float x, float y, float (&c)[NLIVE]) {
+    const float* __restrict__ extra, const float* __restrict__ gtu_pl,
+    const float* __restrict__ gtv_pl, const float* __restrict__ gcorners,
+    const float* __restrict__ guvz, int64_t plane, int64_t p, float x,
+    float y, float (&c)[NLIVE]) {
   const float u = u_pl[p];
   const float v = v_pl[p];
-  float e[N_EXTRA], g[N_GPL];
+  float e[N_EXTRA], gc[6];
 #pragma unroll
   for (int k = 0; k < N_EXTRA; ++k) e[k] = extra[k * plane + p];
+  const float gtu = gtu_pl[p];
+  const float gtv = gtv_pl[p];
 #pragma unroll
-  for (int k = 0; k < N_GPL; ++k) g[k] = gpl[k * plane + p];
+  for (int k = 0; k < 6; ++k) gc[k] = gcorners[k * plane + p];
+  float gu0 = 0.f, gv0 = 0.f, gz = 0.f;
+  if (UVZ) {
+    gu0 = guvz[p];
+    gv0 = guvz[plane + p];
+    gz = guvz[2 * plane + p];
+  }
   const float D = e[0], iw0 = e[1], iw1 = e[2], iw2 = e[3];
   const float du02 = e[4], du12 = e[5], dv02 = e[6], dv12 = e[7];
-  const float gz = g[2], gtu = g[3], gtv = g[4];
   const float d0 = u * D;
   const float d1 = v * D;
   const float d2 = (D - d0) - d1;
-  const float gu = (g[0] + gtu * du02) + gtv * dv02;
-  const float gv = (g[1] + gtu * du12) + gtv * dv12;
+  const float gu = (gu0 + gtu * du02) + gtv * dv02;
+  const float gv = (gv0 + gtu * du12) + gtv * dv12;
   const float rD = 1.f / (fabsf(D) > AREA_EPS ? D : 1.f);
   const float S = ((gu * d0 + gv * d1) * rD) * rD;
   const float gd0 = gu * rD - S;
@@ -127,7 +156,7 @@ __device__ __forceinline__ void coefficients(
   c[17] = gtu * v;  c[18] = gtv * v;
   c[19] = gtu * wp; c[20] = gtv * wp;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) c[21 + k] = g[5 + k];
+  for (int k = 0; k < 6; ++k) c[21 + k] = gc[k];
   if (FAST) {
 #pragma unroll
     for (int k = 0; k < NLIVE; ++k)
@@ -135,13 +164,16 @@ __device__ __forceinline__ void coefficients(
   }
 }
 
-template <bool FAST>
+template <bool FAST, bool UVZ>
 __global__ void __launch_bounds__(THREADS)
 pixel_grad_kernel(const int* __restrict__ entry,
                   const float* __restrict__ u_pl,
                   const float* __restrict__ v_pl,
                   const float* __restrict__ extra,
-                  const float* __restrict__ gpl,
+                  const float* __restrict__ gtu,
+                  const float* __restrict__ gtv,
+                  const float* __restrict__ gcorners,
+                  const float* __restrict__ guvz,
                   const int* __restrict__ bin_start, int gx, int pw,
                   int sample_ph, int64_t plane, int gbase,
                   float* __restrict__ grad_entries,
@@ -170,8 +202,8 @@ pixel_grad_kernel(const int* __restrict__ entry,
     const int e = entry[p];
     float c[NLIVE];
     if (e >= 0) {
-      coefficients<FAST>(u_pl, v_pl, extra, gpl, plane, p,
-                         (float)col + 0.5f, y, c);
+      coefficients<FAST, UVZ>(u_pl, v_pl, extra, gtu, gtv, gcorners, guvz,
+                              plane, p, (float)col + 0.5f, y, c);
     } else {
 #pragma unroll
       for (int k = 0; k < NLIVE; ++k) c[k] = 0.f;
@@ -186,7 +218,7 @@ pixel_grad_kernel(const int* __restrict__ entry,
 #pragma unroll
     for (int k = 0; k < NLIVE; ++k)
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
+      for (int off = 1; off < 32 && summed<UVZ>(k); off <<= 1) {
         const float up = __shfl_up_sync(FULL, c[k], off);
         if (lane - off >= run0) c[k] += up;
       }
@@ -200,13 +232,15 @@ pixel_grad_kernel(const int* __restrict__ entry,
       if (r < 0 || r >= n) continue;         // not this tile's bin
       if (r < CAP) {
 #pragma unroll
-        for (int k = 0; k < NLIVE; ++k) atomicAdd(&acc[r * NLIVE + k], c[k]);
+        for (int k = 0; k < NLIVE; ++k)
+          if (summed<UVZ>(k)) atomicAdd(&acc[r * NLIVE + k], c[k]);
         continue;
       }
       dst = grad_entries + (int64_t)e * REC;
     }
 #pragma unroll
-    for (int k = 0; k < NLIVE; ++k) atomicAdd(dst + slot(k), c[k]);
+    for (int k = 0; k < NLIVE; ++k)
+      if (summed<UVZ>(k)) atomicAdd(dst + slot(k), c[k]);
   }
   __syncthreads();
 
@@ -286,11 +320,13 @@ fold_kernel(const float* __restrict__ grad_entries,
 
 }  // namespace
 
+// guvz null: the instance without UVZ (u, v, z cotangents 0, not read)
 extern "C" int pixel_grad_launch(const int* entry, const float* u,
                                  const float* v, const float* extra,
-                                 const float* gpl, const int* bin_start,
-                                 int n_tiles, int gx, int rows,
-                                 int sample_ph, int gbase,
+                                 const float* gtu, const float* gtv,
+                                 const float* gcorners, const float* guvz,
+                                 const int* bin_start, int n_tiles, int gx,
+                                 int rows, int sample_ph, int gbase,
                                  float* grad_entries, float* grad_global,
                                  int max_global, int fast, void* stream) {
   if (sample_ph < TILE_H || sample_ph % TILE_H || rows % sample_ph)
@@ -300,16 +336,14 @@ extern "C" int pixel_grad_launch(const int* entry, const float* u,
       grad_global, 0, (size_t)max_global * REC * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   const int pw = gx * TILE_W;
-  if (fast)
-    pixel_grad_kernel<true><<<n_tiles, THREADS, 0, st>>>(
-        entry, u, v, extra, gpl, bin_start, gx, pw, sample_ph,
-        (int64_t)rows * pw,
-        gbase, grad_entries, grad_global);
-  else
-    pixel_grad_kernel<false><<<n_tiles, THREADS, 0, st>>>(
-        entry, u, v, extra, gpl, bin_start, gx, pw, sample_ph,
-        (int64_t)rows * pw,
-        gbase, grad_entries, grad_global);
+  decltype(&pixel_grad_kernel<false, false>) kernel =
+      fast ? (guvz ? &pixel_grad_kernel<true, true>
+                   : &pixel_grad_kernel<true, false>)
+           : (guvz ? &pixel_grad_kernel<false, true>
+                   : &pixel_grad_kernel<false, false>);
+  kernel<<<n_tiles, THREADS, 0, st>>>(
+      entry, u, v, extra, gtu, gtv, gcorners, guvz, bin_start, gx, pw,
+      sample_ph, (int64_t)rows * pw, gbase, grad_entries, grad_global);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ it (the JAX step's ``segment_sum``, or the opt-in ``_fold_kernel`` of
 K1 resolves each pixel's winning bin entry and writes the residual planes
 the chain rule needs, so the backward streams no triangle records: K5
 computes 32 coefficients per pixel (one per record slot) from the payload
-cotangents and reduces them onto the winner's entry row; K6 sums the
+cotangents, each plane read where the kernel before it wrote it (the
+sampler's gtu and gtv, K3's corners; u, v and z only where they have a
+cotangent), and reduces them onto the winner's entry row; K6 sums the
 entry rows (about 2.4 per triangle) and the global-list rows into
 per-triangle rows in the record layout (geometry slots 0-15, aux slots
 16-31; the id, neighbour and pad slots stay 0). K6 gathers: each triangle
@@ -30,43 +32,41 @@ import torch
 
 from fpc_diffrend_tpu_torch.kernels import build
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
-    MAX_GLOBAL, N_EXTRA, PAY_CORNERS, PAY_TU, PAY_TV, PAY_U, PAY_V, PAY_Z,
-    REC, TILE_H, TILE_W, WINDOW_X, WINDOW_Y, Bins)
+    MAX_GLOBAL, N_EXTRA, PAY_CORNERS, PAY_UVZ, REC, TILE_H, TILE_W,
+    WINDOW_X, WINDOW_Y, Bins)
+from fpc_diffrend_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
-# K5's cotangent planes [gu gv gz gtu gtv gx0 gy0 gx1 gy1 gx2 gy2]: plane
-# k is the cotangent of payload plane k (``rasterize_cuda.PAY_*``); the
-# neighbour ids have none
+# the payload planes that have a cotangent, [u v z tu tv x0 y0 x1 y1 x2
+# y2] (``rasterize_cuda.PAY_*``); the neighbour ids have none
 N_GPL = PAY_CORNERS.stop
+N_CORNERS = PAY_CORNERS.stop - PAY_CORNERS.start
+N_UVZ = PAY_UVZ.stop - PAY_UVZ.start
 # record slots that carry gradient: all but the id (12) and pad (28-31)
 LIVE_SLOTS = [k for k in range(REC) if k != 12 and k < 28]
 WINDOW = WINDOW_Y * WINDOW_X   # window slots a triangle (K)
 _AREA_EPS = 1e-12
 _PTR, _INT = build.PTR, build.INT
-_PIXEL_GRAD_ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
+_PIXEL_GRAD_ARGS = [_PTR] * 9 + [_INT] * 5 + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 _FOLD_ARGS = [_PTR] * 7 + [_INT] * 2 + [_PTR] * 2
 
 
-def cotangent_planes(guvz: Tensor, gtu: Tensor, gtv: Tensor,
-                     gcorners: Tensor) -> Tensor:
-    """K5's (N_GPL, rows, pw) cotangent planes from those of u, v, z (3,
-    rows, pw), of tu and tv (rows, pw) and of the corners (6, rows, pw)."""
-    return torch.cat([guvz, gtu[None], gtv[None], gcorners])
-
-
-def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
+def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gtu: Tensor,
+                       gtv: Tensor, gcorners: Tensor, guvz: Tensor | None,
                        x: Tensor, y: Tensor, fast: bool = False) -> Tensor:
     """The 32 per-pixel gradient coefficients (raster_grad_tpu.py
     :286-310, in the kernel's order): (32, rows, pw); with ``fast`` each
-    rounded to bf16 (nearest even) and back."""
+    rounded to bf16 (nearest even) and back. ``guvz`` None: 0 in place of
+    the u, v and z cotangents, as the kernel's instance without them."""
     D, iw0, iw1, iw2, du02, du12, dv02, dv12 = extra
-    gz, gtu, gtv = gpl[PAY_Z], gpl[PAY_TU], gpl[PAY_TV]
+    zero = torch.zeros_like(u)
+    gu0, gv0, gz = (0.0, 0.0, zero) if guvz is None else guvz
     d0 = u * D
     d1 = v * D
     d2 = (D - d0) - d1
-    gu = (gpl[PAY_U] + gtu * du02) + gtv * dv02
-    gv = (gpl[PAY_V] + gtu * du12) + gtv * dv12
+    gu = (gu0 + gtu * du02) + gtv * dv02
+    gv = (gv0 + gtu * du12) + gtv * dv12
     rD = 1.0 / torch.where(torch.abs(D) > _AREA_EPS, D, 1.0)
     S = ((gu * d0 + gv * d1) * rD) * rD
     gd0 = gu * rD - S
@@ -76,18 +76,19 @@ def coefficient_planes(u: Tensor, v: Tensor, extra: Tensor, gpl: Tensor,
     gl1 = gd1 * iw1
     gl2 = gd2 * iw2
     wp = (1.0 - u) - v
-    zero = torch.zeros_like(u)
     planes = [gl0 * x, gl0 * y, gl0, gl1 * x, gl1 * y, gl1,
               gl2 * x, gl2 * y, gl2, gz * x, gz * y, gz, zero,
               -gd0 * d0 * iw0, -gd1 * d1 * iw1, -gd2 * d2 * iw2,
               gtu * u, gtv * u, gtu * v, gtv * v, gtu * wp, gtv * wp,
-              *gpl[PAY_CORNERS], zero, zero, zero, zero]
+              *gcorners, zero, zero, zero, zero]
     out = torch.stack([p.expand_as(u) for p in planes])
     return out.to(torch.bfloat16).float() if fast else out
 
 
 def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
-                     extra: Tensor, gpl: Tensor, fast: bool = False):
+                     extra: Tensor, gtu: Tensor, gtv: Tensor,
+                     gcorners: Tensor, guvz: Tensor | None = None,
+                     fast: bool = False):
     """Plain PyTorch version of K5 (same arguments as :func:`pixel_grad`);
     its rows past the live prefix are 0."""
     rows, pw = entry.shape
@@ -95,8 +96,8 @@ def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     x = torch.arange(pw, dtype=torch.float32, device=dev) + 0.5
     y = (torch.remainder(torch.arange(rows, device=dev), bins.sample_ph)
          .to(torch.float32) + 0.5)[:, None]
-    coeff = coefficient_planes(u, v, extra, gpl, x, y, fast).reshape(
-        REC, -1).T
+    coeff = coefficient_planes(u, v, extra, gtu, gtv, gcorners, guvz, x, y,
+                               fast).reshape(REC, -1).T
     e = entry.reshape(-1).long()
     gbase = bins.gbase
     grad_entries = torch.zeros((gbase, REC), device=dev)
@@ -109,8 +110,15 @@ def pixel_grad_plain(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
 
 
 def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
-               extra: Tensor, gpl: Tensor, fast: bool = False):
+               extra: Tensor, gtu: Tensor, gtv: Tensor, gcorners: Tensor,
+               guvz: Tensor | None = None, fast: bool = False):
     """K5: per-pixel gradient coefficients summed onto each winner entry.
+
+    Each cotangent plane is read where its producer wrote it: nothing is
+    copied. ``guvz`` None (the textured pass, whose u, v and z never leave
+    it) launches the kernel's instance that reads no u, v, z plane and
+    takes them as 0, and counts the call's pixels on ``k5.uvz_skipped``
+    (host); given, the instance that reads them.
 
     :param bins: the bins K1 rasterized; a pixel's coefficients take its
         row within its sample (``bins.sample_ph``), as K1 evaluated it.
@@ -118,7 +126,12 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
         winners are ``bins.gbase + row``.
     :param u, v: (rows, pw) K1 payload planes 0-1.
     :param extra: (8, rows, pw) K1 residual planes.
-    :param gpl: (11, rows, pw) cotangents of payload planes 0-10.
+    :param gtu, gtv: (rows, pw) cotangents of the sampled uv (payload
+        planes 3-4).
+    :param gcorners: (6, rows, pw) cotangents of the screen corners
+        (payload planes 5-10).
+    :param guvz: (3, rows, pw) cotangents of u, v, z (payload planes
+        0-2), or None where they are 0.
     :param fast: round each coefficient to bf16 first (the gradient
         precision "fast").
     :return: (grad_entries (gbase, 32): one row per bin entry, rows past
@@ -134,13 +147,20 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     check(u, "u", torch.float32, (rows, pw), dev)
     check(v, "v", torch.float32, (rows, pw), dev)
     check(extra, "extra", torch.float32, (N_EXTRA, rows, pw), dev)
-    check(gpl, "gpl", torch.float32, (N_GPL, rows, pw), dev)
+    check(gtu, "gtu", torch.float32, (rows, pw), dev)
+    check(gtv, "gtv", torch.float32, (rows, pw), dev)
+    check(gcorners, "gcorners", torch.float32, (N_CORNERS, rows, pw), dev)
+    if guvz is not None:
+        check(guvz, "guvz", torch.float32, (N_UVZ, rows, pw), dev)
     check(bins.bin_start, "bin_start", torch.int32, (n_tiles + 1,), dev)
     if rows % bins.sample_ph or bins.sample_ph % TILE_H:
         raise ValueError(f"{rows} stacked rows are not whole samples of "
                          f"{bins.sample_ph} rows in whole tiles")
+    if guvz is None:
+        profiling.count("k5.uvz_skipped", rows * pw)
     if dev.type == "cpu":
-        return pixel_grad_plain(bins, entry, u, v, extra, gpl, fast)
+        return pixel_grad_plain(bins, entry, u, v, extra, gtu, gtv, gcorners,
+                                guvz, fast)
     if dev.type != "cuda":
         raise ValueError(f"pixel_grad: unsupported device {dev}")
 
@@ -149,7 +169,8 @@ def pixel_grad(bins: Bins, entry: Tensor, u: Tensor, v: Tensor,
     fn = build.entry("raster_grad", "pixel_grad_launch", _PIXEL_GRAD_ARGS)
     pixel_grad.launches += 1
     ptr = build.ptr
-    status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gpl),
+    status = fn(ptr(entry), ptr(u), ptr(v), ptr(extra), ptr(gtu), ptr(gtv),
+                ptr(gcorners), None if guvz is None else ptr(guvz),
                 ptr(bins.bin_start), n_tiles, pw // TILE_W, rows,
                 bins.sample_ph, bins.gbase,
                 ptr(grad_entries), ptr(grad_global), MAX_GLOBAL, int(fast),

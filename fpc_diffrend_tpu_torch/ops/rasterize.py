@@ -73,7 +73,7 @@ from fpc_diffrend_tpu_torch.ops.antialias import edge_fn
 from fpc_diffrend_tpu_torch.ops.cuda.antialias_cuda import (
     antialias_planes, antialias_planes_bwd)
 from fpc_diffrend_tpu_torch.ops.cuda.raster_grad_cuda import (
-    cotangent_planes, fold_entries, pixel_grad)
+    fold_entries, pixel_grad)
 from fpc_diffrend_tpu_torch.ops.cuda.rasterize_cuda import (
     _AREA_EPS, _W_EPS, PAY_CORNERS, PAY_TU, PAY_TV, PAY_U, PAY_UVZ, PAY_V,
     _screen_xy, aux_records, bin_scene_stacked, fused_raster,
@@ -107,19 +107,17 @@ def _raster(ctx, data_b, bins, tex, sample_ph, height, width, aa=False):
 
 def _records_bwd(ctx, entry, payload, extra, gtu, gtv, gcorners, guvz=None):
     """K5 -> K6: the cotangents of the payload's u, v, z (``guvz`` (3,
-    rows, pw); None: zero), of the sampled uv and of the screen corners
-    into the (B, T, 16) data and aux records; K5 at the forward's gradient
-    precision."""
+    rows, pw); None: zero, and K5 reads none), of the sampled uv and of the
+    screen corners into the (B, T, 16) data and aux records; K5 reads each
+    plane where K3 and the sampler's backward wrote it, at the forward's
+    gradient precision."""
     B, T = ctx.dims[:2]
     # the textured pass's u, v and z never leave the op but for the band
     # render's edge rows (the antialias differentiates only corners and
     # colour)
-    if guvz is None:
-        guvz = torch.zeros((3,) + gtu.shape, device=gtu.device)
-    gpl = cotangent_planes(guvz, gtu, gtv, gcorners)
-    grad_entries, grad_global = pixel_grad(ctx.bins, entry, payload[PAY_U],
-                                           payload[PAY_V], extra, gpl,
-                                           ctx.prec.grad == "fast")
+    grad_entries, grad_global = pixel_grad(
+        ctx.bins, entry, payload[PAY_U], payload[PAY_V], extra, gtu, gtv,
+        gcorners, guvz, ctx.prec.grad == "fast")
     grad = fold_entries(grad_entries, grad_global, ctx.bins, B * T)
     return grad[:, :16].reshape(B, T, 16), grad[:, 16:].reshape(B, T, 16)
 

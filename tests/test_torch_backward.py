@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from chip_smoke import k5_planes
 from fpc_diffrend_tpu.ops import antialias as jaa
 from fpc_diffrend_tpu.ops.pallas import antialias_tpu as jat
 from fpc_diffrend_tpu.ops.pallas import rasterize_tpu as jr
@@ -39,8 +40,10 @@ from fpc_diffrend_tpu_torch.ops.cuda import antialias_cuda as tac
 from fpc_diffrend_tpu_torch.ops.cuda import raster_grad_cuda as tgc
 from fpc_diffrend_tpu_torch.ops.cuda import rasterize_cuda as tr
 from fpc_diffrend_tpu_torch.ops.cuda import texture_cuda as ttc
-from fpc_diffrend_tpu_torch.ops.rasterize import RasterizeTextured
+from fpc_diffrend_tpu_torch.ops.rasterize import (RasterizeKernel,
+                                                  RasterizeTextured)
 from fpc_diffrend_tpu_torch.ops.texture import bilinear
+from fpc_diffrend_tpu_torch.utils import profiling
 
 from _torch_scenes import (clip_batch, close_to_max, quads_scene,
                           reference_forward)
@@ -218,7 +221,7 @@ def test_k5_k6_plain_match_pallas_kernel_interpret(rng, B, H, W):
     rows, pw = entry.shape
     gpl = rng.normal(size=(tgc.N_GPL, rows, pw)).astype(np.float32)
     ge, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra,
-                            torch.as_tensor(gpl))
+                            *k5_planes(torch.as_tensor(gpl)))
     grad = tgc.fold_entries(ge, gg, bins, B * s["T"]).numpy()
     assert tgc.pixel_grad.launches == tgc.fold_entries.launches == 0
     if W > 256:
@@ -240,18 +243,156 @@ def test_k5_rows_hold_only_their_own_pixels(rng):
     rows, pw = entry.shape
     gpl = torch.as_tensor(rng.normal(size=(tgc.N_GPL, rows, pw)).astype(
         np.float32))
-    _, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    _, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra,
+                           *k5_planes(gpl))
     x = torch.arange(pw, dtype=torch.float32) + 0.5
     # each pixel at its row within its sample, as K1 and K5 evaluate it
     y = (torch.remainder(torch.arange(rows), s["ph"]).to(torch.float32)
          + 0.5)[:, None]
-    coeff = tgc.coefficient_planes(payload[0], payload[1], extra, gpl, x, y)
+    coeff = tgc.coefficient_planes(payload[0], payload[1], extra,
+                                   *k5_planes(gpl), x, y)
     for g in range(int(bins.n_global[0])):
         mine = coeff[:, entry == bins.gbase + g]
         # sums of ~1e3 pixels in another order: 1e-5 of their magnitude
         err = (gg[g] - mine.sum(dim=1)).abs()
         assert bool(torch.all(err <= 1e-5 * mine.abs().sum(dim=1))), g
     assert int(bins.n_global[0]) > 0
+
+
+def _k5_inputs(rng, B=3, H=40, W=100):
+    """A stacked scene's K5 arguments up to the cotangents, and random
+    cotangent planes (gtu, gtv, gcorners, guvz), each a tensor of its own."""
+    s = _scene(rng, B, H, W)
+    _, entry, payload, extra, _ = s["k1"]
+    gpl = torch.as_tensor(rng.normal(
+        size=(tgc.N_GPL,) + tuple(entry.shape)).astype(np.float32))
+    return ((s["bins"], entry, payload[0], payload[1], extra),
+            tuple(p.clone() for p in k5_planes(gpl)))
+
+
+def _bits_equal(got, want):
+    """K5's outputs (grad_entries, grad_global) equal bit for bit."""
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def _stacked_pixel_grad(bins, entry, u, v, extra, gpl, fast):
+    """K5's plain version as it read one (11, rows, pw) stack ``gpl`` of
+    cotangents, plane k that of payload plane k: the layout the backward
+    built with ``torch.cat`` before K5 read its planes in place (the
+    coefficients of raster_grad_tpu.py :286-310, operand for operand)."""
+    rows, pw = entry.shape
+    x = torch.arange(pw, dtype=torch.float32) + 0.5
+    y = (torch.remainder(torch.arange(rows), bins.sample_ph)
+         .to(torch.float32) + 0.5)[:, None]
+    D, iw0, iw1, iw2, du02, du12, dv02, dv12 = extra
+    gz, gtu, gtv = gpl[2], gpl[3], gpl[4]
+    d0 = u * D
+    d1 = v * D
+    d2 = (D - d0) - d1
+    gu = (gpl[0] + gtu * du02) + gtv * dv02
+    gv = (gpl[1] + gtu * du12) + gtv * dv12
+    rD = 1.0 / torch.where(torch.abs(D) > 1e-12, D, 1.0)
+    S = ((gu * d0 + gv * d1) * rD) * rD
+    gd0, gd1, gd2 = gu * rD - S, gv * rD - S, -S
+    gl0, gl1, gl2 = gd0 * iw0, gd1 * iw1, gd2 * iw2
+    wp = (1.0 - u) - v
+    zero = torch.zeros_like(u)
+    planes = [gl0 * x, gl0 * y, gl0, gl1 * x, gl1 * y, gl1,
+              gl2 * x, gl2 * y, gl2, gz * x, gz * y, gz, zero,
+              -gd0 * d0 * iw0, -gd1 * d1 * iw1, -gd2 * d2 * iw2,
+              gtu * u, gtv * u, gtu * v, gtv * v, gtu * wp, gtv * wp,
+              *gpl[5:11], zero, zero, zero, zero]
+    coeff = torch.stack([p.expand_as(u) for p in planes])
+    if fast:
+        coeff = coeff.to(torch.bfloat16).float()
+    coeff = coeff.reshape(tgc.REC, -1).T
+    e = entry.reshape(-1).long()
+    ent = torch.zeros((bins.gbase, tgc.REC))
+    glob = torch.zeros((tgc.MAX_GLOBAL, tgc.REC))
+    binned = (e >= 0) & (e < bins.gbase)
+    ent.index_add_(0, e[binned], coeff[binned])
+    ge = e >= bins.gbase
+    glob.index_add_(0, e[ge] - bins.gbase, coeff[ge])
+    return ent, glob
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_k5_without_uvz_equals_zero_planes(rng, fast):
+    """``guvz`` None: K5 (plain, on the CPU) equals the same call on
+    explicit zero u, v, z planes bit for bit, exact and fast; only the call
+    without them counts its stacked pixels on ``k5.uvz_skipped``."""
+    args, (gtu, gtv, gcorners, _) = _k5_inputs(rng)
+    zeros = torch.zeros((3,) + tuple(gtu.shape))
+    with profiling.recording() as log:
+        skip = tgc.pixel_grad(*args, gtu, gtv, gcorners, fast=fast)
+    with profiling.recording() as log_fed:
+        fed = tgc.pixel_grad(*args, gtu, gtv, gcorners, zeros, fast)
+    assert _bits_equal(skip, fed)
+    assert float(skip[0].abs().max()) > 0
+    assert log.counters == {"k5.uvz_skipped": gtu.numel()}
+    assert log_fed.counters == {}
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("uvz", ["live", "none"])
+def test_k5_split_planes_equal_the_stacked_layout(rng, uvz, fast):
+    """K5 on its cotangent planes where they lie equals, bit for bit, K5 on
+    the stack the backward built before (``torch.cat`` of the u, v, z
+    planes, zero where there are none, gtu, gtv and the corners), in the
+    formula as it read that stack; exact and fast."""
+    args, (gtu, gtv, gcorners, guvz) = _k5_inputs(rng)
+    if uvz == "none":
+        guvz = None
+    stack = torch.cat([torch.zeros((3,) + tuple(gtu.shape))
+                       if guvz is None else guvz,
+                       gtu[None], gtv[None], gcorners])
+    got = tgc.pixel_grad(*args, gtu, gtv, gcorners, guvz, fast)
+    assert _bits_equal(got, _stacked_pixel_grad(*args, stack, fast))
+    if int(args[0].n_global[0]):
+        assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("bad", ["non_contiguous", "five_planes", "one_plane",
+                                 "guvz_non_contiguous"])
+def test_k5_rejects_cotangent_planes_it_cannot_read_in_place(rng, bad):
+    """K5 reads each plane where it lies, so it takes only contiguous
+    float32 planes of its shape (gcorners (6, rows, pw), guvz (3, rows,
+    pw)) and copies none: anything else raises."""
+    args, (gtu, gtv, gcorners, guvz) = _k5_inputs(rng, B=2)
+    rows, pw = gtu.shape
+    if bad == "non_contiguous":
+        gcorners = torch.zeros((6, pw, rows)).transpose(1, 2)
+    elif bad == "five_planes":
+        gcorners = gcorners[:5]
+    elif bad == "one_plane":
+        gcorners = gcorners[0]
+    else:
+        guvz = torch.zeros((3, pw, rows)).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tgc.pixel_grad(*args, gtu, gtv, gcorners, guvz)
+
+
+def test_k5_uvz_skipped_counts_the_textured_backward_only(rng):
+    """Recorded on the CPU: the textured stacked pass's backward, whose u,
+    v and z never leave it, counts every stacked pixel on
+    ``k5.uvz_skipped``; ``RasterizeKernel``'s, whose u, v, z cotangents
+    are live, counts none."""
+    B, H, W = 3, 40, 100
+    s = _scene(rng, B, H, W)
+    ph, pw = s["ph"], s["pw"]
+    R = torch.as_tensor(rng.normal(size=(14, B * ph, pw)).astype(np.float32))
+    d, a = (x.detach().clone().requires_grad_(True)
+            for x in (s["data_b"], s["aux_b"]))
+    with profiling.recording() as textured:
+        _, aa = RasterizeTextured.apply(d, a, s["tex"], s["bins"], ph, H, W)
+        (aa * R[:1]).sum().backward()
+    with profiling.recording() as kernel:
+        _, payload = RasterizeKernel.apply(d, a, s["bins"], ph, H, W)
+        (payload * R).sum().backward()
+    assert textured.counters == {"k5.uvz_skipped": B * ph * pw}
+    assert kernel.counters == {}
+    assert float(d.grad.abs().max()) > 0
 
 
 # ----------------------------------------------------- the Function ----
@@ -320,11 +461,12 @@ def test_cpu_calls_leave_counters_and_check_shapes(rng):
     with pytest.raises(ValueError):
         ttc.texture_planes_bwd(s["tex"], payload[3], payload[4],
                                g.double())
+    gpl = torch.zeros((tgc.N_GPL,) + entry.shape)
     with pytest.raises(ValueError):
         tgc.pixel_grad(s["bins"], entry.long(), payload[0], payload[1],
-                       extra, torch.zeros((tgc.N_GPL,) + entry.shape))
+                       extra, *k5_planes(gpl))
     ge, gg = tgc.pixel_grad(s["bins"], entry, payload[0], payload[1], extra,
-                            torch.zeros((tgc.N_GPL,) + entry.shape))
+                            *k5_planes(gpl))
     with pytest.raises(ValueError):
         tgc.fold_entries(ge[:-1], gg, s["bins"], 2 * s["T"])
     assert (tac.antialias_planes_bwd.launches, ttc.texture_planes_bwd.launches,

@@ -98,7 +98,8 @@ def test_plain_fold_matches_index_add_fold_on_rendered_rows(B, H, W):
     _, entry, payload, extra, _ = tr.fused_raster(bins, tex, B * ph, pw)
     gpl = torch.as_tensor(rng.normal(size=(tgc.N_GPL, B * ph, pw))
                           .astype(np.float32))
-    ge, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra, gpl)
+    ge, gg = tgc.pixel_grad(bins, entry, payload[0], payload[1], extra,
+                            *cs.k5_planes(gpl))
     n_tris = B * faces.shape[0]
     got = tgc.fold_entries(ge, gg, bins, n_tris)
     _assert_within_magnitudes(got, ge, gg, bins, n_tris)

@@ -46,6 +46,7 @@ from fpc_diffrend_tpu_torch.ops.rasterize import rasterize
 from fpc_diffrend_tpu_torch.ops.texture import texture
 from fpc_diffrend_tpu_torch.workload import build_workload
 
+from chip_smoke import k5_planes
 from test_torch_backward import SCENES, _jax_rows_per_sample, _scene
 from test_torch_render import _port
 
@@ -100,7 +101,7 @@ def test_k5_fast_matches_pallas_kernel_fast_interpret(rng, B, H, W,
     n = B * s["T"]
     gpl = torch.as_tensor(rng.normal(size=(tgc.N_GPL, rows, pw)).astype(
         np.float32))
-    args = (bins, entry, payload[0], payload[1], extra, gpl)
+    args = (bins, entry, payload[0], payload[1], extra, *k5_planes(gpl))
     fast = tgc.fold_entries(*tgc.pixel_grad(*args, fast=True), bins, n)
     exact = tgc.fold_entries(*tgc.pixel_grad(*args), bins, n)
     assert tgc.pixel_grad.launches == 0
@@ -318,7 +319,7 @@ def test_scan_route_and_k6_ignore_the_setting(rng):
     gpl = torch.as_tensor(rng.normal(
         size=(tgc.N_GPL,) + tuple(entry.shape)).astype(np.float32))
     rows = tgc.pixel_grad(s["bins"], entry, payload[0], payload[1], extra,
-                          gpl, fast=True)
+                          *k5_planes(gpl), fast=True)
     n = 2 * s["T"]
     want = tgc.fold_entries(*rows, s["bins"], n)
     with precision("fast", "fast2"):

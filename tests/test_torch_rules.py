@@ -594,6 +594,21 @@ def test_gathered_antialias_matches_plain_version_on_the_card(card, impl):
 
 
 @pytest.mark.cuda
+def test_k5_without_uvz_planes_matches_zero_planes_on_the_card(card):
+    """K5's instance that reads no u, v, z plane (the textured backward's)
+    against the instance fed zero planes and against its plain version, on
+    a small stacked step's own inputs (B = 3), exact and fast
+    (``chip_smoke.check_k5_instances``: bit for bit wherever K5 repeats
+    itself bit for bit, and within ``ATOMIC_RTOL`` of the summed
+    magnitudes always)."""
+    wl = build_workload(96, 200, grid=20, batch=3, tex_size=64, device=card)
+    out = chip_smoke.check_k5_instances(chip_smoke.step_inputs(wl),
+                                        "cuda test", plain=True)
+    assert sorted(out) == ["exact", "fast"]
+    assert all(m["rel"] <= chip_smoke.ATOMIC_RTOL for m in out.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["pixel_grad_fast", "texture_bwd_fast",
                                      "texture_bwd_fast2"])
 def test_precision_variants_match_plain_versions_on_the_card(card, variant):
@@ -603,7 +618,8 @@ def test_precision_variants_match_plain_versions_on_the_card(card, variant):
     wl = build_workload(96, 200, grid=20, batch=2, tex_size=64, device=card)
     state = chip_smoke.step_inputs(wl)
     tex = wl["params"]["tex"].detach()
-    args = (tex, state["k1"], state["k3"][0], state["bins"], state["gpl"])
+    args = (tex, state["k1"], state["k3"][0], state["bins"],
+            state["k5_cot"])
     pairs = chip_smoke.precision_pairs(*args)
     names = [n for n in pairs if n.startswith(variant)
              and n[len(variant):] in ("", "_wrap", "_clamp")]

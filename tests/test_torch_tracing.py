@@ -196,7 +196,8 @@ def test_profiled_recording_holds_every_span(tmp_path):
 def test_bin_counters_follow_the_steps_samples():
     """(d) live pairs = raster_stats' n_valid_pairs over each step's
     samples; capacity = entry_count a step; kept = the live pairs the cap
-    keeps."""
+    keeps; K5 reads no u, v, z plane in either step's backward: every
+    stacked pixel on ``k5.uvz_skipped``."""
     wl = workload()
     config, scene = wl["config"], wl["scene"]
     T = scene.faces.shape[0]
@@ -214,11 +215,13 @@ def test_bin_counters_follow_the_steps_samples():
                             + stats["global_overflow"]).sum()))
             loop.train_step(config, scene, wl["state"], batch)
     assert config.pair_cap > 0 and sum(live) > 0
+    ph, pw = trc.pad_resolution(H, W)
     assert log.counters == {
         "bin.live_pairs": sum(live), "bin.capacity": 2 * P,
         "bin.kept": sum(min(n, P) for n in live),
         "bin.global_live": sum(big),
-        "bin.global_kept": sum(min(n, trc.MAX_GLOBAL) for n in big)}
+        "bin.global_kept": sum(min(n, trc.MAX_GLOBAL) for n in big),
+        "k5.uvz_skipped": 2 * BATCH * ph * pw}
 
 
 @pytest.mark.parametrize("cap", [0, 128])

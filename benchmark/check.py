@@ -3,7 +3,9 @@ reference of ``benchmark/reference/``, each compared number beside its
 limit.
 
 Fit cells: the reference follows the window's first three steps from the
-same inputs and compares each step's loss (relative gap), the first
+same inputs (a sharded fit's: on the global batches the program drew,
+the samples of each step spread over the ranks and their sums added
+across them) and compares each step's loss (relative gap), the first
 step's gradient as Adam received it, by the worst leaf, and the
 parameters' change after the three steps, by the median leaf. A leaf's
 gap is |norm(program) - norm(reference)| over the larger of the
@@ -119,6 +121,54 @@ def reference_fit(config, inputs, got: dict, batch: int,
                              config.seed, batch, len(got["losses"]),
                              prec or ref_fit.Precision(), stats,
                              batch_filter)
+
+
+def reference_fit_ranks(config, inputs, batches, rank: int, world: int,
+                        prec: ref_fit.Precision | None = None, stats=None,
+                        batch_filter=None) -> dict:
+    """The reference's steps on the global batches ``batches`` [(cams,
+    frames)], on every rank of a ``torch.distributed`` world at once: rank
+    r takes the r-th of ``world`` equal parts of each step's samples, the
+    parts' losses and gradients (each part's mean weighted by its share)
+    are summed over the ranks, and every rank takes the same Adam update.
+
+    :param batch_filter: fn(cams, frames) -> (cams, frames) on each global
+        batch, to plant a fault in the reference.
+    :return: as :func:`reference_fit`, the same on every rank.
+    """
+    import torch.distributed as dist
+
+    drawn = iter(batches)
+
+    def part(cams, frames):
+        # the seed's draw gives way to the program's global one
+        cams, frames = next(drawn)
+        if batch_filter is not None:
+            cams, frames = batch_filter(cams, frames)
+        if len(cams) % world:
+            raise ValueError(f"{len(cams)} samples do not split over "
+                             f"{world} ranks")
+        per = len(cams) // world
+        mine = slice(rank * per, (rank + 1) * per)
+        return cams[mine], frames[mine]
+
+    def summed(loss, grads):
+        names = list(grads)
+        flat = torch.cat([torch.tensor([loss], dtype=torch.float64,
+                                       device=dev)]
+                         + [grads[k].reshape(-1).double() for k in names])
+        flat /= world
+        dist.all_reduce(flat)
+        parts = flat[1:].split([grads[k].numel() for k in names])
+        return float(flat[0]), {k: p.view_as(grads[k]).to(grads[k].dtype)
+                                for k, p in zip(names, parts)}
+
+    dev = inputs.frames.device
+    return ref_fit.fit_steps(
+        ref_fit.make_rig(inputs, dev),
+        initial_params(inputs, inputs.frames.shape[1], dev), inputs.frames,
+        settings_of(config), config.seed, len(batches[0][0]), len(batches),
+        prec or ref_fit.Precision(), stats, part, summed)
 
 
 def reference_views(config, inputs, requests,

@@ -6,9 +6,10 @@ is a file of its own, found by name:
 
 * ``benchmark/configs/<config>.json`` (the ``file`` of its entry): sizes,
   rig, settings, what was assumed and reduced;
-* ``benchmark/traffic/<traffic>.json``: the loop's kind ("fit" or "view")
-  and its parameters (batch, chunk, checked steps or views, warm-up,
-  traced slice) and FitConfig settings of its own;
+* ``benchmark/traffic/<traffic>.json``: the loop's kind ("fit", "view",
+  or "fit_sharded": the fit over a cell's ranks, with its mesh) and its
+  parameters (batch, chunk, checked steps or views, warm-up, traced
+  slice) and FitConfig settings of its own;
 * ``benchmark/limits/<workload>.json``: each compared number's limit;
 * ``benchmark/metrics/<metric>.py``: ``read(run) -> float | None``, for
   end-to-end and per-layer metrics alike.
@@ -103,6 +104,16 @@ def forbidden_modules() -> list:
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
+def jax_loaded(err=None) -> bool:
+    """Whether a module of JAX or of the JAX package is loaded (each named
+    on ``err``, standard error by default)."""
+    found = forbidden_modules()
+    if found:
+        print("JAX or the JAX package was loaded: " + ", ".join(found),
+              file=err or sys.stderr, flush=True)
+    return bool(found)
+
+
 def shape_of(inputs, config: dict) -> dict:
     """The shapes the work counts read, from the inputs and the
     configuration (the mode as FitConfig's default where it names none),
@@ -125,39 +136,64 @@ def per_view(stats: dict) -> dict:
 
 def run_fit(cell: Cell, inputs, seed, seconds, trace, device, t_start,
             trace_path):
+    """A fit cell: set-up, the checked first steps, warm-up, the window,
+    the traced slice, then the reference. A sharded fit runs on every rank
+    of a ``torch.distributed`` world alike, in lock-step, the reference
+    spread over the ranks; rank 0's run is the one reported: its window,
+    its traced slice (the device's busy time averaged over the ranks) and
+    the largest memory peak of the ranks."""
     from benchmark import check, programs, work
 
     tr = cell.traffic
-    drv = programs.FitDriver(cell.config, tr, inputs, seed, device)
+    sharded = tr["kind"] == "fit_sharded"
+    drv = (programs.ShardedFitDriver if sharded else programs.FitDriver)(
+        cell.config, tr, inputs, seed, device)
     got = drv.first_steps(int(tr["check_steps"]))
     drv.steps(int(tr["warmup_steps"]))
     programs.sync(device)
     run = {"kind": "fit", "setup_s": time.perf_counter() - t_start,
            "pixels_per_step": tr["fit"]["batch_size"]
-           * cell.config["resolution"][0] * cell.config["resolution"][1]}
+           * cell.config["resolution"][0] * cell.config["resolution"][1],
+           "count": drv.world}
     run["window"] = drv.window(seconds, drv.log_every)
     if trace:
         from benchmark import trace as tracing
         n = int(tr["trace_steps"])
         run["slice_steps"] = n
-        prof = tracing.profile(lambda: drv.steps(n), device, trace_path)
-        run["timeline"] = tracing.read(prof["path"], prof["window_s"])
-    run["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
-                                if device.type == "cuda" else 0)
+        if drv.rank:
+            trace_path = trace_path.replace(".trace.", f".rank{drv.rank}"
+                                            ".trace.")
+        # the barrier inside the profiled scope starts every rank's steps
+        # together, whenever its profiler came up
+        prof = tracing.profile(lambda: (drv.barrier(), drv.steps(n)),
+                               device, trace_path)
+        timeline = tracing.read(prof["path"], prof["window_s"])
+        timeline["busy_s"] = drv.over_ranks(timeline["busy_s"],
+                                            "sum") / drv.world
+        run["timeline"] = timeline
+    run["memory_peak_bytes"] = int(drv.over_ranks(
+        torch.cuda.max_memory_allocated(device)
+        if device.type == "cuda" else 0, "max"))
     config = drv.config
     window_losses = [v for _, v in drv.losses]
+    rank, world = drv.rank, drv.world
     drv.free()
     del drv
     if device.type == "cuda":
         torch.cuda.empty_cache()
     stats = {}
-    want = check.reference_fit(config, inputs, got,
-                               tr["fit"]["batch_size"], stats=stats)
+    if sharded:
+        want = check.reference_fit_ranks(config, inputs, got["batches"],
+                                         rank, world, stats=stats)
+    else:
+        want = check.reference_fit(config, inputs, got,
+                                   tr["fit"]["batch_size"], stats=stats)
     numbers = check.fit_numbers(got, want)
     numbers["nonfinite_losses"] = float(sum(
         not math.isfinite(v) for v in window_losses))
     run["least"] = work.step_work(shape_of(inputs, cell.config),
-                                  per_view(stats), tr["fit"]["batch_size"])
+                                  per_view(stats),
+                                  tr["fit"]["batch_size"] // world)
     run["attempted"] = run["window"]["steps"]
     run["failed"] = 0
     return run, numbers
@@ -211,11 +247,12 @@ def device_record(device, run: dict, timeline) -> dict:
         from benchmark import card
         _, limit = card.card(device)
         rec = {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-               "count": 1, "memory_peak_bytes": run["memory_peak_bytes"],
+               "count": run.get("count", 1),
+               "memory_peak_bytes": run["memory_peak_bytes"],
                "power_limit": limit}
     else:
-        rec = {"platform": "cpu", "kind": "cpu", "count": 1,
-               "memory_peak_bytes": 0}
+        rec = {"platform": "cpu", "kind": "cpu",
+               "count": run.get("count", 1), "memory_peak_bytes": 0}
     if timeline is not None:
         rec["busy_s"] = timeline["busy_s"]
         rec["window_s"] = timeline["window_s"]
@@ -251,10 +288,11 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     cell = resolve(root, name)
     kind = cell.traffic["kind"]
     build = build_kernels(device)
-    inputs = make_inputs(cell.config, kind, seed, device)
+    inputs = make_inputs(cell.config, "view" if kind == "view" else "fit",
+                         seed, device)
     trace_path = str(root / "benchmark" / "_traces"
                      / f"{name}.trace.json.gz")
-    runner = {"fit": run_fit, "view": run_view}[kind]
+    runner = {"fit": run_fit, "view": run_view, "fit_sharded": run_fit}[kind]
     run, numbers = runner(cell, inputs, seed, seconds, trace, device,
                           t_start, trace_path)
     correct, lines = check.verdict(numbers, cell.limits)
@@ -296,10 +334,7 @@ def report(result: dict, lines: list, out=None, err=None) -> int:
     or of the JAX package is loaded."""
     out = out or sys.stdout
     err = err or sys.stderr
-    found = forbidden_modules()
-    if found:
-        print("JAX or the JAX package was loaded: " + ", ".join(found),
-              file=err)
+    if jax_loaded(err):
         return 3
     print(json.dumps(result), file=out, flush=True)
     for line in lines:

@@ -7,7 +7,10 @@ A fit cell follows ``fit.api.fit_take``'s path from in-memory inputs:
 callback that reads the loss to the host every ``log_interval`` steps as
 ``fit_take``'s does. The view cell renders single (camera, frame) views of
 a fitted state through ``fit.loop.render_sample`` and takes each image to
-the host.
+the host. A sharded fit cell drives ``parallel/train.py``'s frame-sharded
+step on every rank of a ``torch.distributed`` world (``benchmark/ranks.py``
+starts the ranks), as its users must: the program has no loop of its own
+for it.
 
 The harness's own host-clock spans are kept here: per fit chunk, the
 issue time (the chunk's span less the time the loss read waited for the
@@ -21,12 +24,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fpc_diffrend_tpu_torch.data.obj import MeshData
 from fpc_diffrend_tpu_torch.fit import api, loop
 from fpc_diffrend_tpu_torch.fit import state as state_mod
 from fpc_diffrend_tpu_torch.fit.config import FitConfig
 from fpc_diffrend_tpu_torch.fit.scene import build_scene
+from fpc_diffrend_tpu_torch.parallel import multihost
+from fpc_diffrend_tpu_torch.parallel import train as ptrain
 
 
 def fit_config(config: dict, traffic: dict, seed: int) -> FitConfig:
@@ -58,7 +64,11 @@ def snapshot(tensors: dict) -> dict:
 
 
 class FitDriver:
-    """A fit cell's program: set-up, the checked first steps, the window."""
+    """A fit cell's program: set-up, the checked first steps, the window.
+    One process on one card: the world of :class:`ShardedFitDriver` at
+    size 1."""
+
+    rank, world = 0, 1
 
     def __init__(self, config: dict, traffic: dict, inputs, seed: int,
                  device):
@@ -135,8 +145,152 @@ class FitDriver:
         return {"steps": steps, "window_s": time.perf_counter() - t0,
                 "issue_s": issue}
 
+    def over_ranks(self, value: float, op: str) -> float:
+        return value
+
+    def barrier(self) -> None:
+        pass
+
     def free(self) -> None:
         del self.state, self.scene
+
+
+class ShardedFitDriver:
+    """A sharded fit cell's program on one rank: the set-up that every rank
+    makes alike, the frame-sharded step of ``parallel/train.py``, and the
+    window in lock-step with the other ranks.
+
+    Each step draws the global batch with ``sample_stratified`` from a
+    numpy generator seeded by the seed (the same draws on every rank),
+    takes this rank's part with ``shard_batch_for`` and decodes only that
+    part's references from the rank's own copy of the take. The loss (the
+    global one) is read to the host every ``log_interval`` steps.
+    """
+
+    def __init__(self, config: dict, traffic: dict, inputs, seed: int,
+                 device):
+        self.device = device
+        self.config = fit_config(config, traffic, seed)
+        self.scene = scene_of(inputs, device)
+        self.frames = inputs.frames
+        self.n_frames = inputs.frames.shape[1]
+        params = state_mod.init_params(
+            self.config, self.n_frames, self.scene.v_base.shape[0],
+            self.scene.deltas.shape[1], inputs.tex.cpu().numpy(),
+            self.scene.n_cameras, device=device)
+        self.config = api.autotune_caps(self.config, self.scene, params)
+        axes = traffic["mesh"]
+        self.mesh = multihost.make_pod_mesh(axes["view"], axes["tile"],
+                                            device_type=device.type)
+        if dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape)) != axes:
+            raise ValueError(f"the world's {dist.get_world_size()} ranks "
+                             f"do not make the mesh {axes}")
+        self.step_fn = ptrain.make_sharded_train_step(
+            self.config, self.scene, self.mesh,
+            shard_frames=traffic["shard_frames"], params_like=params)
+        self.state = state_mod.init_state(
+            self.config, ptrain.frame_shard(params, self.mesh)
+            if traffic["shard_frames"] else params)
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        # the host's own exchanges (the window's open, close and go-ahead,
+        # readings across ranks) go over gloo, so they never wait on the
+        # device's queue
+        self.host = dist.new_group(backend="gloo")
+        self.rng = np.random.default_rng(seed)
+        self.log_every = self.config.log_interval
+        self.losses = []          # (step, global loss) read every log_every
+        self.read_wait = 0.0
+        self.drawn = None         # first_steps' global (cams, frames)
+
+    def batch(self) -> loop.Batch:
+        """The next global draw, cut to this rank's part."""
+        cams, frames = ptrain.sample_stratified(
+            self.rng, self.config, self.mesh, self.n_frames,
+            self.scene.n_cameras)
+        if self.drawn is not None:
+            self.drawn.append((cams.tolist(), frames.tolist()))
+        b, h = cams.shape[0], self.frames.shape[2]
+        # row numbers stand in for the references, so that shard_batch_for
+        # cuts out this rank's samples and band rows without a global decode
+        part = ptrain.shard_batch_for(
+            self.mesh, loop.Batch(cams, frames, torch.arange(h).expand(b, h)))
+        rows = part.ref[0]
+        cam = part.cam_idx.to(self.device, non_blocking=True)
+        frame = part.frame_idx.to(self.device, non_blocking=True)
+        ref = loop.decode_refs(self.frames, cam, frame)
+        return loop.Batch(cam, frame,
+                          ref[:, int(rows[0]):int(rows[-1]) + 1])
+
+    def step(self) -> torch.Tensor:
+        """One step; :return: the global loss, on the device."""
+        self.state, metrics = self.step_fn(self.state, self.batch())
+        return metrics["loss"]
+
+    def steps(self, n: int) -> None:
+        for _ in range(n):
+            loss = self.step()
+            if self.state.step % self.log_every == 0:
+                t0 = time.perf_counter()
+                self.losses.append((self.state.step, float(loss)))
+                self.read_wait += time.perf_counter() - t0
+
+    def gathered(self, tensors: dict) -> dict:
+        """Full copies of per-leaf tensors (the frame shards joined)."""
+        return snapshot(ptrain.gather_frame_shards(tensors, self.mesh))
+
+    def first_steps(self, n: int) -> dict:
+        """``n`` steps with what the check compares, as
+        :meth:`FitDriver.first_steps` gives it (the frame-sharded leaves
+        joined over the ranks), and ``batches``: each step's global
+        (cams, frames)."""
+        params0 = self.gathered(self.state.params)
+        losses, grad1 = [], None
+        self.drawn = []
+        for _ in range(n):
+            losses.append(self.step().clone())
+            if grad1 is None:
+                grad1 = self.gathered(FitDriver.adam_grads(self))
+        batches, self.drawn = self.drawn, None
+        return {"params0": params0, "losses": [float(x) for x in losses],
+                "grad1": grad1, "params": self.gathered(self.state.params),
+                "batches": batches}
+
+    def over_ranks(self, value: float, op: str) -> float:
+        """``value`` summed ("sum") or the largest ("max") over the ranks."""
+        t = torch.tensor([float(value)], dtype=torch.float64)
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op],
+                        group=self.host)
+        return float(t[0])
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.host)
+
+    def window(self, seconds: float, chunk: int) -> dict:
+        """Chunks of ``chunk`` steps on every rank while rank 0's host
+        clock is under ``seconds``, opened and closed by a synchronize and
+        a barrier on every rank; :return: steps, window_s (rank 0's),
+        issue_s (per chunk, the host time of its steps less the loss
+        reads' waits)."""
+        sync(self.device)
+        self.barrier()
+        steps, issue = 0, []
+        t0 = time.perf_counter()
+        while self.over_ranks(self.rank == 0
+                              and time.perf_counter() - t0 < seconds,
+                              "max"):
+            c0, w0 = time.perf_counter(), self.read_wait
+            self.steps(chunk)
+            issue.append((time.perf_counter() - c0
+                          - (self.read_wait - w0)) / chunk)
+            steps += chunk
+        sync(self.device)
+        self.barrier()
+        return {"steps": steps, "window_s": time.perf_counter() - t0,
+                "issue_s": issue}
+
+    def free(self) -> None:
+        del self.state, self.scene, self.step_fn
 
 
 @dataclasses.dataclass

@@ -257,11 +257,13 @@ def batches(seed: int, step: int, batch: int, n_cams: int, n_frames: int,
 
 def fit_steps(rig: Rig, params0: dict, frames_u8, settings: dict,
               seed: int, batch: int, n_steps: int, prec: Precision,
-              stats=None, batch_filter=None):
+              stats=None, batch_filter=None, reduce=None):
     """``n_steps`` reference steps from ``params0``.
 
     :param batch_filter: fn(cams, frames) -> (cams, frames), to plant a
         fault in the reference (the tests and the fault readings).
+    :param reduce: fn(loss, grads) -> (loss, grads), applied to each
+        step's loss and gradients before Adam (a sum over ranks).
     :return: dict: losses [n_steps], grad1 (name -> the first step's
         gradient), params (name -> after the last step).
     """
@@ -277,6 +279,8 @@ def fit_steps(rig: Rig, params0: dict, frames_u8, settings: dict,
             cams, frames = batch_filter(cams, frames)
         loss, grads = loss_and_grads(rig, params, frames_u8, cams, frames,
                                      settings, prec, stats)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         losses.append(loss)
         if grad1 is None:
             grad1 = grads

@@ -32,7 +32,9 @@ def test_shape(spec):
         assert any(w["config"] == c["name"] for w in spec["workloads"])
     for w in spec["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = [w["name"] for w in spec["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(spec["workloads"]) // 4), four
     for m in spec["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                            "source"}
@@ -50,7 +52,7 @@ def test_shape(spec):
 def test_every_cell_resolves(spec):
     for w in spec["workloads"]:
         cell = harness.resolve(ROOT, w["name"])
-        assert cell.traffic["kind"] in ("fit", "view")
+        assert cell.traffic["kind"] in ("fit", "view", "fit_sharded")
         e2e = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
         for m in cell.end_to_end + cell.per_layer:
@@ -73,3 +75,23 @@ def test_new_cell_from_new_files_only(tiny_root):
     new.write_text("def read(run):\n    return run['window']['steps']\n")
     assert harness.reader(tiny_root, "steps_done")(
         {"window": {"steps": 7}}) == 7
+
+
+def test_sharded_cell_resolves():
+    """The four-card cell, its files, and what it reports."""
+    cell = harness.resolve(ROOT, "face9-fit-b36-x4")
+    spec = harness.load_spec(ROOT)
+    w = {c["name"]: c for c in spec["workloads"]}["face9-fit-b36-x4"]
+    assert w["chips"] == 4 and w["config"] == "face9-linear"
+    tr = cell.traffic
+    assert tr["kind"] == "fit_sharded" and tr["shard_frames"]
+    assert tr["mesh"] == {"frame": 4, "view": 1, "tile": 1}
+    assert tr["fit"]["batch_size"] == 4 * 36
+    for sub in (f"traffic/{w['traffic']}.json",
+                "limits/face9-fit-b36-x4.json",
+                "metrics/collective_ms.fit.py"):
+        assert (ROOT / "benchmark" / sub).is_file()
+    assert {m["name"] for m in cell.end_to_end} == {"fit_mpix_s", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {
+        "collective_ms.fit", "host_issue_ms.fit", "device_idle_pct.fit",
+        "kernel_roofline_pct.fit", "step_mfu_pct.fit"}

@@ -3,9 +3,10 @@ cell's loop after the window, its Chrome trace written inside the
 checkout, and the timeline read back from that file.
 
 From the device side of the timeline: the union of kernel, copy and set
-intervals (busy time), the summed kernel time, and the kernels that took
-most time. From the gaps in that union: what the host was doing when the
-device went idle, the host operation that began last before each gap.
+intervals (busy time), the summed kernel time, the kernels that took most
+time, and every kernel's summed time by name. From the gaps in that union:
+what the host was doing when the device went idle, the host operation that
+began last before each gap.
 """
 
 from __future__ import annotations
@@ -67,8 +68,9 @@ def read(path: str, window_s: float, top: int = 10) -> dict:
 
     :return: busy_s (union of device intervals), kernel_s (summed kernel
         time), n_kernels, device_ops [[name, s]] (largest summed kernel
-        times), idle_gaps [[host op, s]] (largest summed gaps by what the
-        host was doing), window_s; busy_s 0 where no device event ran.
+        times), kernels {name: s} (every kernel's summed time), idle_gaps
+        [[host op, s]] (largest summed gaps by what the host was doing),
+        window_s; busy_s 0 where no device event ran.
     """
     with gzip.open(path, "rt") as f:
         events = json.load(f).get("traceEvents", [])
@@ -99,5 +101,6 @@ def read(path: str, window_s: float, top: int = 10) -> dict:
         "kernel_s": sum(e["dur"] for e in kernels) * 1e-6,
         "n_kernels": len(kernels),
         "device_ops": [[n, t * 1e-6] for n, t in by_name.most_common(top)],
+        "kernels": {n: t * 1e-6 for n, t in by_name.items()},
         "idle_gaps": [[n, t * 1e-6] for n, t in gaps.most_common(top)],
     }

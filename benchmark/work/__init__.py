@@ -43,6 +43,11 @@ PIXEL_FWD = 1 + 4            # background composite; squared 8-bit error
 EDGE_PAIR_FWD = 3 * 13 + 4   # three edge crossings, the colour blend
 LAPLACIAN_PER_VERTEX = 6 * 3 + 12  # neighbour sum, mean, norm
 ADAM_PER_ELEMENT = 13        # two moments, bias corrections, update
+# the mip kernels' own bytes a stacked pixel: K8 reads tu, tv and the
+# triangle id and writes the LOD and the colour (5 x 4); K9 reads tu, tv,
+# the LOD and the colour's cotangent and writes gtu and gtv (6 x 4)
+MIP_FWD_BYTES = 20
+MIP_BWD_BYTES = 24
 
 
 def least_time(flops: float, nbytes: float) -> dict:
@@ -123,3 +128,10 @@ def step_work(shape: dict, seen: dict, batch: int) -> dict:
     nbytes = (batch * px + geometry_bytes(shape)
               + 2 * 3 * F32 * n_params)
     return least_time(flops, nbytes)
+
+
+def mip_kernels_work(pixels: int) -> dict:
+    """K8 and K9 over ``pixels`` stacked pixels (a step's B H W): their own
+    planes read once and written once, bytes only (the texel reads hit the
+    pyramid, which the step's bytes count once)."""
+    return least_time(0.0, (MIP_FWD_BYTES + MIP_BWD_BYTES) * pixels)
